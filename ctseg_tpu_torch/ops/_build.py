@@ -1,0 +1,133 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu) for Hopper.
+
+At first use, nvcc compiles every source under csrc/ into one shared library
+with a plain C interface, for sm_90a, and ctypes loads it. The library is
+cached under ctseg_tpu_torch/_build/<key>/, where the key hashes the
+sources and the flags, so an edited source never loads a stale library.
+There is no fallback: without nvcc, `library()` raises.
+
+Each C entry point launches on the stream it is given, allocates nothing and
+returns its cudaError_t; `check` turns a non-zero code into an exception.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+LIB_NAME = "libctseg_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",  # registers, shared memory and spills, kept in `log`
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argtypes; every pointer and the stream as c_void_p so none is cut
+# to 32 bits.
+SIGNATURES = {
+    # x, y, alpha, n, s, c, dtype, device, stream
+    "ctseg_in_prelu_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w, bias, alpha, scratch, out, n, h, w, cin, cout, dtype, device, stream
+    "ctseg_conv3x3_in_prelu_fwd": [_P] * 6 + [_I] * 7 + [_P],
+}
+
+
+class KernelLibrary:
+    """The loaded shared library, with how it was built."""
+
+    def __init__(self, path: Path, seconds: float, log: str):
+        self.path = path
+        self.build_seconds = seconds  # 0.0 when a cached build was loaded
+        self.log = log
+        self._lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(self._lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        self._lib.ctseg_error_string.argtypes = [ctypes.c_int]
+        self._lib.ctseg_error_string.restype = ctypes.c_char_p
+
+    def __getattr__(self, name):
+        if name in SIGNATURES:
+            return getattr(self._lib, name)
+        raise AttributeError(name)
+
+    def check(self, code: int, what: str) -> None:
+        if code != 0:
+            msg = self._lib.ctseg_error_string(code).decode()
+            raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def sources():
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def build_key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    candidates = [shutil.which("nvcc")]
+    if CUDA_HOME:
+        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    for c in candidates:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME): the CUDA kernels of "
+        "ctseg_tpu_torch are compiled at first use and have no fallback"
+    )
+
+
+def build(out_dir: Path) -> KernelLibrary:
+    """Compile csrc/*.cu into out_dir/LIB_NAME (atomically) and load it."""
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp)]
+    cmd += [str(p) for p in sources() if p.suffix == ".cu"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, out_dir / LIB_NAME)
+    (out_dir / "build.log").write_text(log)
+    return KernelLibrary(out_dir / LIB_NAME, seconds, log)
+
+
+_lock = threading.Lock()
+_library: Optional[KernelLibrary] = None
+
+
+def library() -> KernelLibrary:
+    """The process's kernel library, built on first call (thread-safe)."""
+    global _library
+    with _lock:
+        if _library is None:
+            out_dir = BUILD_ROOT / build_key()
+            if (out_dir / LIB_NAME).exists():
+                log_file = out_dir / "build.log"
+                log = log_file.read_text() if log_file.exists() else ""
+                _library = KernelLibrary(out_dir / LIB_NAME, 0.0, log)
+            else:
+                _library = build(out_dir)
+        return _library

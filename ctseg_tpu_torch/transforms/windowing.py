@@ -1,0 +1,55 @@
+"""CT Hounsfield-unit windowing on tensors (port of
+ctseg_tpu/transforms/windowing.py).
+
+apply_window clips to [level - width//2, level + width//2] and shifts to
+[0, 1] dividing by (max - min + 1e-8) (reference transforms_2d.py:97-107);
+windowed_channels stacks the brain/soft-tissue/bone windows as a trailing
+channel axis. Shape-polymorphic over leading dims.
+"""
+
+from typing import Tuple
+
+import torch
+
+from ctseg_tpu_torch.constants import (
+    STACKED_WINDOW_MEAN,
+    STACKED_WINDOW_STD,
+    WINDOW_ORDER,
+    WINDOWING_CONFIG,
+)
+
+
+def apply_window(
+    image: torch.Tensor, window_width: int, window_level: int
+) -> torch.Tensor:
+    """Clip to a HU window and rescale it to [0, 1]."""
+    min_ = window_level - (window_width // 2)
+    max_ = window_level + (window_width // 2)
+    return (torch.clamp(image, min_, max_) - min_) / (max_ - min_ + 1e-8)
+
+
+def windowed_channels(image: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) raw HU -> (..., H, W, 3): brain, soft tissue, bone."""
+    chans = [apply_window(image, *WINDOWING_CONFIG[w]) for w in WINDOW_ORDER]
+    return torch.stack(chans, dim=-1)
+
+
+def soft_tissue_window(image: torch.Tensor) -> torch.Tensor:
+    """Single soft-tissue window with a trailing channel axis of 1."""
+    return apply_window(image, *WINDOWING_CONFIG["soft_tissue"])[..., None]
+
+
+def normalize(
+    image: torch.Tensor,
+    mean: Tuple[float, ...] = STACKED_WINDOW_MEAN,
+    std: Tuple[float, ...] = STACKED_WINDOW_STD,
+) -> torch.Tensor:
+    """Per-channel standardization over the trailing channel axis."""
+    mean = torch.as_tensor(mean, dtype=image.dtype, device=image.device)
+    std = torch.as_tensor(std, dtype=image.dtype, device=image.device)
+    if mean.shape[0] != image.shape[-1] or std.shape[0] != image.shape[-1]:
+        raise ValueError(
+            f"mean/std have {mean.shape[0]}/{std.shape[0]} entries for "
+            f"{image.shape[-1]} channels"
+        )
+    return (image - mean) / std
