@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
@@ -18,10 +19,34 @@ Phases (any failure raises and the script exits non-zero):
      batch must launch K1 8 times and K2 9 times.
   5. Whole forward: the CUDA (kernel) path against a CPU copy of the model
      (plain path) on 2 transformed slices.
+  6. K1b, instance_norm_prelu_bwd, and K1's training forward (mean, var)
+     against their plain versions at the train step's IN+PReLU site shapes
+     (phase 2's at batch 128), float32 and bfloat16, three alphas, the
+     near-constant channel included.
+  7. K2b, in_prelu_bwd, and K2's training forward (xhat, rsinv) against
+     their plain versions at the train step's unit shapes (phase 3's at
+     batch 128), float32 and bfloat16.
+  8. K4, window_normalize_degree2, against its plain version on 128 raw
+     280x280 HU slices with draws covering all 8 (k, flip) pairs: bit-equal.
+  9. Train, float32: full-width Model L (2 residual units, degree 2,
+     Focal+Dice with exclude_missing, batch 128) on a synthetic
+     PackedDataset2D of 2x128 slices of 280x280 (as bench.py makes it):
+     Trainer.fit for one epoch with a validation pipeline, then 2 warm-up
+     and 5 timed train_steps. Each step must launch K4 once, K1 and K1b 8
+     times, K2 and K2b 9 times; the loss must be finite and fall over 5
+     steps on one fixed batch (fixed draws). The trained state is saved
+     with training/checkpoint.py and SegmentationService serves one scan
+     from it.
+ 10. Train, bfloat16: the same model from compute_dtype="bfloat16", 2 steps:
+     float32 parameters, finite loss, the same launches.
+ 11. Gradient parity: one float32 step of the full-width model on 2 slices,
+     CUDA kernels against a CPU copy on the plain path from the same
+     weights and draws (and a float64 CPU copy as the referee).
 
-The line before the last lists each kernel's launches in phase 4, its
-largest float32 error and its time per batch beside the plain version's;
-the last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
+The line before the last lists each kernel's launches in the train path
+(phase 9's timed steps; K1 and K2 also give phase 4's serving count), its
+largest float32 error and its time beside the plain version's; the last
+line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 import http.client
@@ -71,6 +96,28 @@ TOL = {
 }
 LOGIT_TOL = 1e-3       # phase 5: |cuda - cpu| <= LOGIT_TOL * (1 + |cpu|)
 MIN_AGREEMENT = 0.999  # phase 5: argmax agreement (random weights: near-ties)
+# Backward kernels (phases 6-7), |kernel - plain| <= atol + rtol * |plain|.
+# dx and dy: float32 differs in the order of the two per-channel sums over
+# H*W terms (mean(gh), mean(gh * xhat)) and nvcc's multiply-add contraction;
+# bfloat16 adds one rounding of the output. dx's atol is scaled by
+# rsqrt(var + eps) where that exceeds 1 (K1's near-constant channel). dalpha
+# is one sum over up to 128*128*128*64 terms in another order: bounded
+# relative to the sum of the terms' magnitudes, sum |g * min(xhat, 0)|.
+BWD_TOL = {
+    "float32": (1e-5, 1e-4),
+    "bfloat16": (1e-5, 2.0 ** -7),
+}
+DALPHA_RTOL = 1e-5
+TRAIN_BATCH = 128
+RAW = 280              # bench.py's raw slice size (post-crop)
+TIMED_STEPS = 5
+# Phase 11 (see phase_grad_parity for what each bound holds). Measured on
+# the H100: conv weights 2e-4 to 2.7e-3 of their norm from float64 (the CPU
+# float32 path up to 2.9e-3), slopes 1.4e-7 to 1.2e-6 of
+# sum |g*min(xhat,0)| (the CPU float32 path up to 1e-5).
+GRAD_RTOL = 1e-3        # whole gradient, and IN-cancelled biases, vs CPU f32
+GRAD_PARAM_RTOL = 1e-2  # each conv weight or bias vs float64, of its norm
+GRAD_SLOPE_RTOL = 1e-4  # each PReLU slope vs float64, of sum |g*min(xhat,0)|
 
 
 def card_label() -> str:
@@ -353,6 +400,459 @@ def phase_forward(label, service, ckpt, scan):
           f"{float(ref.abs().max()):.3f}), label agreement {agree:.6f}")
 
 
+def _k1_input(gen, shape):
+    import torch
+
+    x = torch.randn(shape, generator=gen, device=DEVICE) * 1.5 + 0.5
+    x[..., 0] = 3.0 + 1e-6 * x[..., 0]  # near-constant channel
+    return x
+
+
+def check_dalpha(name, kernel, plain, bound_terms) -> float:
+    """dalpha within DALPHA_RTOL of the magnitude of its summands."""
+    err = abs(float(kernel) - float(plain))
+    bound = 1e-5 + DALPHA_RTOL * float(bound_terms)
+    if not err <= bound:
+        raise AssertionError(f"{name}: dalpha {float(kernel)!r} vs plain "
+                             f"{float(plain)!r}, bound {bound:.3e}")
+    return err
+
+
+def phase_k1b(label, gen):
+    """K1b and K1's training forward at the train step's shapes (batch
+    TRAIN_BATCH), where phase 9 launches them."""
+    import torch
+    from ctseg_tpu_torch.ops import instance_norm as k1
+
+    n = TRAIN_BATCH
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    ms = plain_ms = 0.0
+    for (h, w, c), sites in K1_SITES.items():
+        x32 = _k1_input(gen, (n, h, w, c))
+        g32 = torch.randn((n, h, w, c), generator=gen, device=DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, g = x32.to(dtype), g32.to(dtype)
+            dname = str(dtype).split(".")[-1]
+            atol, rtol = BWD_TOL[dname]
+            tag = f"K1b {(n, h, w, c)} {dname}"
+            alpha = torch.full((1,), 0.25, device=DEVICE)
+            # The training forward's statistics: one-pass, like the plain's.
+            y, mean, var = k1._forward(x, alpha, train=True)
+            _, pmean, pvar = k1._fwd_plain(x, alpha)
+            check_close(f"{tag} mean", mean, pmean, 1e-5, 1e-5)
+            check_close(f"{tag} var", var[:, 1:], pvar[:, 1:], 1e-5, 1e-4)
+            # Channel 0's variance is the rounding noise of E[x^2] - E[x]^2
+            # with E[x^2] about 9: bounded relative to E[x^2].
+            check_close(f"{tag} var (channel 0)", var[:, 0], pvar[:, 0],
+                        1e-5 + 1e-4 * (pvar[:, 0] + pmean[:, 0] ** 2), 0.0)
+            check_close(f"{tag} y", y[..., 1:],
+                        k1.instance_norm_prelu_plain(x, alpha)[..., 1:],
+                        *TOL[("k1", dname)])
+            # Channel 0's y scales that noise by rsqrt(var + eps): held to
+            # the plain formula on the kernel's own statistics.
+            xh0 = (x[..., 0].float() - mean[:, None, None, 0]) * torch.rsqrt(
+                var[:, None, None, 0] + k1.EPS)
+            check_close(f"{tag} y (channel 0)", y[..., 0],
+                        torch.where(xh0 >= 0, xh0, 0.25 * xh0).to(dtype),
+                        *TOL[("k1", dname)])
+            # dx = rsqrt(var + eps) * (terms of the order of g), so its
+            # absolute error scales with rsqrt(var + eps): about 316 on the
+            # near-constant channel, which keeps its branch (sign(x - mean)
+            # is one subtraction on both sides).
+            dx_atol = atol * torch.clamp_min(
+                torch.rsqrt(pvar + k1.EPS), 1.0)[:, None, None, :]
+            for a in ALPHAS:
+                alpha = torch.full((1,), a, device=DEVICE)
+                dx, da = k1.instance_norm_prelu_bwd(x, g, pmean, pvar, alpha)
+                pdx, pda = k1.instance_norm_prelu_bwd_plain(
+                    x, g, pmean, pvar, alpha)
+                err = check_close(f"{tag} alpha={a} dx", dx, pdx, dx_atol, rtol)
+                xhat = (x.float() - pmean[:, None, None]) * torch.rsqrt(
+                    pvar[:, None, None] + k1.EPS)
+                terms = (g.float() * torch.clamp_max(xhat, 0.0)).abs().sum()
+                check_dalpha(f"{tag} alpha={a}", da, pda, terms)
+                worst[dname] = max(worst[dname], err)
+            t_k = time_ms(lambda: k1.instance_norm_prelu_bwd(
+                x, g, pmean, pvar, alpha), 20)
+            t_p = time_ms(lambda: k1.instance_norm_prelu_bwd_plain(
+                x, g, pmean, pvar, alpha), 20)
+            print(f"[{label}] K1b {(n, h, w, c)} {dname}: kernel "
+                  f"{t_k:.4f} ms, plain {t_p:.4f} ms, sites/step {sites}")
+            if dtype == torch.float32:
+                ms += sites * t_k
+                plain_ms += sites * t_p
+    print(f"K1b max |kernel - plain| (dx): float32 {worst['float32']:.3e}, "
+          f"bfloat16 {worst['bfloat16']:.3e}; per step at batch {n}: "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return worst, ms, plain_ms
+
+
+def phase_k2b(label, gen):
+    """K2b and K2's training forward at the train step's shapes (batch
+    TRAIN_BATCH), where phase 9 launches them."""
+    import torch
+    from ctseg_tpu_torch.ops import conv_block as k2
+
+    n = TRAIN_BATCH
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    ms = plain_ms = 0.0
+    for (h, w, cin, cout), sites in K2_SITES.items():
+        g32 = torch.randn((n, h, w, cout), generator=gen, device=DEVICE)
+        xh32 = torch.randn((n, h, w, cout), generator=gen, device=DEVICE)
+        rsinv = torch.rand((n, cout), generator=gen, device=DEVICE) + 0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            g, xhat = g32.to(dtype), xh32.to(dtype)
+            dname = str(dtype).split(".")[-1]
+            atol, rtol = BWD_TOL[dname]
+            tag = f"K2b {(n, h, w, cin, cout)} {dname}"
+            for a in ALPHAS:
+                alpha = torch.full((1,), a, device=DEVICE)
+                dy, da = k2.in_prelu_bwd(g, xhat, rsinv, alpha)
+                pdy, pda = k2.in_prelu_bwd_plain(g, xhat, rsinv, alpha)
+                err = check_close(f"{tag} alpha={a} dy", dy, pdy, atol, rtol)
+                terms = (g.float() * torch.clamp_max(xhat.float(), 0.0)).abs().sum()
+                check_dalpha(f"{tag} alpha={a}", da, pda, terms)
+                worst[dname] = max(worst[dname], err)
+            t_k = time_ms(lambda: k2.in_prelu_bwd(g, xhat, rsinv, alpha), 20)
+            t_p = time_ms(lambda: k2.in_prelu_bwd_plain(g, xhat, rsinv, alpha), 20)
+            print(f"[{label}] K2b {(n, h, w, cin, cout)} {dname}: kernel "
+                  f"{t_k:.4f} ms, plain {t_p:.4f} ms, sites/step {sites}")
+            if dtype == torch.float32:
+                ms += sites * t_k
+                plain_ms += sites * t_p
+    # K2's training forward: xhat and rsinv beside out, against the plain's.
+    for (h, w, cin, cout) in K2_SITES:
+        x32 = torch.randn((n, h, w, cin), generator=gen, device=DEVICE)
+        bound = 1.0 / (9 * cin) ** 0.5
+        w32 = (torch.rand((3, 3, cin, cout), generator=gen, device=DEVICE)
+               * 2 - 1) * bound
+        b = (torch.rand((cout,), generator=gen, device=DEVICE) * 2 - 1) * bound
+        alpha = torch.full((1,), 0.25, device=DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, wt = x32.to(dtype), w32.to(dtype)
+            dname = str(dtype).split(".")[-1]
+            out, xhat, rsinv = k2._forward(x, wt, b, alpha, train=True)
+            pout, pxhat, prsinv = k2._fwd_plain(x, wt, b, alpha)
+            tag = f"K2 train forward {(n, h, w, cin, cout)} {dname}"
+            check_close(f"{tag} out", out, pout, *TOL[("k2", dname)])
+            check_close(f"{tag} xhat", xhat, pxhat, *TOL[("k2", dname)])
+            check_close(f"{tag} rsinv", rsinv, prsinv, 1e-5, 1e-4)
+            del out, xhat, pout, pxhat
+    print(f"K2b max |kernel - plain| (dy): float32 {worst['float32']:.3e}, "
+          f"bfloat16 {worst['bfloat16']:.3e}; per step at batch {n}: "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; K2's training "
+          f"forward (out, xhat, rsinv) matched at every site, batch {n}")
+    return worst, ms, plain_ms
+
+
+def phase_k4(label, gen):
+    import torch
+    from ctseg_tpu_torch.ops import preprocess as k4
+    from ctseg_tpu_torch.transforms.augment import Degree2Draws
+
+    n, size = TRAIN_BATCH, 256
+    images = torch.randn((n, RAW, RAW), generator=gen, device=DEVICE) * 600 + 100
+    i = torch.arange(n, device=DEVICE, dtype=torch.int32)
+    draws = Degree2Draws(
+        top=torch.randint(0, RAW - size + 1, (n,), generator=gen,
+                          device=DEVICE, dtype=torch.int32),
+        left=torch.randint(0, RAW - size + 1, (n,), generator=gen,
+                           device=DEVICE, dtype=torch.int32),
+        k=i % 4, flip=(i // 4) % 2,  # all 8 (k, flip) pairs
+    )
+    out = k4.window_normalize_degree2(images, draws, size)
+    plain = k4.window_normalize_degree2_plain(images, draws, size)
+    if out.shape != (n, size, size, 3) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"K4 output {tuple(out.shape)} not finite")
+    if not torch.equal(out, plain):
+        diff = (out - plain).abs()
+        raise AssertionError(
+            f"K4 differs from its plain version at {int((diff > 0).sum())} "
+            f"values, by up to {float(diff.max())!r}"
+        )
+    # Identity draws: fused_window_normalize's function, exactly.
+    sub = images[:, :size, :size].contiguous()
+    ident = k4.identity_draws(n, DEVICE)
+    if not torch.equal(k4.window_normalize_degree2(sub, ident, size),
+                       k4.window_normalize_degree2_plain(sub, ident, size)):
+        raise AssertionError("K4 with identity draws differs")
+    t_k = time_ms(lambda: k4.window_normalize_degree2(images, draws, size), 20)
+    t_p = time_ms(lambda: k4.window_normalize_degree2_plain(images, draws,
+                                                            size), 20)
+    print(f"[{label}] K4 ({n}, {RAW}, {RAW}) -> ({n}, {size}, {size}, 3): "
+          f"bit-equal to its plain version over all 8 (k, flip) pairs; "
+          f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+    return 0.0, t_k, t_p
+
+
+def _synthetic_split(seed, n):
+    """bench.py's synthetic split: HU ~ N(40, 300), labels 0..9, 0/1
+    indicators."""
+    from ctseg_tpu_torch.data.datasets import PackedDataset2D
+
+    rng = np.random.default_rng(seed)
+    return PackedDataset2D(
+        images=rng.normal(40, 300, size=(n, RAW, RAW)).astype(np.float32),
+        labels=rng.integers(0, 10, size=(n, RAW, RAW)).astype(np.uint8),
+        indicators=rng.integers(0, 2, size=(n, 9)).astype(np.float32),
+    )
+
+
+def _model_l_config(dtype="float32"):
+    from ctseg_tpu_torch.training.config import TrainConfig
+
+    return TrainConfig(filters=FILTERS, num_res_units=2, transform_degree=2,
+                       batch_size=TRAIN_BATCH, loss_fx=("Focal", "Dice"),
+                       exclude_missing=True, epochs=1, compute_dtype=dtype)
+
+
+def _counters():
+    from ctseg_tpu_torch.ops import conv_block, instance_norm, preprocess
+
+    return {
+        "k4": preprocess.window_normalize_degree2,
+        "k1": instance_norm.instance_norm_prelu,
+        "k1b": instance_norm.instance_norm_prelu_bwd,
+        "k2": conv_block.conv3x3_in_prelu,
+        "k2b": conv_block.in_prelu_bwd,
+    }
+
+
+def reset_launches():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+PER_STEP = {"k4": 1, "k1": 8, "k1b": 8, "k2": 9, "k2b": 9}
+
+
+def phase_train(label, workdir: Path, scan: Path):
+    import torch
+    from ctseg_tpu_torch.data.pipeline import DevicePipeline2D
+    from ctseg_tpu_torch.inference.serve import SegmentationService
+    from ctseg_tpu_torch.training.trainer import Trainer
+    from ctseg_tpu_torch.transforms.augment import draw_degree2
+    from ctseg_tpu_torch.utils.miccai import Volume
+
+    trainer = Trainer(_model_l_config(), DEVICE)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    train = DevicePipeline2D(_synthetic_split(0, 2 * TRAIN_BATCH),
+                             TRAIN_BATCH, DEVICE)
+    val = DevicePipeline2D(_synthetic_split(1, TRAIN_BATCH), TRAIN_BATCH,
+                           DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.fit(state, train, val, epochs=1)
+    torch.cuda.synchronize()
+    print(f"[{label}] Trainer.fit, 1 epoch (2 train steps + validation of "
+          f"{TRAIN_BATCH} slices), first steps included: "
+          f"{time.perf_counter() - t0:.3f} s; steps {state.step}, plateau "
+          f"{tuple(state.plateau)}")
+
+    batch = next(train.epoch(torch.Generator(device=DEVICE).manual_seed(2)))
+    draws = draw_degree2(torch.Generator(device=DEVICE).manual_seed(3),
+                         TRAIN_BATCH, RAW, RAW, 256)
+    for _ in range(2):  # warm-up
+        state, metrics = trainer.train_step(state, batch, draws)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(TIMED_STEPS):
+        state, metrics = trainer.train_step(state, batch, draws)
+        losses.append(metrics["loss/total"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * TIMED_STEPS for k, v in PER_STEP.items()}
+    if launches != want:
+        raise AssertionError(f"launches {launches} over {TIMED_STEPS} steps; "
+                             f"want {want}")
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"loss over {TIMED_STEPS} steps on one batch: "
+                             f"{losses}")
+    print(f"[{label}] train step, Model L float32 batch {TRAIN_BATCH}: "
+          f"{step_s * 1e3:.3f} ms/step, {TRAIN_BATCH / step_s:.2f} slices/s "
+          f"(host clock over {TIMED_STEPS} steps after 2 warm-ups); peak "
+          f"device memory {peak / 2**30:.3f} GiB since the fit began; "
+          f"losses {[round(v, 5) for v in losses]}; launches {launches}")
+
+    ckpt_path = workdir / "trained.ckpt"
+    trainer.save(ckpt_path, state)
+    service = SegmentationService(str(ckpt_path), device=DEVICE)
+    labels = service.segment(Volume.from_nrrd(scan / "img.nrrd"))
+    if labels.shape != SCAN or labels.dtype != np.uint8 or labels.max() > 9:
+        raise AssertionError(f"served {labels.shape} {labels.dtype}")
+    print(f"[{label}] the trained checkpoint ({ckpt_path.stat().st_size} "
+          f"bytes) served one {SCAN} scan")
+    return trainer, state, batch, draws, launches, step_s
+
+
+def phase_train_bf16(label, batch, draws):
+    import torch
+    from ctseg_tpu_torch.training.trainer import Trainer
+
+    trainer = Trainer(_model_l_config("bfloat16"), DEVICE)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    reset_launches()
+    losses = []
+    for _ in range(2):
+        state, metrics = trainer.train_step(state, batch, draws)
+        losses.append(float(metrics["loss/total"]))
+    launches = read_launches()
+    dtypes = {p.dtype for p in state.model.parameters()}
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"bf16 model has parameters of {dtypes}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"bf16 losses {losses}")
+    if launches != {k: 2 * v for k, v in PER_STEP.items()}:
+        raise AssertionError(f"bf16 launches {launches} over 2 steps")
+    print(f"[{label}] bfloat16 compute: 2 steps, float32 parameters, losses "
+          f"{losses}, launches {launches}")
+
+
+def _grads(trainer, model, batch, draws):
+    import torch
+
+    images, labels = trainer.train_transform(*batch[:2], draws)
+    model.zero_grad(set_to_none=True)
+    values, _ = trainer._losses_and_logits(model, images, labels, batch[2])
+    trainer.loss.total(values).backward()
+    return {k: p.grad.detach().to("cpu", torch.float64)
+            for k, p in model.named_parameters()}
+
+
+def _grads_and_slope_terms(trainer, model, batch, draws):
+    """_grads on the CPU plain path, and for each PReLU slope the sum of
+    the magnitudes of the terms its gradient adds up, sum |g * min(xhat, 0)|
+    over the slope's site: the plain backwards are wrapped for one backward
+    pass to read g and xhat there."""
+    import torch
+    from ctseg_tpu_torch.ops import conv_block as k2
+    from ctseg_tpu_torch.ops import instance_norm as k1
+
+    terms = {}  # the slope parameter's data_ptr -> sum of |terms|
+
+    def record(alpha, g, xhat):
+        t = float((g * torch.clamp_max(xhat, 0.0)).abs().sum())
+        terms[alpha.data_ptr()] = terms.get(alpha.data_ptr(), 0.0) + t
+
+    def k1_bwd(x, g, mean, var, alpha):
+        stat = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+        record(alpha, g, (x - mean.reshape(stat)) * torch.rsqrt(
+            var.reshape(stat) + k1.EPS))
+        return k1_plain(x, g, mean, var, alpha)
+
+    def k2_bwd(g, xhat, rsinv, alpha):
+        record(alpha, g, xhat)
+        return k2_plain(g, xhat, rsinv, alpha)
+
+    k1_plain, k2_plain = k1.instance_norm_prelu_bwd_plain, k2.in_prelu_bwd_plain
+    k1.instance_norm_prelu_bwd_plain, k2.in_prelu_bwd_plain = k1_bwd, k2_bwd
+    try:
+        grads = _grads(trainer, model, batch, draws)
+    finally:
+        k1.instance_norm_prelu_bwd_plain, k2.in_prelu_bwd_plain = (
+            k1_plain, k2_plain)
+    slopes = {k: terms.get(p.data_ptr()) for k, p in model.named_parameters()
+              if k.endswith("act.weight")}
+    if None in slopes.values() or len(slopes) != len(terms):
+        raise AssertionError(f"{len(terms)} IN+PReLU backwards recorded for "
+                             f"{len(slopes)} slopes")
+    return grads, slopes
+
+
+def phase_grad_parity(label, trainer, state, batch, draws):
+    import copy
+    import dataclasses
+
+    import torch
+    from ctseg_tpu_torch.training.trainer import Trainer
+    from ctseg_tpu_torch.transforms.augment import Degree2Draws
+
+    two = tuple(t[:2] for t in batch)
+    draws2 = Degree2Draws(*(t[:2] for t in draws))
+    cpu_two = tuple(t.cpu() for t in two)
+    cpu_draws = Degree2Draws(*(t.cpu() for t in draws2))
+    g_cuda = _grads(trainer, state.model, two, draws2)
+    g_cpu = _grads(Trainer(trainer.config, "cpu"),
+                   copy.deepcopy(state.model).to("cpu"), cpu_two, cpu_draws)
+    cfg64 = dataclasses.replace(trainer.config, compute_dtype="float64")
+    model64 = copy.deepcopy(state.model).to("cpu", torch.float64)
+    model64.compute_dtype = torch.float64
+    g64, slope_terms = _grads_and_slope_terms(Trainer(cfg64, "cpu"), model64,
+                                              cpu_two, cpu_draws)
+
+    # Many of this model's float32 gradients are sums that nearly cancel
+    # (cuDNN also picks FFT and Winograd convs, which round otherwise than
+    # the CPU's), so each parameter is held to the float64 gradient by the
+    # kind of its leaf:
+    #   - a PReLU slope's gradient sums g * min(xhat, 0) over its site, and
+    #     the sum nearly cancels (|g64| about 1e-5): its error is bounded,
+    #     as phases 6-7's dalpha, relative to the sum of the terms'
+    #     magnitudes (GRAD_SLOPE_RTOL);
+    #   - conv weights and biases, and the shortcut convs', relative to
+    #     their own norm (GRAD_PARAM_RTOL);
+    #   - a conv bias that feeds an InstanceNorm has a zero gradient in
+    #     exact arithmetic (the norm removes per-channel constants): its
+    #     float32 gradient is rounding noise, held to the CPU float32 path
+    #     relative to the unit's weight gradient (GRAD_RTOL).
+    # The whole gradient is held to the CPU float32 path at GRAD_RTOL.
+    # Every reading is printed before any bound is enforced.
+    worst = {"slope": (0.0, ""), "param": (0.0, ""), "cancelled": (0.0, "")}
+    worst_cpu32 = {"slope": 0.0, "param": 0.0}
+    failures = []
+    num = den = 0.0
+
+    def note(kind, rel, name, bound):
+        if rel > worst[kind][0]:
+            worst[kind] = (rel, name)
+        if not rel <= bound:
+            failures.append(f"{name} ({kind}): {rel:.3e} > {bound:.0e}")
+
+    for name, gc in g_cpu.items():
+        prefix = name.rsplit(".", 2)[0]
+        if name.endswith("conv.bias") and f"{prefix}.act.weight" in g_cpu:
+            ref = float(g_cpu[f"{prefix}.conv.weight"].norm())
+            note("cancelled", float((g_cuda[name] - gc).norm()) / ref, name,
+                 GRAD_RTOL)
+            continue
+        num += float((g_cuda[name] - gc).norm()) ** 2
+        den += float(gc.norm()) ** 2
+        if name.endswith("act.weight"):
+            kind, scale, bound = "slope", slope_terms[name], GRAD_SLOPE_RTOL
+        else:
+            kind, scale, bound = "param", float(g64[name].norm()), GRAD_PARAM_RTOL
+        note(kind, float((g_cuda[name] - g64[name]).norm()) / scale, name, bound)
+        worst_cpu32[kind] = max(worst_cpu32[kind],
+                                float((gc - g64[name]).norm()) / scale)
+    total = (num / den) ** 0.5
+    if not total <= GRAD_RTOL:
+        failures.append(f"whole gradient: {total:.3e} > {GRAD_RTOL:.0e}")
+    print(f"[{label}] gradient parity, float32 Model L on 2 slices, CUDA "
+          f"kernels vs CPU plain path from the same weights and draws: whole "
+          f"gradient ||g_cuda - g_cpu|| / ||g_cpu|| {total:.3e} (bound "
+          f"{GRAD_RTOL:.0e}); against float64, worst PReLU slope "
+          f"|g_cuda - g64| / sum|g * min(xhat, 0)| {worst['slope'][0]:.3e} "
+          f"({worst['slope'][1]}; CPU float32 path {worst_cpu32['slope']:.3e};"
+          f" bound {GRAD_SLOPE_RTOL:.0e}), worst conv weight or bias "
+          f"||g_cuda - g64|| / ||g64|| {worst['param'][0]:.3e} "
+          f"({worst['param'][1]}; CPU float32 path {worst_cpu32['param']:.3e}"
+          f"; bound {GRAD_PARAM_RTOL:.0e}); worst IN-cancelled bias "
+          f"{worst['cancelled'][0]:.3e} of its weight's gradient norm "
+          f"({worst['cancelled'][1]}; bound {GRAD_RTOL:.0e}); "
+          f"{len(g_cpu)} parameters, {len(slope_terms)} slopes")
+    if failures:
+        raise AssertionError("gradient parity: " + "; ".join(failures))
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -362,10 +862,11 @@ def main() -> int:
         return 1
     from ctseg_tpu_torch.ops import _build
 
+    from ctseg_tpu_torch.training.config import use_float32_convs
+
     label = card_label()
     print(label)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    use_float32_convs()  # as every model the port builds does
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
@@ -380,26 +881,49 @@ def main() -> int:
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     k1_err, k1_ms, k1_plain = phase_k1(label, gen)
     k2_err, k2_ms, k2_plain = phase_k2(label, gen)
+    k1b_err, k1b_ms, k1b_plain = phase_k1b(label, gen)
+    k2b_err, k2b_ms, k2b_plain = phase_k2b(label, gen)
+    k4_err, k4_ms, k4_plain = phase_k4(label, gen)
     with tempfile.TemporaryDirectory() as tmp:
-        service, ckpt, scan, launches = phase_serve(label, Path(tmp))
+        service, ckpt, scan, serve_launches = phase_serve(label, Path(tmp))
         phase_forward(label, service, ckpt, scan)
+        del service
+        trainer, state, batch, draws, launches, _ = phase_train(
+            label, Path(tmp), scan)
+        phase_grad_parity(label, trainer, state, batch, draws)
+        del trainer, state
+        torch.cuda.empty_cache()
+        phase_train_bf16(label, batch, draws)
+
+    def entry(name, key, source, replaces, err, ms, plain_ms):
+        return {"name": name, "route": "cuda",
+                "source": f"ctseg_tpu_torch/csrc/{source}",
+                "replaces": f"ctseg_tpu/ops/pallas/{replaces}",
+                "launches": launches[key], "max_abs_err": err["float32"],
+                "max_abs_err_bf16": err["bfloat16"],
+                "ms": ms, "plain_ms": plain_ms}
 
     kernels = [
-        {"name": "instance_norm_prelu", "route": "cuda",
-         "source": "ctseg_tpu_torch/csrc/instance_norm.cu",
-         "replaces": "ctseg_tpu/ops/pallas/instance_norm.py:254",
-         "launches": launches["k1"], "max_abs_err": k1_err["float32"],
-         "max_abs_err_bf16": k1_err["bfloat16"],
-         "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "conv3x3_in_prelu", "route": "cuda",
-         "source": "ctseg_tpu_torch/csrc/conv_block.cu",
-         "replaces": "ctseg_tpu/ops/pallas/conv_block.py:146",
-         "launches": launches["k2"], "max_abs_err": k2_err["float32"],
-         "max_abs_err_bf16": k2_err["bfloat16"],
-         "ms": k2_ms, "plain_ms": k2_plain},
+        entry("instance_norm_prelu", "k1", "instance_norm.cu",
+              "instance_norm.py:254", k1_err, k1_ms, k1_plain),
+        entry("instance_norm_prelu_bwd", "k1b", "instance_norm.cu",
+              "instance_norm.py:319", k1b_err, k1b_ms, k1b_plain),
+        entry("conv3x3_in_prelu", "k2", "conv_block.cu",
+              "conv_block.py:146", k2_err, k2_ms, k2_plain),
+        entry("in_prelu_bwd", "k2b", "conv_block.cu",
+              "conv_block.py:193", k2b_err, k2b_ms, k2b_plain),
+        entry("window_normalize_degree2", "k4", "preprocess.cu",
+              "preprocess.py:81", {"float32": k4_err, "bfloat16": k4_err},
+              k4_ms, k4_plain),
     ]
-    print("(ms, plain_ms: float32 device time of one batch-32 forward's "
-          "sites, kernel vs plain version; max_abs_err: float32)")
+    kernels[0]["launches_serve"] = serve_launches["k1"]
+    kernels[2]["launches_serve"] = serve_launches["k2"]
+    print(f"(launches: phase 9's {TIMED_STEPS} timed train steps, "
+          "launches_serve: phase 4's requests; ms, plain_ms: float32 device "
+          "time, kernel vs plain version, of the sites of one forward at "
+          f"the serving batch {BATCH} for K1 and K2, of one backward at the "
+          f"training batch {TRAIN_BATCH} for K1b and K2b, and of one "
+          f"batch-{TRAIN_BATCH} transform for K4; max_abs_err: float32)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,27 +1,38 @@
-// K2 forward: PReLU(InstanceNorm(conv3x3_same(x, w) + b)), NHWC, the
-// inference form (train=False: no xhat/rsinv residuals).
+// K2: PReLU(InstanceNorm(conv3x3_same(x, w) + b)), NHWC, forward and the
+// fused PReLU + InstanceNorm backward.
 //
 // Replaces: ctseg_tpu/ops/pallas/conv_block.py::fused_conv3x3_in_prelu,
 // forward (_run_forward / _fwd_kernel), and with it the float32 prototype
-// ctseg_tpu/ops/pallas/conv_fused.py::conv3x3_in_prelu (same function).
-// Same arithmetic: products of the stored values accumulated in float32,
-// + bias, then TWO-pass statistics per (sample, channel): mean, then the
-// centred variance mean((y - mean)^2), rsqrt(var + eps), PReLU.
+// ctseg_tpu/ops/pallas/conv_fused.py::conv3x3_in_prelu (same function); and
+// conv_block.py::in_prelu_bwd (_bwd_kernel), the backward from the saved
+// residuals. Same arithmetic: products of the stored values accumulated in
+// float32, + bias, then TWO-pass statistics per (sample, channel): mean,
+// then the centred variance mean((y - mean)^2), rsqrt(var + eps), PReLU.
+// The training forward (train=True) also writes xhat in x's type and rsinv
+// = rsqrt(var + eps) as (N, Cout) float32, so the backward never re-runs the
+// convolution:
+//   gh = g * (xhat >= 0 ? 1 : alpha)
+//   dy = rsinv * (gh - mean(gh) - xhat * mean(gh * xhat))
+//   dalpha = sum(g * min(xhat, 0)), as per-(sample, channel-tile) partials.
+// The conv's own gradients (dx, dw, db from dy) are cuDNN's, as the JAX rule
+// leaves them to XLA.
 //
 // What bounds it on an H100: at the UNet's widths the conv is compute-bound
 // (2*9*Cin flops per output against 4 bytes written; 4.8 GFLOP per slice at
-// the 16x16, 1024->1024 bottom site), and the norm is memory-bound. This
-// first version runs the conv on the FP32 pipes (no tensor cores), as an
-// implicit GEMM: M = N*H*W output pixels, N = Cout, K = 9*Cin taken tap by
-// tap. Each 256-thread block computes a 128-pixel x 64-channel tile; each
-// step stages a 128 x 16 slice of the (zero-padded) input and a 16 x 64
-// slice of the weights in shared memory, and every thread accumulates an
-// 8 x 4 register tile, so each staged value is reused 64 or 128 times.
-// The conv output goes to a float32 scratch (the TPU kept it in VMEM; a
-// per-sample slab is up to 4 MB here, beyond shared memory), and a second
-// kernel reads it three times (mean, variance, normalize) in coalesced
-// 32-channel rows. wgmma on bf16 inputs, TMA staging and keeping the
-// statistics in the conv's epilogue are later work.
+// the 16x16, 1024->1024 bottom site), and the norm and its backward are
+// memory-bound. This first version runs the conv on the FP32 pipes (no
+// tensor cores), as an implicit GEMM: M = N*H*W output pixels, N = Cout,
+// K = 9*Cin taken tap by tap. Each 256-thread block computes a 128-pixel x
+// 64-channel tile; each step stages a 128 x 16 slice of the (zero-padded)
+// input and a 16 x 64 slice of the weights in shared memory, and every
+// thread accumulates an 8 x 4 register tile, so each staged value is reused
+// 64 or 128 times. The conv output goes to a float32 scratch (the TPU kept
+// it in VMEM; a per-sample slab is up to 4 MB here, beyond shared memory),
+// and a second kernel reads it three times (mean, variance, normalize) in
+// coalesced 32-channel rows. The backward kernel reads g and xhat twice
+// (sums, then dy) and writes dy once, one block per (sample, 32 channels).
+// wgmma on bf16 inputs, TMA staging and keeping the statistics in the
+// conv's epilogue are later work.
 #include "common.cuh"
 
 namespace {
@@ -153,10 +164,13 @@ constexpr int kRows = 16;   // warps per block, striding over pixels
 
 // Two-pass InstanceNorm + PReLU of the float32 conv output, per (sample,
 // 32-channel tile): mean, centred variance, then normalize and store in T.
+// With xhat_out and rsinv_out (training), also stores xhat in T and rsinv.
 template <typename T>
 __global__ void __launch_bounds__(kTileC * kRows)
     in_prelu_two_pass_kernel(const float* __restrict__ y, T* __restrict__ out,
-                             const float* __restrict__ alpha, int s, int c) {
+                             const float* __restrict__ alpha,
+                             T* __restrict__ xhat_out,
+                             float* __restrict__ rsinv_out, int s, int c) {
   __shared__ float buf[kRows][32];
   const int ch = blockIdx.x * kTileC + threadIdx.x;
   const bool active = ch < c;
@@ -182,16 +196,52 @@ __global__ void __launch_bounds__(kTileC * kRows)
 
   const float rsinv = rsqrtf(var + ctseg::kEps);
   const float a = alpha[0];
+  if (xhat_out != nullptr) {
+    if (threadIdx.y == 0) {
+      rsinv_out[static_cast<size_t>(blockIdx.y) * c + ch] = rsinv;
+    }
+    for (int p = threadIdx.y; p < s; p += kRows) {
+      const size_t i = base + static_cast<size_t>(p) * c;
+      const float xhat = (y[i] - mean) * rsinv;
+      out[i] = ctseg::from_float<T>(ctseg::prelu(xhat, a));
+      xhat_out[i] = ctseg::from_float<T>(xhat);
+    }
+    return;
+  }
   for (int p = threadIdx.y; p < s; p += kRows) {
     const size_t i = base + static_cast<size_t>(p) * c;
     out[i] = ctseg::from_float<T>(ctseg::prelu((y[i] - mean) * rsinv, a));
   }
 }
 
+// K2b: the PReLU + InstanceNorm backward from the saved xhat and rsinv, per
+// (sample, 32-channel tile); see ctseg::in_prelu_bwd_block.
+template <typename T>
+__global__ void __launch_bounds__(kTileC * kRows)
+    in_prelu_bwd_saved_kernel(const T* __restrict__ g,
+                              const T* __restrict__ xhat,
+                              const float* __restrict__ rsinv,
+                              const float* __restrict__ alpha,
+                              T* __restrict__ dy,
+                              float* __restrict__ dalpha_parts, int s, int c) {
+  __shared__ float buf[kRows][32];
+  const int ch = blockIdx.x * kTileC + threadIdx.x;
+  const bool active = ch < c;
+  const size_t base = static_cast<size_t>(blockIdx.y) * s * c + ch;
+  const float scale =
+      active ? rsinv[static_cast<size_t>(blockIdx.y) * c + ch] : 0.f;
+  const auto xhat_at = [=](size_t i) { return ctseg::to_float(xhat[i]); };
+  ctseg::in_prelu_bwd_block<kRows>(
+      g, dy, dalpha_parts + static_cast<size_t>(blockIdx.y) * gridDim.x +
+                 blockIdx.x,
+      xhat_at, scale, alpha[0], s, c, base, active, buf);
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const void* w, const void* bias,
-                   const void* alpha, void* scratch, void* out, int n, int h,
-                   int wd, int cin, int cout, cudaStream_t stream) {
+                   const void* alpha, void* scratch, void* out,
+                   void* xhat_out, void* rsinv_out, int n, int h, int wd,
+                   int cin, int cout, cudaStream_t stream) {
   const int total = n * h * wd;
   const dim3 conv_grid((total + kBM - 1) / kBM, (cout + kBN - 1) / kBN);
   conv3x3_bias_kernel<T><<<conv_grid, kThreads, 0, stream>>>(
@@ -203,33 +253,74 @@ cudaError_t launch(const void* x, const void* w, const void* bias,
   const dim3 norm_grid((cout + kTileC - 1) / kTileC, n);
   in_prelu_two_pass_kernel<T><<<norm_grid, dim3(kTileC, kRows), 0, stream>>>(
       static_cast<const float*>(scratch), static_cast<T*>(out),
-      static_cast<const float*>(alpha), h * wd, cout);
+      static_cast<const float*>(alpha), static_cast<T*>(xhat_out),
+      static_cast<float*>(rsinv_out), h * wd, cout);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* g, const void* xhat, const void* rsinv,
+                       const void* alpha, void* dy, void* dalpha_parts, int n,
+                       int s, int c, cudaStream_t stream) {
+  const dim3 grid((c + kTileC - 1) / kTileC, n);
+  in_prelu_bwd_saved_kernel<T><<<grid, dim3(kTileC, kRows), 0, stream>>>(
+      static_cast<const T*>(g), static_cast<const T*>(xhat),
+      static_cast<const float*>(rsinv), static_cast<const float*>(alpha),
+      static_cast<T*>(dy), static_cast<float*>(dalpha_parts), s, c);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x: (n, h, wd, cin) and w: (3, 3, cin, cout), contiguous, of the type
-// `dtype` names; bias: (cout,) float32; alpha: one float32; scratch:
-// (n, h, wd, cout) float32; out: (n, h, wd, cout) of x's type. All on the
-// device. Launches both kernels on `stream`, allocates nothing, returns the
-// first failing launch's cudaError_t.
+// Forward. x: (n, h, wd, cin) and w: (3, 3, cin, cout), contiguous, of the
+// type `dtype` names; bias: (cout,) float32; alpha: one float32; scratch:
+// (n, h, wd, cout) float32; out: (n, h, wd, cout) of x's type. xhat_out
+// (like out) and rsinv_out ((n, cout) float32) for the training forward, or
+// both null (serving). All on the device. Launches both kernels on `stream`,
+// allocates nothing, returns the first failing launch's cudaError_t.
 extern "C" int ctseg_conv3x3_in_prelu_fwd(const void* x, const void* w,
                                           const void* bias, const void* alpha,
-                                          void* scratch, void* out, int n,
-                                          int h, int wd, int cin, int cout,
-                                          int dtype, int device,
+                                          void* scratch, void* out,
+                                          void* xhat_out, void* rsinv_out,
+                                          int n, int h, int wd, int cin,
+                                          int cout, int dtype, int device,
                                           void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if ((xhat_out == nullptr) != (rsinv_out == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case ctseg::kFloat32:
+      return launch<float>(x, w, bias, alpha, scratch, out, xhat_out,
+                           rsinv_out, n, h, wd, cin, cout, st);
+    case ctseg::kBFloat16:
+      return launch<__nv_bfloat16>(x, w, bias, alpha, scratch, out, xhat_out,
+                                   rsinv_out, n, h, wd, cin, cout, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Backward (K2b). g, xhat, dy: (n, s, c) contiguous, of the type `dtype`
+// names; rsinv: (n, c) float32; alpha: one float32; dalpha_parts:
+// (n, ceil(c / 32)) float32, one partial per block.
+extern "C" int ctseg_in_prelu_bwd_saved(const void* g, const void* xhat,
+                                        const void* rsinv, const void* alpha,
+                                        void* dy, void* dalpha_parts, int n,
+                                        int s, int c, int dtype, int device,
+                                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case ctseg::kFloat32:
-      return launch<float>(x, w, bias, alpha, scratch, out, n, h, wd, cin,
-                           cout, st);
+      return launch_bwd<float>(g, xhat, rsinv, alpha, dy, dalpha_parts, n, s,
+                               c, st);
     case ctseg::kBFloat16:
-      return launch<__nv_bfloat16>(x, w, bias, alpha, scratch, out, n, h, wd,
-                                   cin, cout, st);
+      return launch_bwd<__nv_bfloat16>(g, xhat, rsinv, alpha, dy,
+                                       dalpha_parts, n, s, c, st);
     default:
       return cudaErrorInvalidValue;
   }

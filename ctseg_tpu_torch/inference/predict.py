@@ -28,7 +28,11 @@ import torch.nn.functional as F
 
 from ctseg_tpu_torch.constants import NUM_CLASSES, STRUCTURES
 from ctseg_tpu_torch.ops.masks import squash_predictions
-from ctseg_tpu_torch.training.config import TrainConfig, load_checkpoint
+from ctseg_tpu_torch.training.config import (
+    TrainConfig,
+    load_checkpoint,
+    model_dtype,
+)
 from ctseg_tpu_torch.transforms.pipelines import TransformFn, get_transform
 from ctseg_tpu_torch.utils import nrrd_io
 from ctseg_tpu_torch.utils.miccai import CropBox, Volume
@@ -40,15 +44,16 @@ def predict_labels_2d(
     volume: np.ndarray,
     device,
     batch_size: int = 32,
+    dtype: torch.dtype = torch.float32,
 ) -> np.ndarray:
     """(D, H, W) raw HU -> (D, H, W) uint8 label map via the slice model.
 
     Slices are cast to float32 before the transform, as the JAX path does;
-    the transformed batch then takes the model's dtype. The last batch is
-    simply shorter (eager PyTorch keeps no per-shape program cache).
+    the transformed batch then takes the compute `dtype` (the config's, not
+    the parameters', which stay float32 under bfloat16 compute). The last
+    batch is simply shorter (eager PyTorch keeps no per-shape program cache).
     """
     d, h, w = volume.shape
-    dtype = next(model.parameters()).dtype
     out = np.zeros((d, h, w), np.uint8)
     with torch.inference_mode():
         for lo in range(0, d, batch_size):
@@ -87,7 +92,8 @@ def predict_scan(
     transform = get_transform(
         config.transform_degree, train=False, size=(config.input_size,) * 2
     )
-    labels = predict_labels_2d(model, transform, region, device, batch_size)
+    labels = predict_labels_2d(model, transform, region, device, batch_size,
+                               dtype=model_dtype(config))
     if box is None:
         return labels
     full = np.zeros(data.shape, np.uint8)

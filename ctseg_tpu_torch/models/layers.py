@@ -12,6 +12,12 @@ IN+PReLU site calls ops.instance_norm.instance_norm_prelu, and every
 stride-1 3x3 Conv+IN+PReLU unit calls ops.conv_block.conv3x3_in_prelu;
 strided, transposed, shortcut and 1x1 convs stay torch convs (the JAX
 package leaves them to XLA).
+
+Parameters stay float32 (float64 in the float64 tests) and the units
+compute in their input's dtype, as the JAX model's dtype/param_dtype split
+does: conv weights and biases are cast to it at the call, while the
+kernels take the PReLU slope and the fused unit's bias in float32 (their
+statistics and bias add are float32).
 """
 
 import math
@@ -19,6 +25,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ctseg_tpu_torch.ops.conv_block import conv3x3_in_prelu
 from ctseg_tpu_torch.ops.instance_norm import instance_norm_prelu
@@ -35,6 +42,12 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 def _nchw(y: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 3, 1, 2)
+
+
+def conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """`conv(x)` computed in x's dtype, the parameters cast at the call."""
+    return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                    conv.stride, conv.padding)
 
 
 class ConvUnit(nn.Module):
@@ -60,13 +73,15 @@ class ConvUnit(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.act is None:
-            return self.conv(x)
+            return conv2d(self.conv, x)
         if self.fused:
-            w = self.conv.weight.permute(2, 3, 1, 0).contiguous()
+            w = self.conv.weight.to(x.dtype).permute(2, 3, 1, 0).contiguous()
             return _nchw(conv3x3_in_prelu(
                 _nhwc(x), w, self.conv.bias, self.act.weight
             ))
-        return _nchw(instance_norm_prelu(_nhwc(self.conv(x)), self.act.weight))
+        return _nchw(instance_norm_prelu(
+            _nhwc(conv2d(self.conv, x)), self.act.weight
+        ))
 
 
 class ConvTransposeUnit(nn.Module):
@@ -87,7 +102,11 @@ class ConvTransposeUnit(nn.Module):
         self.act = None if conv_only else nn.PReLU(init=0.25)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv(x)
+        c = self.conv
+        y = F.conv_transpose2d(
+            x, c.weight.to(x.dtype), c.bias.to(x.dtype), c.stride, c.padding,
+            c.output_padding,
+        )
         if self.act is None:
             return y
         return _nchw(instance_norm_prelu(_nhwc(y), self.act.weight))
@@ -124,7 +143,9 @@ class ResidualUnit(nn.Module):
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.residual(x) + self.conv(x)
+        res = x if isinstance(self.residual, nn.Identity) \
+            else conv2d(self.residual, x)
+        return res + self.conv(x)
 
 
 def reset_parameters(model: nn.Module,

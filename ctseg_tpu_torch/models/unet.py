@@ -30,6 +30,7 @@ from ctseg_tpu_torch.models.layers import (
     ConvTransposeUnit,
     ConvUnit,
     ResidualUnit,
+    conv2d,
     reset_parameters,
 )
 
@@ -108,7 +109,10 @@ class SegmentationModel(nn.Module):
     (capstone/training/base_trainer.py:53,81-85).
 
     The parameters are made on the CPU, drawn from `generator` (a CPU
-    torch.Generator) when one is given, then moved to `device` and `dtype`.
+    torch.Generator) when one is given, then moved to `device`. `dtype` is
+    the compute dtype: the input is cast to it and every unit computes in
+    it, while the parameters stay float32 (float64 for a float64 model), as
+    the JAX model keeps param_dtype apart from dtype.
     """
 
     def __init__(
@@ -133,10 +137,15 @@ class SegmentationModel(nn.Module):
         )
         if generator is not None:
             reset_parameters(self, generator)
-        self.to(device=device, dtype=dtype)
+        self.compute_dtype = dtype or torch.float32
+        param_dtype = (torch.float64 if self.compute_dtype == torch.float64
+                       else torch.float32)
+        self.to(device=device, dtype=param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, C, H, W) images -> (N, out_channels, H, W) logits."""
+        """(N, C, H, W) images -> (N, out_channels, H, W) logits in the
+        compute dtype."""
+        x = x.to(self.compute_dtype)
         if self.conv1x1 is not None:
-            x = self.conv1x1(x)
+            x = conv2d(self.conv1x1, x)
         return self.unet(x)

@@ -35,10 +35,17 @@ _I = ctypes.c_int
 # name -> argtypes; every pointer and the stream as c_void_p so none is cut
 # to 32 bits.
 SIGNATURES = {
-    # x, y, alpha, n, s, c, dtype, device, stream
-    "ctseg_in_prelu_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, w, bias, alpha, scratch, out, n, h, w, cin, cout, dtype, device, stream
-    "ctseg_conv3x3_in_prelu_fwd": [_P] * 6 + [_I] * 7 + [_P],
+    # x, y, alpha, mean_out, var_out, n, s, c, dtype, device, stream
+    "ctseg_in_prelu_fwd": [_P] * 5 + [_I] * 5 + [_P],
+    # x, g, mean, var, alpha, dx, dalpha_parts, n, s, c, dtype, device, stream
+    "ctseg_in_prelu_bwd": [_P] * 7 + [_I] * 5 + [_P],
+    # x, w, bias, alpha, scratch, out, xhat_out, rsinv_out,
+    # n, h, w, cin, cout, dtype, device, stream
+    "ctseg_conv3x3_in_prelu_fwd": [_P] * 8 + [_I] * 7 + [_P],
+    # g, xhat, rsinv, alpha, dy, dalpha_parts, n, s, c, dtype, device, stream
+    "ctseg_in_prelu_bwd_saved": [_P] * 6 + [_I] * 5 + [_P],
+    # images, top, left, rot, flip, params, out, n, h, w, s, device, stream
+    "ctseg_window_normalize": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 

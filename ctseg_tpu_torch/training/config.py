@@ -3,9 +3,10 @@
 `TrainConfig` keeps the JAX package's fields and `as_dict`/`from_dict`, so
 the same hyperparameter dicts describe both. A checkpoint is the shape of a
 Lightning `.ckpt`: {"hyper_parameters": config dict, "state_dict": MONAI
-keys}. `load_checkpoint` reads the port's own checkpoints and the
-reference's `.ckpt` files alike (it replaces Trainer.restore for inference);
-the port never reads the JAX package's flax msgpack checkpoints.
+keys, float32}; a training checkpoint (training/checkpoint.py) adds the
+optimizer, plateau and step. `load_checkpoint` reads all of them and the
+reference's `.ckpt` files alike for inference; the port never reads the JAX
+package's flax msgpack checkpoints.
 """
 
 import dataclasses
@@ -79,14 +80,29 @@ def model_dtype(config: TrainConfig) -> torch.dtype:
     return _DTYPES[config.compute_dtype]
 
 
+def use_float32_convs() -> None:
+    """A float32 model computes in float32 on the card: cuDNN's convs and
+    cuBLAS's matmuls may not round their inputs to TF32, as torch lets cuDNN
+    do by default. The hand-written kernels compute in FP32, so without this
+    the library convs beside them (strided, transposed, shortcut, and every
+    conv backward) would run at another precision. Process-wide torch flags;
+    no effect on bfloat16 convs or on the CPU."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def build_model(config: TrainConfig, device="cpu",
                 generator: torch.Generator = None) -> SegmentationModel:
-    """The 2D SegmentationModel a config describes, in its compute dtype."""
+    """The 2D SegmentationModel a config describes: float32 parameters
+    (float64 for "float64"), computing in the config's dtype. Every model
+    of the port is built here, so this is where TF32 is turned off
+    (`use_float32_convs`)."""
     if config.spatial_dims != 2:
         raise NotImplementedError(
             f"{config.spatial_dims}D checkpoints wait for the port's 3D slice "
             "(ROADMAP.md, modules to port: 3D)"
         )
+    use_float32_convs()
     return SegmentationModel(
         in_channels=config.in_channels
         or transform_in_channels(config.transform_degree),
@@ -120,15 +136,10 @@ def _num_res_units(state_dict) -> int:
     return 0
 
 
-def load_checkpoint(path: Union[str, Path], device="cpu"
-                    ) -> Tuple[TrainConfig, SegmentationModel]:
-    """A port checkpoint or a reference Lightning `.ckpt` -> (config, model
-    on `device`, in eval mode).
-
-    The file is unpickled (Lightning checkpoints hold more than tensors):
-    load only checkpoints you trust.
-    """
-    ckpt = torch.load(str(path), map_location="cpu", weights_only=False)
+def model_from_checkpoint(ckpt: Dict[str, Any], device="cpu"
+                          ) -> Tuple[TrainConfig, SegmentationModel]:
+    """A loaded checkpoint dict (the port's, or a reference Lightning
+    `.ckpt`'s) -> (config, model on `device`)."""
     hp = dict(ckpt.get("hyper_parameters", ckpt.get("hparams", {})))
     sd = {k.replace(".adn.A.", ".act."): v for k, v in ckpt["state_dict"].items()}
     hp.setdefault("transform_degree", 1)  # the reference's default
@@ -144,4 +155,17 @@ def load_checkpoint(path: Union[str, Path], device="cpu"
         and not (not config.downsample and k.startswith("conv1x1."))
     }
     model.load_state_dict(sd)
-    return config, model.to(device).eval()
+    return config, model.to(device)
+
+
+def load_checkpoint(path: Union[str, Path], device="cpu"
+                    ) -> Tuple[TrainConfig, SegmentationModel]:
+    """A port checkpoint (training/checkpoint.py's included) or a reference
+    Lightning `.ckpt` -> (config, model on `device`, in eval mode).
+
+    The file is unpickled (Lightning checkpoints hold more than tensors):
+    load only checkpoints you trust.
+    """
+    ckpt = torch.load(str(path), map_location="cpu", weights_only=False)
+    config, model = model_from_checkpoint(ckpt, device)
+    return config, model.eval()

@@ -1,0 +1,310 @@
+"""The 2D trainer: train and eval steps, plateau LR, checkpoints (port of
+ctseg_tpu/training/trainer.py, without mixup).
+
+  TrainState = (step, model, optimizer, plateau)
+  train_step: degree-2 transform (K4) -> forward (K1, K2) -> multi-loss ->
+              backward (K1b, K2b, cuDNN) -> Adam(lr from plateau) -> Dice
+  eval_step:  test transform -> forward -> losses and per-structure Dice
+
+Eager PyTorch on one device. A step never waits for the device: metrics
+stay device tensors until the one stacked fetch at the end of an epoch.
+Losses and metrics run in float32 under bfloat16 compute (float64 under
+float64), as in the JAX trainer.
+"""
+
+import dataclasses
+import signal
+import time
+import warnings
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ctseg_tpu_torch.constants import STRUCTURES
+from ctseg_tpu_torch.losses.segmentation import MultiLoss
+from ctseg_tpu_torch.metrics.dice import (
+    DiceMetric,
+    dice_per_sample_class,
+    masked_mean_batch,
+)
+from ctseg_tpu_torch.models.unet import SegmentationModel
+from ctseg_tpu_torch.ops.masks import squash_predictions
+from ctseg_tpu_torch.training import checkpoint as ckpt
+from ctseg_tpu_torch.training.config import TrainConfig, build_model, model_dtype
+from ctseg_tpu_torch.training.logging import MetricLogger
+from ctseg_tpu_torch.training.optimizer import make_adam, set_lr
+from ctseg_tpu_torch.training.schedule import (
+    PlateauState,
+    plateau_init,
+    reduce_on_plateau,
+)
+from ctseg_tpu_torch.transforms.augment import Degree2Draws, draw_degree2
+from ctseg_tpu_torch.transforms.pipelines import get_transform
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    model: SegmentationModel
+    optimizer: torch.optim.Adam
+    plateau: PlateauState
+
+
+class Preempted(RuntimeError):
+    """Raised by Trainer.fit after a SIGTERM-triggered save: training was cut
+    short. Carries the last state; callers must not run their 'training
+    finished' tails (publishing the final model, test evaluation)."""
+
+    def __init__(self, state: TrainState, epoch: int):
+        super().__init__(f"training preempted by SIGTERM at epoch {epoch}")
+        self.state = state
+        self.epoch = epoch
+
+
+def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
+    """The epoch's generator (permutation, then the steps' draws), derived
+    from (seed, epoch) so a resumed run continues the sequence."""
+    derived = int(np.random.SeedSequence([seed, epoch]).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(derived)
+
+
+class Trainer:
+    def __init__(self, config: TrainConfig, device="cpu"):
+        if config.spatial_dims != 2:
+            raise NotImplementedError(
+                "3D training waits for the port's 3D slice (ROADMAP.md, "
+                "modules to port: 3D)"
+            )
+        if config.mixup or "Boundary" in config.loss_fx:
+            raise NotImplementedError(
+                "mixup and the Boundary loss wait for the Model M slice "
+                "(ROADMAP.md, modules to port: Model M)"
+            )
+        self.config = config
+        self.device = torch.device(device)
+        self._metric_dtype = (torch.float64 if model_dtype(config) == torch.float64
+                              else torch.float32)
+        self.loss = MultiLoss(list(config.loss_fx),
+                              exclude_missing=config.exclude_missing)
+        self.dice = DiceMetric()
+        size = (config.input_size,) * 2
+        self.train_transform = get_transform(config.transform_degree, True, size)
+        self.test_transform = get_transform(config.transform_degree, False, size)
+
+    # ------------------------------------------------------------------ state
+    def init_state(self, generator: Optional[torch.Generator] = None
+                   ) -> TrainState:
+        """Fresh weights (drawn from `generator`, default seeded by
+        config.seed), Adam, and the plateau at the config's LR."""
+        gen = generator or torch.Generator().manual_seed(self.config.seed)
+        model = build_model(self.config, self.device, generator=gen).train()
+        return TrainState(
+            step=0, model=model,
+            optimizer=make_adam(model.parameters(), self.config.lr),
+            plateau=plateau_init(self.config.lr, mode="max"),
+        )
+
+    # ------------------------------------------------------------------ steps
+    def _losses_and_logits(self, model, images, labels, indicators,
+                           sample_mask=None):
+        x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        logits = model(x).to(self._metric_dtype)
+        values = self.loss(logits, labels, indicators, sample_mask=sample_mask)
+        return values, logits
+
+    def _predictions(self, logits, indicators):
+        """Argmax; with exclude_missing, the logits of structures missing
+        from a sample are zeroed first (a reference quirk kept: negative
+        logits become 0, not -inf)."""
+        if not self.config.exclude_missing:
+            return squash_predictions(logits, dim=1)
+        ind = indicators.to(logits.dtype)[:, :, None, None]
+        return squash_predictions(
+            torch.cat([logits[:, :1], logits[:, 1:] * ind], dim=1), dim=1
+        )
+
+    def train_step(self, state: TrainState, batch,
+                   draws: Optional[Degree2Draws] = None,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One step on a raw batch (images (N, H, W) HU, labels (N, H, W),
+        indicators (N, 9)); the augmentation `draws` are drawn from
+        `generator` unless given. Updates `state` in place and returns it."""
+        images_raw, labels_raw, indicators = batch
+        n, h, w = images_raw.shape
+        if draws is None:
+            draws = draw_degree2(generator, n, h, w, self.config.input_size,
+                                 device=self.device)
+        images, labels = self.train_transform(images_raw, labels_raw, draws)
+
+        model = state.model.train()
+        set_lr(state.optimizer, state.plateau.lr)
+        values, logits = self._losses_and_logits(model, images, labels,
+                                                 indicators)
+        total = self.loss.total(values)
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        state.optimizer.step()
+
+        with torch.no_grad():
+            dice_mean, dice_per_class = self.dice(
+                self._predictions(logits.detach(), indicators), labels
+            )
+        metrics = {f"loss/{k}": v.detach() for k, v in values.items()}
+        metrics["loss/total"] = total.detach()
+        metrics["dice/mean"] = dice_mean
+        for s, v in zip(STRUCTURES, dice_per_class):
+            metrics[f"dice/{s}"] = v
+        metrics["lr"] = state.plateau.lr
+        state.step += 1
+        return state, metrics
+
+    @torch.no_grad()
+    def eval_step(self, model: SegmentationModel, batch
+                  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """One evaluation step over a possibly padded batch (images,
+        labels, indicators, row_valid): padded rows count for nothing in
+        the losses and the Dice. Returns (metrics, number of real rows)."""
+        images_raw, labels_raw, indicators, row_valid = batch
+        images, labels = self.test_transform(images_raw, labels_raw)
+        values, logits = self._losses_and_logits(
+            model.eval(), images, labels, indicators, sample_mask=row_valid
+        )
+        dice, valid = dice_per_sample_class(
+            self._predictions(logits, indicators), labels
+        )
+        dice_per_class, _ = masked_mean_batch(dice, valid & row_valid[:, None])
+        metrics = {f"loss/{k}": v for k, v in values.items()}
+        metrics["dice/mean"] = torch.mean(dice_per_class)
+        for s, v in zip(STRUCTURES, dice_per_class):
+            metrics[f"dice/{s}"] = v
+        return metrics, torch.sum(row_valid.to(torch.float32))
+
+    # ------------------------------------------------------------------ loops
+    @staticmethod
+    def _fetch(values: Dict) -> Dict[str, float]:
+        """Device scalars (and plain floats) as floats, with one
+        device-to-host copy for all the tensors."""
+        names = [k for k, v in values.items() if torch.is_tensor(v)]
+        out = {k: float(v) for k, v in values.items() if not torch.is_tensor(v)}
+        if names:
+            fetched = torch.stack([values[k].double() for k in names])
+            out.update(zip(names, fetched.cpu().tolist()))
+        return out
+
+    def train_epoch(self, state: TrainState, pipeline,
+                    generator: Optional[torch.Generator] = None,
+                    logger: Optional[MetricLogger] = None):
+        """One epoch, shuffled and augmented from `generator`."""
+        sums: Dict = {}
+        count = 0
+        for batch in pipeline.epoch(generator):
+            state, metrics = self.train_step(state, batch, generator=generator)
+            count += 1
+            for k, v in metrics.items():
+                sums[k] = v if k not in sums else sums[k] + v
+        means = {f"train/{k}": v / max(count, 1)
+                 for k, v in self._fetch(sums).items()}
+        if logger is not None:
+            logger.log(means, step=state.step)
+        return state, means
+
+    def eval_epoch(self, model: SegmentationModel, pipeline, prefix="val",
+                   logger: Optional[MetricLogger] = None, step: int = 0):
+        """Full-split evaluation: batch means weighted by their real rows."""
+        sums: Dict = {}
+        rows = torch.zeros((), device=self.device)
+        for batch in pipeline.padded_epoch(None):
+            metrics, n_valid = self.eval_step(model, batch)
+            rows = rows + n_valid
+            for k, v in metrics.items():
+                sums[k] = v * n_valid if k not in sums else sums[k] + v * n_valid
+        fetched = self._fetch({**sums, "_rows": rows})
+        denom = max(fetched.pop("_rows"), 1.0)
+        means = {f"{prefix}/{k}": v / denom for k, v in fetched.items()}
+        if logger is not None:
+            logger.log(means, step=step)
+        return means
+
+    def fit(self, state: TrainState, train_pipeline, val_pipeline=None,
+            epochs: Optional[int] = None,
+            logger: Optional[MetricLogger] = None,
+            checkpoint_path=None, checkpoint_every: int = 0) -> TrainState:
+        """Train up to `epochs` in total (a restored state resumes at the
+        epoch its step count gives); the plateau follows val/dice/mean.
+
+        SIGTERM finishes the current epoch, saves to `checkpoint_path` and
+        raises `Preempted` carrying the state. `checkpoint_every` > 0 saves
+        every that many epochs."""
+        epochs = epochs or self.config.epochs
+        pipeline_spe = max(1, train_pipeline.num_batches())
+        # Resume derives the start epoch from the checkpoint's schedule, so
+        # the config records the steps per epoch of the first fit.
+        if self.config.steps_per_epoch is None:
+            self.config = dataclasses.replace(
+                self.config, steps_per_epoch=pipeline_spe
+            )
+        steps_per_epoch = int(self.config.steps_per_epoch)
+        if pipeline_spe != steps_per_epoch and state.step > 0:
+            warnings.warn(
+                f"resume: the training pipeline yields {pipeline_spe} "
+                f"batches/epoch but the checkpoint's schedule is "
+                f"{steps_per_epoch}; the start epoch follows the checkpoint"
+            )
+        start_epoch = min(state.step // steps_per_epoch, epochs)
+        preempted = {"flag": False}
+
+        def _on_sigterm(signum, frame):
+            preempted["flag"] = True
+
+        prev_handler, installed = None, False
+        try:
+            prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+            installed = True
+        except ValueError:
+            pass  # not the main thread: no signal handling there
+        try:
+            for epoch in range(start_epoch, epochs):
+                gen = epoch_generator(self.config.seed, epoch, self.device)
+                t0 = time.time()
+                state, _ = self.train_epoch(state, train_pipeline, gen, logger)
+                if val_pipeline is not None:
+                    val = self.eval_epoch(state.model, val_pipeline, "val",
+                                          logger, step=state.step)
+                    plateau, _ = reduce_on_plateau(
+                        state.plateau, val["val/dice/mean"], mode="max",
+                        factor=self.config.plateau_factor,
+                        patience=self.config.plateau_patience,
+                        threshold=self.config.plateau_threshold,
+                    )
+                    state.plateau = plateau
+                if logger is not None:
+                    logger.log({"epoch": epoch, "epoch_time": time.time() - t0},
+                               step=state.step)
+                if preempted["flag"]:
+                    if checkpoint_path:
+                        self.save(checkpoint_path, state)
+                    if logger is not None:
+                        logger.log({"preempted_at_epoch": epoch},
+                                   step=state.step)
+                    raise Preempted(state, epoch)
+                if checkpoint_path and checkpoint_every \
+                        and (epoch + 1) % checkpoint_every == 0:
+                    self.save(checkpoint_path, state)
+        finally:
+            if installed:
+                signal.signal(signal.SIGTERM, prev_handler
+                              if prev_handler is not None else signal.SIG_DFL)
+        return state
+
+    # ------------------------------------------------------------ checkpoints
+    def save(self, path, state: TrainState) -> None:
+        ckpt.save(path, self.config, state)
+
+    @classmethod
+    def restore(cls, path, device="cpu") -> Tuple["Trainer", TrainState]:
+        """(trainer, state) from a training checkpoint, or from any port or
+        reference checkpoint with a fresh optimizer and plateau."""
+        config, state = ckpt.load(path, device)
+        return cls(config, device), state

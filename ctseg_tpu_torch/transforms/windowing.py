@@ -22,10 +22,17 @@ from ctseg_tpu_torch.constants import (
 def apply_window(
     image: torch.Tensor, window_width: int, window_level: int
 ) -> torch.Tensor:
-    """Clip to a HU window and rescale it to [0, 1]."""
+    """Clip to a HU window and rescale it to [0, 1].
+
+    The divisor is a tensor on the image's device: torch's CUDA division by
+    a Python scalar multiplies by its reciprocal (one rounding more), while
+    this is the true division of the CPU path and of K4 (ops/preprocess.py).
+    """
     min_ = window_level - (window_width // 2)
     max_ = window_level + (window_width // 2)
-    return (torch.clamp(image, min_, max_) - min_) / (max_ - min_ + 1e-8)
+    den = torch.as_tensor(max_ - min_ + 1e-8, dtype=image.dtype,
+                          device=image.device)
+    return (torch.clamp(image, min_, max_) - min_) / den
 
 
 def windowed_channels(image: torch.Tensor) -> torch.Tensor:

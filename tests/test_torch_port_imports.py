@@ -2,6 +2,7 @@
 copies of the JAX package's host modules are still equal to the originals.
 """
 
+import ast
 import json
 import re
 import subprocess
@@ -11,9 +12,12 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import ctseg_tpu
 import ctseg_tpu.constants as jax_constants
 import ctseg_tpu_torch
 import ctseg_tpu_torch.constants as port_constants
+from ctseg_tpu.data.datasets import pack_slices as jax_pack_slices
+from ctseg_tpu_torch.data.datasets import PackedDataset2D, pack_slices
 from ctseg_tpu.testing.synth import make_patient as jax_make_patient
 from ctseg_tpu.utils import nrrd_io as jax_nrrd_io
 from ctseg_tpu.utils.miccai import CropBox as JaxCropBox
@@ -30,6 +34,7 @@ import json, pkgutil, sys
 before = set(sys.modules)
 import ctseg_tpu_torch
 import ctseg_tpu_torch.inference.serve
+import ctseg_tpu_torch.training.cli
 for m in pkgutil.walk_packages(ctseg_tpu_torch.__path__, "ctseg_tpu_torch."):
     __import__(m.name)
 new = set(sys.modules) - before
@@ -43,7 +48,10 @@ def test_importing_the_port_loads_no_jax():
         text=True, timeout=300, check=True,
     ).stdout
     new = json.loads(out.strip().splitlines()[-1])
-    assert "ctseg_tpu_torch.inference.serve" in new
+    for module in ("inference.serve", "training.cli", "training.trainer",
+                   "ops.preprocess", "losses.segmentation", "metrics.dice",
+                   "data.pipeline", "data.datasets", "paths"):
+        assert f"ctseg_tpu_torch.{module}" in new
     bad = [
         m for m in new
         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ctseg_tpu")
@@ -57,7 +65,8 @@ _FORBIDDEN = re.compile(
 
 
 def test_no_source_file_imports_jax_or_the_jax_package():
-    sources = sorted(PKG.rglob("*.py"))
+    # _build/ is the git-ignored build cache, not the package
+    sources = sorted(p for p in PKG.rglob("*.py") if "_build" not in p.parts)
     assert len(sources) > 15
     offenders = [
         str(p.relative_to(REPO)) for p in sources
@@ -110,3 +119,40 @@ def test_synthetic_patient_and_volume_match(tmp_path):
             nrrd_io.read(mask)[0],
         )
     assert (a / "landmarks.fcsv").read_text() == (b / "landmarks.fcsv").read_text()
+
+
+def _code(path: Path, rename: bool) -> str:
+    """The module's AST without its docstring, the port's package name
+    written as the JAX package's."""
+    text = path.read_text()
+    if rename:
+        text = text.replace("ctseg_tpu_torch", "ctseg_tpu")
+    tree = ast.parse(text)
+    body = tree.body
+    if body and isinstance(body[0], ast.Expr) \
+            and isinstance(body[0].value, ast.Constant):
+        tree.body = body[1:]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("module", ["data/datasets.py", "paths.py"])
+def test_copied_modules_equal_the_jax_package(module):
+    jax_pkg = Path(ctseg_tpu.__file__).resolve().parent
+    assert _code(PKG / module, rename=True) == _code(jax_pkg / module, False)
+
+
+def test_pack_slices_matches_the_jax_package(tmp_path):
+    rng = np.random.default_rng(1)
+    for i in range(3):
+        masks = rng.integers(0, 2, size=(9, 6, 5)).astype(np.uint8)
+        np.savez(tmp_path / f"0522c0001_{i}.npz",
+                 image=rng.normal(size=(1, 6, 5)).astype(np.float32),
+                 masks=masks, mask_indicator=masks.any(axis=(1, 2)),
+                 spacing=np.array([1.1, 1.2], np.float32))
+    ours, theirs = pack_slices(tmp_path), jax_pack_slices(tmp_path)
+    for name in ("images", "labels", "indicators", "spacings"):
+        np.testing.assert_array_equal(getattr(ours, name), getattr(theirs, name))
+    assert ours.names == theirs.names
+    ours.save(tmp_path / "packed.npz")
+    again = PackedDataset2D.load(tmp_path / "packed.npz")
+    np.testing.assert_array_equal(again.labels, theirs.labels)

@@ -184,6 +184,7 @@ def test_kernel_build_has_no_fallback(monkeypatch):
 
 def test_kernel_build_key_tracks_sources():
     srcs = [p.name for p in _build.sources()]
-    assert {"common.cuh", "instance_norm.cu", "conv_block.cu"} <= set(srcs)
+    assert {"common.cuh", "instance_norm.cu", "conv_block.cu",
+            "preprocess.cu"} <= set(srcs)
     assert len(_build.build_key()) == 16
     assert _build.BUILD_ROOT.name == "_build"
