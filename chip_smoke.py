@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving, training and evaluation paths once on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
@@ -42,11 +42,30 @@ Phases (any failure raises and the script exits non-zero):
  11. Gradient parity: one float32 step of the full-width model on 2 slices,
      CUDA kernels against a CPU copy on the plain path from the same
      weights and draws (and a float64 CPU copy as the referee).
+ 12. K5, min_plus, against its plain version, torch.equal required: at the
+     Model M train step's shape (2,304 maps of 256x256, scale 1), at the
+     evaluation's (1,152 maps, one scale per map from 0.3-3.0) and at a K
+     that is no multiple of the kernel's row group; entries, rows and whole
+     maps at BIG.
+ 13. Train Model M, float32: full width (PRESETS["model_m"]: 1 residual
+     unit, degree 2, weighted mixup, Boundary+Dice+Focal with
+     exclude_missing, batch 128) on phase 9's synthetic split: Trainer.fit
+     for one epoch with validation, then 2 warm-up and 5 timed train_steps
+     on one fixed batch with fixed draws. Each step must launch K4 once, K1
+     and K1b 8 times, K2 and K2b 4 times and K5 once; the loss must be
+     finite and fall. The step's parts are timed one by one.
+ 14. Evaluate: the trained Model M checkpoint through evaluate_2d with HD95
+     on 300 slices of 280x280 with per-slice spacings (batches of 64, the
+     last one padded): K5 once per batch; the device HD95 of 4 slices held
+     to the scipy host path at 1e-4 relative; slices/s with and without
+     HD95.
 
-The line before the last lists each kernel's launches in the train path
-(phase 9's timed steps; K1 and K2 also give phase 4's serving count), its
-largest float32 error and its time beside the plain version's; the last
-line is {"ok": true, "device": {...}}. Imports nothing of JAX.
+The line before the last lists each kernel's launches on its main path
+(phase 9's timed Model L steps; K5's are phase 13's Model M steps; the
+other paths' counts stand beside them), its largest float32 error, its time
+beside the plain version's and the least time the card could take (the
+larger of its operations over 67 TFLOP/s and its bytes over 3.35 TB/s); the
+last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 import http.client
@@ -110,6 +129,7 @@ BWD_TOL = {
 DALPHA_RTOL = 1e-5
 TRAIN_BATCH = 128
 RAW = 280              # bench.py's raw slice size (post-crop)
+SIZE = 256             # the model's input size
 TIMED_STEPS = 5
 # Phase 11 (see phase_grad_parity for what each bound holds). Measured on
 # the H100: conv weights 2e-4 to 2.7e-3 of their norm from float64 (the CPU
@@ -118,6 +138,52 @@ TIMED_STEPS = 5
 GRAD_RTOL = 1e-3        # whole gradient, and IN-cancelled biases, vs CPU f32
 GRAD_PARAM_RTOL = 1e-2  # each conv weight or bias vs float64, of its norm
 GRAD_SLOPE_RTOL = 1e-4  # each PReLU slope vs float64, of sum |g*min(xhat,0)|
+HD95_RTOL = 1e-4        # phase 14: device HD95 vs scipy, float32 distances
+EVAL_BATCH = 64
+EVAL_SLICES = 300       # 4 full batches and one padded
+# The H100's published peaks (SXM, dense): float32 outside the tensor cores,
+# and HBM3. A kernel's bound is the larger of its operations over the first
+# and its bytes (every input read once, every output written once) over the
+# second.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def bound_ms(ops: float, nbytes: float):
+    """(least milliseconds the card could take, what bounds it)."""
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def site_bounds():
+    """The bound of each kernel over the sites of its main path, float32.
+    Operations per element, counted from the formulas: K1 8 (two running
+    sums, normalise, PReLU), K1b 14 (xhat again, gh, three sums, dx), K2
+    2 * 9 * Cin per output element for the conv and 8 for the norm, K2b 12,
+    K4 15 per output pixel (3 windows of clip, shift, two divisions)."""
+    out = {}
+    for key, n in (("k1", BATCH), ("k1b", TRAIN_BATCH)):
+        ops = nbytes = 0
+        for (h, w, c), sites in K1_SITES.items():
+            e = n * h * w * c * sites
+            ops += (8 if key == "k1" else 14) * e
+            nbytes += (2 if key == "k1" else 3) * 4 * e
+        out[key] = bound_ms(ops, nbytes)
+    for key, n in (("k2", BATCH), ("k2b", TRAIN_BATCH)):
+        ops = nbytes = 0
+        for (h, w, cin, cout), sites in K2_SITES.items():
+            e = n * h * w * cout * sites
+            if key == "k2":
+                ops += (2 * 9 * cin + 8) * e
+                nbytes += 4 * (e + sites * (n * h * w * cin + 9 * cin * cout))
+            else:
+                ops += 12 * e
+                nbytes += 3 * 4 * e
+        out[key] = bound_ms(ops, nbytes)
+    pixels = TRAIN_BATCH * 256 * 256
+    out["k4"] = bound_ms(15 * pixels,
+                         4 * (TRAIN_BATCH * RAW * RAW + 3 * pixels))
+    return out
 
 
 def card_label() -> str:
@@ -564,8 +630,9 @@ def phase_k4(label, gen):
     plain = k4.window_normalize_degree2_plain(images, draws, size)
     if out.shape != (n, size, size, 3) or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"K4 output {tuple(out.shape)} not finite")
+    diff = (out - plain).abs()
+    err = float(diff.max())
     if not torch.equal(out, plain):
-        diff = (out - plain).abs()
         raise AssertionError(
             f"K4 differs from its plain version at {int((diff > 0).sum())} "
             f"values, by up to {float(diff.max())!r}"
@@ -580,9 +647,9 @@ def phase_k4(label, gen):
     t_p = time_ms(lambda: k4.window_normalize_degree2_plain(images, draws,
                                                             size), 20)
     print(f"[{label}] K4 ({n}, {RAW}, {RAW}) -> ({n}, {size}, {size}, 3): "
-          f"bit-equal to its plain version over all 8 (k, flip) pairs; "
-          f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
-    return 0.0, t_k, t_p
+          f"bit-equal to its plain version over all 8 (k, flip) pairs "
+          f"(max |diff| {err!r}); kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+    return err, t_k, t_p
 
 
 def _synthetic_split(seed, n):
@@ -607,7 +674,9 @@ def _model_l_config(dtype="float32"):
 
 
 def _counters():
-    from ctseg_tpu_torch.ops import conv_block, instance_norm, preprocess
+    from ctseg_tpu_torch.ops import (
+        conv_block, instance_norm, min_plus, preprocess,
+    )
 
     return {
         "k4": preprocess.window_normalize_degree2,
@@ -615,6 +684,7 @@ def _counters():
         "k1b": instance_norm.instance_norm_prelu_bwd,
         "k2": conv_block.conv3x3_in_prelu,
         "k2b": conv_block.in_prelu_bwd,
+        "k5": min_plus.min_plus,
     }
 
 
@@ -627,7 +697,11 @@ def read_launches():
     return {k: fn.launches for k, fn in _counters().items()}
 
 
-PER_STEP = {"k4": 1, "k1": 8, "k1b": 8, "k2": 9, "k2b": 9}
+PER_STEP = {"k4": 1, "k1": 8, "k1b": 8, "k2": 9, "k2b": 9, "k5": 0}
+# Model M: 1 residual unit leaves 4 stride-1 units (the bottom's and the 3
+# non-top decoder levels'); one K5 launch makes both signs of all 128 x 9
+# distance maps.
+PER_STEP_M = {"k4": 1, "k1": 8, "k1b": 8, "k2": 4, "k2b": 4, "k5": 1}
 
 
 def phase_train(label, workdir: Path, scan: Path):
@@ -853,6 +927,283 @@ def phase_grad_parity(label, trainer, state, batch, draws):
     return total
 
 
+def _k5_input(gen, b, k, l):
+    """Squared distances as the EDT's first step leaves them: integers,
+    with entries, one row and two whole maps at BIG."""
+    import torch
+    from ctseg_tpu_torch.ops.min_plus import BIG
+
+    x = torch.floor(torch.rand((b, k, l), generator=gen, device=DEVICE) * 4000)
+    hole = torch.rand((b, k, l), generator=gen, device=DEVICE) < 0.3
+    x = torch.where(hole, torch.full_like(x, BIG), x)
+    x[:, k // 3] = BIG
+    x[0] = BIG
+    x[b // 2] = BIG
+    return x.contiguous()
+
+
+def phase_k5(label, gen):
+    import torch
+    from ctseg_tpu_torch.ops.min_plus import BIG, min_plus, min_plus_plain
+
+    n_train = TRAIN_BATCH * 9 * 2  # both signs of every class mask of a step
+    n_eval = EVAL_BATCH * 9 * 2    # both directions of every (slice, class)
+    cases = {
+        "train": (n_train, SIZE, SIZE, torch.ones(n_train, device=DEVICE)),
+        "eval": (n_eval, SIZE, SIZE, torch.rand(
+            n_eval, generator=gen, device=DEVICE) * 2.7 + 0.3),
+        "ragged": (37, 100, 70, torch.rand(
+            37, generator=gen, device=DEVICE) * 2.7 + 0.3),
+    }
+    times = {}
+    for name, (b, k, l, scale) in cases.items():
+        x = _k5_input(gen, b, k, l)
+        out = min_plus(x, scale)
+        plain = min_plus_plain(x, scale)
+        torch.cuda.synchronize()
+        diff = (out - plain).abs()
+        err = float(diff.max())
+        if not torch.equal(out, plain):
+            raise AssertionError(
+                f"K5 {name} {(b, k, l)} differs from its plain version at "
+                f"{int((diff > 0).sum())} values, by up to {float(diff.max())!r}")
+        if float(out.max()) != float(torch.tensor(BIG, dtype=torch.float32)) \
+                or not bool((out[0] == out.max()).all()):
+            raise AssertionError(f"K5 {name}: an all-BIG map must stay at BIG")
+        t_k = time_ms(lambda: min_plus(x, scale), 10)
+        t_p = time_ms(lambda: min_plus_plain(x, scale), 1)
+        bound, by = bound_ms(2.0 * b * k * k * l, 2 * 4.0 * b * k * l)
+        # The peak counts a multiply-add as 2 operations; a pair here is one
+        # add and one min, 2 instructions, so the issue rate allows half.
+        issue = 2.0 * b * k * k * l / (PEAK_FLOPS / 2) * 1e3
+        times[name] = (t_k, t_p, bound, by, err, issue)
+        print(f"[{label}] K5 {name} {(b, k, l)}: bit-equal to its plain "
+              f"version (max |diff| {err!r}); kernel {t_k:.4f} ms, plain "
+              f"{t_p:.3f} ms, bound {bound:.4f} ms by {by} (2 operations a "
+              f"pair), {issue:.4f} ms at one instruction a lane a cycle")
+        del x, out, plain, diff
+    return times
+
+
+def _model_m_config():
+    import dataclasses
+
+    from ctseg_tpu_torch.models.presets import PRESETS
+
+    return dataclasses.replace(PRESETS["model_m"], epochs=1)
+
+
+def phase_train_model_m(label, workdir: Path):
+    import torch
+    from ctseg_tpu_torch.data.pipeline import DevicePipeline2D
+    from ctseg_tpu_torch.training import mixup
+    from ctseg_tpu_torch.training.trainer import Trainer
+    from ctseg_tpu_torch.transforms.augment import draw_degree2
+
+    cfg = _model_m_config()
+    if (cfg.filters, cfg.batch_size, cfg.compute_dtype) != (
+            FILTERS, TRAIN_BATCH, "float32"):
+        raise AssertionError(f"Model M preset is {cfg}")
+    trainer = Trainer(cfg)  # on the card by default
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    train = DevicePipeline2D(_synthetic_split(0, 2 * TRAIN_BATCH), TRAIN_BATCH)
+    val = DevicePipeline2D(_synthetic_split(1, TRAIN_BATCH), TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.fit(state, train, val, epochs=1)
+    torch.cuda.synchronize()
+    print(f"[{label}] Model M Trainer.fit, 1 epoch (2 mixup steps + "
+          f"validation of {TRAIN_BATCH} slices with the Boundary loss): "
+          f"{time.perf_counter() - t0:.3f} s; steps {state.step}")
+
+    batch = next(train.epoch(torch.Generator(device=DEVICE).manual_seed(2)))
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    draws = draw_degree2(gen, TRAIN_BATCH, RAW, RAW, SIZE)
+    images, labels = trainer.train_transform(batch[0], batch[1], draws)
+    mixup_draws = mixup.draw_mixup(gen, mixup.mixup_probability(labels),
+                                   cfg.mixup_alpha)
+    for _ in range(2):  # warm-up
+        state, metrics = trainer.train_step(state, batch, draws,
+                                            mixup_draws=mixup_draws)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(TIMED_STEPS):
+        state, metrics = trainer.train_step(state, batch, draws,
+                                            mixup_draws=mixup_draws)
+        losses.append(metrics["loss/total"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * TIMED_STEPS for k, v in PER_STEP_M.items()}
+    if launches != want:
+        raise AssertionError(f"Model M launches {launches} over {TIMED_STEPS} "
+                             f"steps; want {want}")
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"Model M loss over {TIMED_STEPS} steps on one "
+                             f"batch: {losses}")
+    parts = {k: round(float(v), 5) for k, v in metrics.items()
+             if k.startswith("loss/")}
+    print(f"[{label}] train step, Model M float32 batch {TRAIN_BATCH}: "
+          f"{step_s * 1e3:.3f} ms/step, {TRAIN_BATCH / step_s:.2f} slices/s "
+          f"(host clock over {TIMED_STEPS} steps after 2 warm-ups); peak "
+          f"device memory {peak / 2**30:.3f} GiB since the fit began; "
+          f"losses {[round(v, 5) for v in losses]}, the last step's {parts}; "
+          f"launches {launches}")
+
+    ckpt_path = workdir / "model_m.ckpt"
+    trainer.save(ckpt_path, state)
+
+    # The step's parts, each alone (CUDA events, mean of 5 after a warm-up).
+    model = state.model.train()
+    index, lam = mixup_draws
+    mixed = mixup.mixup_tensors(images, images[index], lam)
+    maps = trainer._dist_maps(labels)
+    with torch.no_grad():
+        logits = trainer._logits(model, mixed)
+
+    def both_loss_sets():
+        a = trainer.loss(logits, labels, batch[2], maps)
+        b = trainer.loss(logits, labels[index], batch[2][index], maps[index])
+        return trainer.loss.total(
+            {k: mixup.mixup_tensors(a[k], b[k], lam) for k in a})
+
+    def dice_twice():
+        trainer.dice(trainer._predictions(logits, batch[2]), labels)
+        trainer.dice(trainer._predictions(logits, batch[2][index]),
+                     labels[index])
+
+    def forward_no_grad():
+        with torch.no_grad():
+            trainer._logits(model, mixed)
+
+    timed = {
+        "transform (K4 + the labels' moves)": lambda: trainer.train_transform(
+            batch[0], batch[1], draws),
+        "mixup: probabilities, draw, mix": lambda: mixup.weighted_mixup(
+            gen, images, labels, cfg.mixup_alpha),
+        "signed distance maps (K5 + scan, sqrt, sign)":
+            lambda: trainer._dist_maps(labels),
+        "forward alone, no_grad": forward_no_grad,
+        "both loss sets, forward only": both_loss_sets,
+        "Dice of both target sets": dice_twice,
+        "Adam (foreach)": state.optimizer.step,
+    }
+    phases = {name: time_ms(fn, 5) for name, fn in timed.items()}
+    rest = step_s * 1e3 - sum(phases.values())
+    print(f"[{label}] Model M step by part, ms: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in phases.items())
+          + f"; the rest of the {step_s * 1e3:.3f} ms step (backward, the "
+          f"losses' backward and what autograd saves in the forward) {rest:.3f}")
+
+    return ckpt_path, launches, step_s
+
+
+def _eval_split(seed, n):
+    """Raw HU slices with rectangular structures (so the surfaces and their
+    distances are those of compact shapes) and per-slice spacings."""
+    from ctseg_tpu_torch.data.datasets import PackedDataset2D
+
+    rng = np.random.default_rng(seed)
+    labels = np.zeros((n, RAW, RAW), np.uint8)
+    for i in range(n):
+        for c in range(1, 10):
+            if rng.random() < 0.15:
+                continue
+            y, x = rng.integers(10, RAW - 90, size=2)
+            h, w = rng.integers(12, 80, size=2)
+            labels[i, y:y + h, x:x + w] = c
+    images = (rng.normal(40, 120, size=(n, RAW, RAW))
+              + 60.0 * labels).astype(np.float32)
+    indicators = np.stack([(labels == c).any(axis=(1, 2))
+                           for c in range(1, 10)], axis=1).astype(np.float32)
+    spacings = rng.uniform(0.5, 1.5, size=(n, 2)).astype(np.float32)
+    return PackedDataset2D(images, labels, indicators, spacings=spacings)
+
+
+def phase_evaluate(label, ckpt_path: Path):
+    import torch
+    from ctseg_tpu_torch.inference.evaluate import evaluate_2d, format_table
+    from ctseg_tpu_torch.metrics.hd95 import (
+        hd95_per_structure, hd95_per_structure_device,
+    )
+    from ctseg_tpu_torch.ops.min_plus import min_plus
+    from ctseg_tpu_torch.training.trainer import Trainer
+
+    trainer, state = Trainer.restore(ckpt_path)  # on the card by default
+    dataset = _eval_split(5, EVAL_SLICES)
+    batches = -(-EVAL_SLICES // EVAL_BATCH)
+    evaluate_2d(trainer, state.model, dataset, EVAL_BATCH, with_hd95=True)
+    reset_launches()
+    result = evaluate_2d(trainer, state.model, dataset, EVAL_BATCH,
+                         with_hd95=True)
+    launches = read_launches()
+    k5_launches = launches["k5"]
+    want = {"k4": 0, "k1": 8 * batches, "k1b": 0, "k2": 4 * batches,
+            "k2b": 0, "k5": batches}
+    if launches != want:
+        raise AssertionError(f"evaluate_2d launched {launches} over "
+                             f"{batches} batches; want {want}")
+    plain = evaluate_2d(trainer, state.model, dataset, EVAL_BATCH)
+    if min_plus.launches != k5_launches:
+        raise AssertionError("evaluate_2d without HD95 launched K5")
+    if result["num_slices"] != EVAL_SLICES or result["hd95_unit"] != "mm":
+        raise AssertionError(f"evaluate_2d reports {result}")
+    # cuDNN's convs need not be bitwise deterministic, so an argmax near-tie
+    # may flip between two runs (phase 4 allows the same 0.1%).
+    moved = max(abs(result["per_structure_dice"][s] - v)
+                for s, v in plain["per_structure_dice"].items())
+    if moved > 1e-3:
+        raise AssertionError(f"Dice differs by {moved:.3e} between the runs "
+                             "with and without HD95")
+    dice = list(result["per_structure_dice"].values())
+    hd = [v for v in result["per_structure_hd95"].values() if v is not None]
+    if not all(np.isfinite(dice)) or not hd or not all(np.isfinite(hd)):
+        raise AssertionError(f"evaluate_2d values: {result}")
+    print(format_table(result))
+    share = 1.0 - result["slices_per_sec"] / plain["slices_per_sec"]
+    print(f"[{label}] evaluate_2d, Model M float32, {EVAL_SLICES} slices of "
+          f"{RAW}x{RAW} in batches of {EVAL_BATCH}: "
+          f"{result['slices_per_sec']:.2f} slices/s with HD95 (mm), "
+          f"{plain['slices_per_sec']:.2f} without: HD95 is {share:.3f} of "
+          f"the time; K5 launches {k5_launches} over {batches} batches")
+
+    # The device HD95 of 4 slices against the scipy host path, each slice
+    # with its own spacing scaled to the model's grid.
+    n = 4
+    images, labels = trainer.test_transform(
+        torch.from_numpy(dataset.images[:n]).to(DEVICE),
+        torch.from_numpy(dataset.labels[:n]).to(DEVICE))
+    x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        preds = trainer._predictions(
+            state.model.eval()(x).float(),
+            torch.from_numpy(dataset.indicators[:n]).to(DEVICE))
+    spacing = dataset.spacings[:n] * np.float32(RAW / SIZE)
+    value, valid = hd95_per_structure_device(
+        preds, labels, spacing=torch.from_numpy(spacing).to(DEVICE))
+    value, valid = value.cpu().numpy(), valid.cpu().numpy()
+    preds, labels = preds.cpu().numpy(), labels.cpu().numpy()
+    worst, held = 0.0, 0
+    for i in range(n):
+        host = hd95_per_structure(preds[i], labels[i], spacing=spacing[i])
+        if not np.array_equal(valid[i], ~np.isnan(host)):
+            raise AssertionError(f"slice {i}: valid {valid[i]} vs scipy {host}")
+        rel = np.abs(value[i] - host)[valid[i]] / host[valid[i]]
+        held += int(valid[i].sum())
+        worst = max(worst, float(rel.max()) if rel.size else 0.0)
+    if held < n or not worst <= HD95_RTOL:
+        raise AssertionError(f"device HD95 vs scipy: {held} values, worst "
+                             f"relative difference {worst:.3e}")
+    print(f"[{label}] device HD95 vs scipy on {n} slices: {held} (slice, "
+          f"structure) values, worst relative difference {worst:.3e} "
+          f"(bound {HD95_RTOL:.0e})")
+    return k5_launches, result["slices_per_sec"]
+
+
 def main() -> int:
     import torch
 
@@ -894,14 +1245,28 @@ def main() -> int:
         del trainer, state
         torch.cuda.empty_cache()
         phase_train_bf16(label, batch, draws)
+        del batch, draws
+        torch.cuda.empty_cache()
+        k5_times = phase_k5(label, gen)
+        ckpt_m, launches_m, _ = phase_train_model_m(label, Path(tmp))
+        torch.cuda.empty_cache()
+        k5_eval_launches, _ = phase_evaluate(label, ckpt_m)
+
+    bounds = site_bounds()
+    bounds["k5"] = k5_times["train"][2:4]
 
     def entry(name, key, source, replaces, err, ms, plain_ms):
+        # No one PyTorch call computes any of these functions (IN + PReLU,
+        # conv + IN + PReLU, their backwards from saved statistics, windows +
+        # moves + normalize, a min-plus pass), so there is no library time.
         return {"name": name, "route": "cuda",
                 "source": f"ctseg_tpu_torch/csrc/{source}",
                 "replaces": f"ctseg_tpu/ops/pallas/{replaces}",
-                "launches": launches[key], "max_abs_err": err["float32"],
+                "launches": launches[key], "launches_model_m": launches_m[key],
+                "max_abs_err": err["float32"],
                 "max_abs_err_bf16": err["bfloat16"],
-                "ms": ms, "plain_ms": plain_ms}
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[key][0],
+                "bound_by": bounds[key][1], "library_ms": None}
 
     kernels = [
         entry("instance_norm_prelu", "k1", "instance_norm.cu",
@@ -913,17 +1278,34 @@ def main() -> int:
         entry("in_prelu_bwd", "k2b", "conv_block.cu",
               "conv_block.py:193", k2b_err, k2b_ms, k2b_plain),
         entry("window_normalize_degree2", "k4", "preprocess.cu",
-              "preprocess.py:81", {"float32": k4_err, "bfloat16": k4_err},
+              "preprocess.py:81", {"float32": k4_err, "bfloat16": None},
               k4_ms, k4_plain),
     ]
+    # K4 and K5 compute float32 only: no bfloat16 comparison exists to
+    # report, so that key is null for them.
+    k5 = entry("min_plus", "k5", "min_plus.cu", "min_plus.py:74",
+               {"float32": k5_times["train"][4], "bfloat16": None},
+               k5_times["train"][0], k5_times["train"][1])
+    # K5's main path is the Model M step; Model L's has no Boundary loss.
+    k5.update(launches=launches_m["k5"], launches_model_l=launches["k5"],
+              launches_eval=k5_eval_launches, ms_eval=k5_times["eval"][0],
+              plain_ms_eval=k5_times["eval"][1],
+              bound_ms_eval=k5_times["eval"][2],
+              max_abs_err_eval=k5_times["eval"][4],
+              issue_bound_ms=k5_times["train"][5],
+              issue_bound_ms_eval=k5_times["eval"][5])
+    kernels.append(k5)
     kernels[0]["launches_serve"] = serve_launches["k1"]
     kernels[2]["launches_serve"] = serve_launches["k2"]
-    print(f"(launches: phase 9's {TIMED_STEPS} timed train steps, "
-          "launches_serve: phase 4's requests; ms, plain_ms: float32 device "
-          "time, kernel vs plain version, of the sites of one forward at "
-          f"the serving batch {BATCH} for K1 and K2, of one backward at the "
-          f"training batch {TRAIN_BATCH} for K1b and K2b, and of one "
-          f"batch-{TRAIN_BATCH} transform for K4; max_abs_err: float32)")
+    print(f"(launches: phase 9's {TIMED_STEPS} timed Model L train steps, for "
+          f"K5 phase 13's {TIMED_STEPS} Model M steps; launches_model_m: "
+          "phase 13's; launches_serve: phase 4's requests; launches_eval: "
+          "phase 14's evaluation; ms, plain_ms, bound_ms: float32 device "
+          "time, kernel vs plain version vs the card's least, of the sites "
+          f"of one forward at the serving batch {BATCH} for K1 and K2, of "
+          f"one backward at the training batch {TRAIN_BATCH} for K1b and "
+          f"K2b, of one batch-{TRAIN_BATCH} transform for K4 and of one "
+          "Model M step's distance maps for K5; max_abs_err: float32)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,10 +22,14 @@ class DevicePipeline2D:
     indicators (B, 9) float32) and drops the incomplete trailing batch;
     `padded_epoch` covers every sample exactly once, padding the last batch
     with index-0 rows marked False in a fourth tensor, `row_valid` (B,)
-    bool. Windowing and augmentation happen later, in the train step.
+    bool; `padded_indices` yields the same batches as sample indices, for a
+    caller that needs per-sample side data (`spacings`, (N, 2) float32 when
+    the split carries them). Windowing and augmentation happen later, in
+    the train step.
     """
 
-    def __init__(self, dataset: PackedDataset2D, batch_size: int, device="cpu"):
+    def __init__(self, dataset: PackedDataset2D, batch_size: int,
+                 device="cuda"):
         self.batch_size = batch_size
         self.size = len(dataset)
         if self.size < batch_size:
@@ -41,6 +45,8 @@ class DevicePipeline2D:
         self.indicators = torch.as_tensor(dataset.indicators,
                                           dtype=torch.float32,
                                           device=self.device)
+        self.spacings = None if dataset.spacings is None else torch.as_tensor(
+            dataset.spacings, dtype=torch.float32, device=self.device)
 
     def num_batches(self, drop_remainder: bool = True) -> int:
         if drop_remainder:
@@ -53,7 +59,7 @@ class DevicePipeline2D:
         return torch.randperm(self.size, generator=generator,
                               device=self.device)
 
-    def _gather(self, idx: torch.Tensor) -> Batch:
+    def gather(self, idx: torch.Tensor) -> Batch:
         return (self.images[idx], self.labels[idx], self.indicators[idx])
 
     def epoch(self, generator: Optional[torch.Generator] = None
@@ -62,12 +68,12 @@ class DevicePipeline2D:
         device) when one is given."""
         perm = self._order(generator)
         for b in range(self.num_batches()):
-            yield self._gather(perm[b * self.batch_size:(b + 1) * self.batch_size])
+            yield self.gather(perm[b * self.batch_size:(b + 1) * self.batch_size])
 
-    def padded_epoch(self, generator: Optional[torch.Generator] = None
-                     ) -> Iterator[Tuple[torch.Tensor, ...]]:
-        """(images, labels, indicators, row_valid) batches covering every
-        sample exactly once; for evaluation."""
+    def padded_indices(self, generator: Optional[torch.Generator] = None
+                       ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+        """(sample indices (B,), row_valid (B,)) batches covering every
+        sample exactly once; padding rows point at sample 0."""
         n_batches = self.num_batches(drop_remainder=False)
         total = n_batches * self.batch_size
         perm = torch.zeros(total, dtype=torch.long, device=self.device)
@@ -75,4 +81,11 @@ class DevicePipeline2D:
         row_valid = torch.arange(total, device=self.device) < self.size
         for b in range(n_batches):
             sl = slice(b * self.batch_size, (b + 1) * self.batch_size)
-            yield self._gather(perm[sl]) + (row_valid[sl],)
+            yield perm[sl], row_valid[sl]
+
+    def padded_epoch(self, generator: Optional[torch.Generator] = None
+                     ) -> Iterator[Tuple[torch.Tensor, ...]]:
+        """(images, labels, indicators, row_valid) batches covering every
+        sample exactly once; for evaluation."""
+        for idx, row_valid in self.padded_indices(generator):
+            yield self.gather(idx) + (row_valid,)

@@ -12,8 +12,8 @@ Same numerical contracts as the JAX functions, on channel-first logits
     weighted mean divides by the summed weight of the targets).
   - Missing-annotation masking (AnatomyNet), `apply_missing_mask`.
 Every reduction honours `sample_mask` (N,) (padded evaluation rows count
-for nothing). Boundary needs signed distance maps, which wait for the EDT
-kernel (K5): `boundary_loss` raises until that slice.
+for nothing). Boundary multiplies the probabilities with signed distance
+maps (ops/edt.py, on the min-plus kernel K5), channel-first like the logits.
 """
 
 import functools
@@ -155,10 +155,13 @@ def focal_loss(logits, labels, gamma=2.0, reduction="mean", sample_mask=None):
 
 
 def boundary_loss(logits, dist_maps, reduction="mean", sample_mask=None):
-    raise NotImplementedError(
-        "the Boundary loss needs signed distance maps from the min-plus EDT "
-        "kernel K5 (ROADMAP.md, modules to port: Model M)"
-    )
+    """Boundary loss: softmax probabilities (background dropped) times the
+    signed distance maps (N, C-1, *spatial); "none" gives the spatial mean
+    per (sample, class), (N, C-1)."""
+    probs = F.softmax(logits, dim=1)[:, 1:]
+    prod = probs * dist_maps.to(probs.dtype)
+    f = torch.mean(prod, dim=_spatial_dims(prod))
+    return _reduce_matrix(f, reduction, sample_mask)
 
 
 def apply_missing_mask(name: str, loss: torch.Tensor,
@@ -226,6 +229,8 @@ class MultiLoss:
             masked = self.exclude_missing and name not in _CE_LOSSES
             reduction = "none" if masked else "mean"
             kw = {} if masked else {"sample_mask": sample_mask}
+            if name == "Boundary" and dist_maps is None:
+                raise ValueError("the Boundary loss needs distance maps")
             target = dist_maps if name == "Boundary" else labels
             loss = fx(logits, target, reduction=reduction, **kw)
             if masked:

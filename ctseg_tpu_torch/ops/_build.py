@@ -46,6 +46,8 @@ SIGNATURES = {
     "ctseg_in_prelu_bwd_saved": [_P] * 6 + [_I] * 5 + [_P],
     # images, top, left, rot, flip, params, out, n, h, w, s, device, stream
     "ctseg_window_normalize": [_P] * 7 + [_I] * 5 + [_P],
+    # x, scale, out, b, k, l, device, stream
+    "ctseg_min_plus": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 

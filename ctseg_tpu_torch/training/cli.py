@@ -1,16 +1,20 @@
-"""Training CLI of the port (port of ctseg_tpu/training/cli.py, the 2D base
-trainer).
+"""Training CLI of the port (port of ctseg_tpu/training/cli.py, the 2D
+trainers).
 
     python -m ctseg_tpu_torch.training.cli train --data_dir <dir> \\
-        --device cuda [--transform_degree 2 --use_res_units --exclude_missing]
+        [--device cuda --transform_degree 2 --use_res_units --exclude_missing]
+    python -m ctseg_tpu_torch.training.cli train_mixup --preset model_m \\
+        --data_dir <dir>
 
 reads `train_packed.npz` and `valid_packed.npz` (data/datasets.py) from
 --data_dir (default $CTSEG_DATA_STORAGE/miccai_2d), trains with the
 plateau LR on val/dice/mean, logs to <checkpoint_dir or logs>/metrics.jsonl
 and saves <checkpoint_dir>/model.ckpt, a training checkpoint that --resume,
 predict and serve all read. Flags follow the reference's trainer
-(capstone/training/base_trainer.py:150-209). The train transform is degree
-2's; `train_mixup` and `train_3d` wait for their slices.
+(capstone/training/base_trainer.py:150-209). `train_mixup` trains with
+weighted mixup (1 residual unit under --use_res_units; with the full data
+it publishes `model_mixup.ckpt`). The train transform is degree 2's;
+`train_3d` waits for its slice.
 """
 
 import dataclasses
@@ -20,17 +24,11 @@ from pathlib import Path
 from ctseg_tpu_torch.constants import EXPERIMENT_SEED
 from ctseg_tpu_torch.data.datasets import PackedDataset2D
 from ctseg_tpu_torch.data.pipeline import DevicePipeline2D
+from ctseg_tpu_torch.models.presets import PRESETS
 from ctseg_tpu_torch.paths import DEFAULT_DATA_STORAGE
 from ctseg_tpu_torch.training.config import TrainConfig
 from ctseg_tpu_torch.training.logging import MetricLogger
 from ctseg_tpu_torch.training.trainer import Preempted, Trainer
-
-# Model L (reference Report.pdf Table 1; ctseg_tpu/models/presets.py).
-MODEL_L = TrainConfig(
-    filters=(64, 128, 256, 512, 1024), num_res_units=2, transform_degree=2,
-    lr=1e-3, batch_size=128, loss_fx=("Focal", "Dice"), exclude_missing=True,
-    epochs=200,
-)
 
 
 def _add_args(parser: ArgumentParser) -> None:
@@ -57,38 +55,48 @@ def _add_args(parser: ArgumentParser) -> None:
     parser.add_argument("--use_wandb", action="store_true", default=False)
     parser.add_argument("--experiment_name", type=str, default="UNet 2D")
     parser.add_argument("--preset", type=str, default=None,
-                        choices=["model_l"],
-                        help="Model L's published configuration; overrides "
-                        "the model flags.")
+                        choices=sorted(PRESETS),
+                        help="A published configuration (reference report, "
+                        "Table 1); overrides the model flags.")
     parser.add_argument("--resume", type=str, default=None,
                         help="A training checkpoint file (model, optimizer, "
                         "plateau and step restore) or a reference .ckpt.")
     parser.add_argument("--device", type=str, default="cuda")
 
 
-def _config_from_args(args) -> TrainConfig:
+def _config_from_args(args, mixup: bool) -> TrainConfig:
     dtype = "bfloat16" if args.bf16 else "float32"
     if args.preset:
-        return dataclasses.replace(MODEL_L, epochs=args.max_epochs or 200,
-                                   seed=args.seed, compute_dtype=dtype)
+        if PRESETS[args.preset].spatial_dims != 2:
+            raise SystemExit(
+                f"--preset {args.preset} is a 3D configuration; use the "
+                "train_3d subcommand for it"
+            )
+        return dataclasses.replace(
+            PRESETS[args.preset], epochs=args.max_epochs or 200,
+            seed=args.seed, compute_dtype=dtype)
     size_kw = {"input_size": args.input_size} if args.input_size else {}
+    # use_res_units: 2 subunits for the base trainer, 1 for mixup ("works
+    # better for mixup", reference mixup_trainer.py:26-42).
+    num_res_units = (1 if mixup else 2) if args.use_res_units else 0
     return TrainConfig(
         **size_kw,
         filters=tuple(args.filters),
-        num_res_units=2 if args.use_res_units else 0,
+        num_res_units=num_res_units,
         downsample=args.downsample,
         transform_degree=args.transform_degree,
         lr=args.lr,
         batch_size=args.batch_size,
         loss_fx=tuple(args.loss_fx),
         exclude_missing=args.exclude_missing,
+        mixup=mixup,
         epochs=args.max_epochs or 200,
         seed=args.seed,
         compute_dtype=dtype,
     )
 
 
-def run_2d(args) -> None:
+def run_2d(args, mixup: bool) -> None:
     data_dir = Path(args.data_dir or (Path(DEFAULT_DATA_STORAGE) / "miccai_2d"))
     train = PackedDataset2D.load(data_dir / "train_packed.npz")
     valid = PackedDataset2D.load(data_dir / "valid_packed.npz")
@@ -98,7 +106,7 @@ def run_2d(args) -> None:
     if args.resume:
         trainer, state = Trainer.restore(args.resume, args.device)
     else:
-        trainer = Trainer(_config_from_args(args), args.device)
+        trainer = Trainer(_config_from_args(args, mixup), args.device)
         state = trainer.init_state()
     config = trainer.config
     logger = MetricLogger(
@@ -128,8 +136,11 @@ def run_2d(args) -> None:
     if ckpt_path:
         trainer.save(ckpt_path, state)
     if args.use_full_data:
-        # The final model and its test score (reference base_trainer.py:244-246).
-        out = Path(DEFAULT_DATA_STORAGE) / "model_large.ckpt"
+        # The final model and its test score (reference
+        # base_trainer.py:244-246), named after the trained config: a preset
+        # or a resumed checkpoint may differ from the subcommand.
+        name = "model_mixup" if config.mixup else "model_large"
+        out = Path(DEFAULT_DATA_STORAGE) / f"{name}.ckpt"
         trainer.save(out, state)
         test = PackedDataset2D.load(data_dir / "test_packed.npz")
         metrics = trainer.eval_epoch(
@@ -148,17 +159,12 @@ def main(argv=None):
     for name in ("train", "train_mixup", "train_3d"):
         _add_args(sub.add_parser(name))
     args = parser.parse_args(argv)
-    if args.command == "train_mixup":
-        raise NotImplementedError(
-            "mixup training waits for the Model M slice (ROADMAP.md, modules "
-            "to port: Model M)"
-        )
     if args.command == "train_3d":
         raise NotImplementedError(
             "3D training waits for the port's 3D slice (ROADMAP.md, modules "
             "to port: 3D)"
         )
-    run_2d(args)
+    run_2d(args, mixup=args.command == "train_mixup")
 
 
 if __name__ == "__main__":

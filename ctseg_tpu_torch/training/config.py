@@ -91,7 +91,7 @@ def use_float32_convs() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def build_model(config: TrainConfig, device="cpu",
+def build_model(config: TrainConfig, device="cuda",
                 generator: torch.Generator = None) -> SegmentationModel:
     """The 2D SegmentationModel a config describes: float32 parameters
     (float64 for "float64"), computing in the config's dtype. Every model
@@ -136,7 +136,7 @@ def _num_res_units(state_dict) -> int:
     return 0
 
 
-def model_from_checkpoint(ckpt: Dict[str, Any], device="cpu"
+def model_from_checkpoint(ckpt: Dict[str, Any], device="cuda"
                           ) -> Tuple[TrainConfig, SegmentationModel]:
     """A loaded checkpoint dict (the port's, or a reference Lightning
     `.ckpt`'s) -> (config, model on `device`)."""
@@ -158,7 +158,7 @@ def model_from_checkpoint(ckpt: Dict[str, Any], device="cpu"
     return config, model.to(device)
 
 
-def load_checkpoint(path: Union[str, Path], device="cpu"
+def load_checkpoint(path: Union[str, Path], device="cuda"
                     ) -> Tuple[TrainConfig, SegmentationModel]:
     """A port checkpoint (training/checkpoint.py's included) or a reference
     Lightning `.ckpt` -> (config, model on `device`, in eval mode).

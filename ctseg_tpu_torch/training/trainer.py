@@ -1,9 +1,11 @@
 """The 2D trainer: train and eval steps, plateau LR, checkpoints (port of
-ctseg_tpu/training/trainer.py, without mixup).
+ctseg_tpu/training/trainer.py).
 
   TrainState = (step, model, optimizer, plateau)
-  train_step: degree-2 transform (K4) -> forward (K1, K2) -> multi-loss ->
-              backward (K1b, K2b, cuDNN) -> Adam(lr from plateau) -> Dice
+  train_step: degree-2 transform (K4) -> [weighted mixup] -> forward (K1,
+              K2) -> multi-loss [signed distance maps on K5 for Boundary;
+              under mixup both target sets, mixed by lambda] -> backward
+              (K1b, K2b, cuDNN) -> Adam(lr from plateau) -> Dice
   eval_step:  test transform -> forward -> losses and per-structure Dice
 
 Eager PyTorch on one device. A step never waits for the device: metrics
@@ -29,10 +31,16 @@ from ctseg_tpu_torch.metrics.dice import (
     masked_mean_batch,
 )
 from ctseg_tpu_torch.models.unet import SegmentationModel
+from ctseg_tpu_torch.ops.edt import signed_distance_maps_from_labels
 from ctseg_tpu_torch.ops.masks import squash_predictions
 from ctseg_tpu_torch.training import checkpoint as ckpt
 from ctseg_tpu_torch.training.config import TrainConfig, build_model, model_dtype
 from ctseg_tpu_torch.training.logging import MetricLogger
+from ctseg_tpu_torch.training.mixup import (
+    draw_mixup,
+    mixup_probability,
+    mixup_tensors,
+)
 from ctseg_tpu_torch.training.optimizer import make_adam, set_lr
 from ctseg_tpu_torch.training.schedule import (
     PlateauState,
@@ -70,16 +78,11 @@ def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
 
 
 class Trainer:
-    def __init__(self, config: TrainConfig, device="cpu"):
+    def __init__(self, config: TrainConfig, device="cuda"):
         if config.spatial_dims != 2:
             raise NotImplementedError(
                 "3D training waits for the port's 3D slice (ROADMAP.md, "
                 "modules to port: 3D)"
-            )
-        if config.mixup or "Boundary" in config.loss_fx:
-            raise NotImplementedError(
-                "mixup and the Boundary loss wait for the Model M slice "
-                "(ROADMAP.md, modules to port: Model M)"
             )
         self.config = config
         self.device = torch.device(device)
@@ -87,6 +90,7 @@ class Trainer:
                               else torch.float32)
         self.loss = MultiLoss(list(config.loss_fx),
                               exclude_missing=config.exclude_missing)
+        self.needs_dist_maps = "Boundary" in config.loss_fx
         self.dice = DiceMetric()
         size = (config.input_size,) * 2
         self.train_transform = get_transform(config.transform_degree, True, size)
@@ -106,11 +110,22 @@ class Trainer:
         )
 
     # ------------------------------------------------------------------ steps
+    def _logits(self, model, images):
+        x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        return model(x).to(self._metric_dtype)
+
+    def _dist_maps(self, labels):
+        """Signed distance maps of the labels (data, no gradient) when a
+        Boundary loss wants them."""
+        if not self.needs_dist_maps:
+            return None
+        return signed_distance_maps_from_labels(labels)
+
     def _losses_and_logits(self, model, images, labels, indicators,
                            sample_mask=None):
-        x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        logits = model(x).to(self._metric_dtype)
-        values = self.loss(logits, labels, indicators, sample_mask=sample_mask)
+        logits = self._logits(model, images)
+        values = self.loss(logits, labels, indicators,
+                           self._dist_maps(labels), sample_mask)
         return values, logits
 
     def _predictions(self, logits, indicators):
@@ -126,11 +141,13 @@ class Trainer:
 
     def train_step(self, state: TrainState, batch,
                    draws: Optional[Degree2Draws] = None,
-                   generator: Optional[torch.Generator] = None
-                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+                   generator: Optional[torch.Generator] = None,
+                   mixup_draws: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                   = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One step on a raw batch (images (N, H, W) HU, labels (N, H, W),
-        indicators (N, 9)); the augmentation `draws` are drawn from
-        `generator` unless given. Updates `state` in place and returns it."""
+        indicators (N, 9)); the augmentation `draws` and, under mixup, the
+        partner index and lambda `mixup_draws` are drawn from `generator`
+        unless given. Updates `state` in place and returns it."""
         images_raw, labels_raw, indicators = batch
         n, h, w = images_raw.shape
         if draws is None:
@@ -140,8 +157,28 @@ class Trainer:
 
         model = state.model.train()
         set_lr(state.optimizer, state.plateau.lr)
-        values, logits = self._losses_and_logits(model, images, labels,
-                                                 indicators)
+        if self.config.mixup:
+            if mixup_draws is None:
+                mixup_draws = draw_mixup(generator, mixup_probability(labels),
+                                         self.config.mixup_alpha)
+            index, lam = mixup_draws
+            lam = lam.to(self._metric_dtype)  # a device scalar: no wait
+            images = images.to(self._metric_dtype)
+            logits = self._logits(
+                model, mixup_tensors(images, images[index], lam))
+            # The maps come from the unmixed labels, once; the partner's
+            # are a gather (reference mixup_trainer.py:94-128).
+            dist_maps = self._dist_maps(labels)
+            labels_b, indicators_b = labels[index], indicators[index]
+            values_a = self.loss(logits, labels, indicators, dist_maps)
+            values_b = self.loss(
+                logits, labels_b, indicators_b,
+                None if dist_maps is None else dist_maps[index])
+            values = {name: mixup_tensors(values_a[name], values_b[name], lam)
+                      for name in values_a}
+        else:
+            values, logits = self._losses_and_logits(model, images, labels,
+                                                     indicators)
         total = self.loss.total(values)
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
@@ -151,6 +188,13 @@ class Trainer:
             dice_mean, dice_per_class = self.dice(
                 self._predictions(logits.detach(), indicators), labels
             )
+            if self.config.mixup:
+                # Each target set is scored with its own indicator.
+                mean_b, per_class_b = self.dice(
+                    self._predictions(logits.detach(), indicators_b), labels_b
+                )
+                dice_mean = mixup_tensors(dice_mean, mean_b, lam)
+                dice_per_class = mixup_tensors(dice_per_class, per_class_b, lam)
         metrics = {f"loss/{k}": v.detach() for k, v in values.items()}
         metrics["loss/total"] = total.detach()
         metrics["dice/mean"] = dice_mean
@@ -303,7 +347,7 @@ class Trainer:
         ckpt.save(path, self.config, state)
 
     @classmethod
-    def restore(cls, path, device="cpu") -> Tuple["Trainer", TrainState]:
+    def restore(cls, path, device="cuda") -> Tuple["Trainer", TrainState]:
         """(trainer, state) from a training checkpoint, or from any port or
         reference checkpoint with a fresh optimizer and plateau."""
         config, state = ckpt.load(path, device)

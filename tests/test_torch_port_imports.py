@@ -50,7 +50,9 @@ def test_importing_the_port_loads_no_jax():
     new = json.loads(out.strip().splitlines()[-1])
     for module in ("inference.serve", "training.cli", "training.trainer",
                    "ops.preprocess", "losses.segmentation", "metrics.dice",
-                   "data.pipeline", "data.datasets", "paths"):
+                   "data.pipeline", "data.datasets", "paths", "ops.min_plus",
+                   "ops.edt", "metrics.hd95", "training.mixup",
+                   "models.presets", "inference.evaluate"):
         assert f"ctseg_tpu_torch.{module}" in new
     bad = [
         m for m in new
@@ -139,6 +141,24 @@ def _code(path: Path, rename: bool) -> str:
 def test_copied_modules_equal_the_jax_package(module):
     jax_pkg = Path(ctseg_tpu.__file__).resolve().parent
     assert _code(PKG / module, rename=True) == _code(jax_pkg / module, False)
+
+
+def _functions(path: Path, names) -> dict:
+    """The AST of each named top-level function of a module."""
+    tree = ast.parse(path.read_text())
+    found = {n.name: ast.dump(n) for n in tree.body
+             if isinstance(n, ast.FunctionDef) and n.name in names}
+    assert sorted(found) == sorted(names)
+    return found
+
+
+def test_host_hd95_functions_equal_the_jax_package():
+    """metrics/hd95.py keeps the scipy host path (the oracle) as a copy; its
+    device half is the port's own."""
+    jax_pkg = Path(ctseg_tpu.__file__).resolve().parent
+    names = ("_surface", "hd95", "hd95_per_structure")
+    assert _functions(PKG / "metrics/hd95.py", names) == _functions(
+        jax_pkg / "metrics/hd95.py", names)
 
 
 def test_pack_slices_matches_the_jax_package(tmp_path):

@@ -55,7 +55,7 @@ def _x(seed, dtype=np.float64):
 
 
 @pytest.mark.parametrize("downsample", [False, True])
-@pytest.mark.parametrize("num_res_units", [0, 2])
+@pytest.mark.parametrize("num_res_units", [0, 1, 2])
 def test_jax_weights_give_jax_logits(num_res_units, downsample):
     jm = _jax_model(num_res_units, downsample)
     params = jm.init(jax.random.key(num_res_units), jnp.zeros((1, 32, 32, 3)))
@@ -133,7 +133,7 @@ def test_model_l_topology_calls_each_kernel_at_its_sites(monkeypatch):
 def test_checkpoint_round_trip(tmp_path):
     cfg = TrainConfig(filters=FILTERS, num_res_units=2, transform_degree=2,
                       input_size=32)
-    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    model = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(0))
     save_checkpoint(tmp_path / "m.ckpt", cfg, model)
     cfg2, model2 = load_checkpoint(tmp_path / "m.ckpt", "cpu")
     assert cfg2 == cfg and not model2.training

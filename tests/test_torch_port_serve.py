@@ -85,7 +85,7 @@ def test_predict_scan_matches_jax(patient):
     theirs = jax_predict_scan(trainer, params, volume, crop=False)
 
     cfg = TrainConfig.from_dict(jcfg.as_dict())
-    model = build_model(cfg)
+    model = build_model(cfg, "cpu")
     assert next(model.parameters()).dtype == torch.float64
     model.load_state_dict(state_dict_from_jax_params(
         jax.tree_util.tree_map(np.asarray, params), 3, FILTERS, num_res_units=2
@@ -110,7 +110,8 @@ def checkpoint(tmp_path_factory):
     cfg = TrainConfig(filters=FILTERS, num_res_units=2, transform_degree=1,
                       input_size=32, batch_size=4)
     save_checkpoint(root / "model.ckpt", cfg,
-                    build_model(cfg, generator=torch.Generator().manual_seed(0)))
+                    build_model(cfg, "cpu",
+                                generator=torch.Generator().manual_seed(0)))
     return root / "model.ckpt"
 
 

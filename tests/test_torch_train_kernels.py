@@ -307,9 +307,15 @@ def test_missing_mask_and_multiloss_match_jax(name, masked):
 
 
 def test_boundary_loss_waits_for_the_edt_kernel():
+    """It waited for K5; now it only asks for its distance maps (its
+    values are held to the JAX loss in tests/test_torch_eval_kernels.py)."""
     logits, labels, _, _ = _loss_inputs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="distance maps"):
         losses.MultiLoss(["Boundary"])(_port(logits), torch.from_numpy(labels))
+    maps = torch.zeros((4, 9, 6, 5), dtype=torch.float64)
+    values = losses.MultiLoss(["Boundary"])(
+        _port(logits), torch.from_numpy(labels), dist_maps=maps)
+    assert float(values["Boundary"]) == 0.0
 
 
 def test_dice_metric_matches_jax():

@@ -21,7 +21,7 @@
     like the JAX model's dtype/param_dtype split; its logits stay within
     the bfloat16 bound below of the JAX bfloat16 model's.
   - The plateau transition, the device pipeline, checkpoints, resume,
-    preemption and the `train` CLI, on the CPU.
+    preemption and the `train` and `train_mixup` CLIs, on the CPU.
 """
 
 import signal
@@ -102,7 +102,7 @@ def test_trajectory_and_eval_match_the_jax_trainer():
                           input_size=SIZE, batch_size=BATCH,
                           exclude_missing=True, compute_dtype="float64")
     jtr = JaxTrainer(jcfg, train_transform=lambda key, img, lab: (img, lab))
-    tr = Trainer(TrainConfig.from_dict(jcfg.as_dict()))
+    tr = Trainer(TrainConfig.from_dict(jcfg.as_dict()), "cpu")
     state = tr.init_state()
     params = _jax_params(state.model, jnp.float64)
     jstate = JaxTrainState(step=jnp.asarray(0, jnp.int32), params=params,
@@ -165,7 +165,7 @@ def test_bfloat16_config_keeps_float32_parameters():
     0.15-0.19%. The weights come from the port's initialiser."""
     cfg = TrainConfig(filters=FILTERS, num_res_units=2, transform_degree=2,
                       input_size=32, compute_dtype="bfloat16")
-    model = build_model(cfg, generator=torch.Generator().manual_seed(4))
+    model = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(4))
     assert {p.dtype for p in model.parameters()} == {torch.float32}
     params = _jax_params(model, jnp.float32)
     kw = dict(out_channels=10, channels=FILTERS, strides=(2,) * 4,
@@ -193,7 +193,7 @@ def test_building_a_model_turns_tf32_off():
     try:
         torch.backends.cudnn.allow_tf32 = True
         torch.backends.cuda.matmul.allow_tf32 = True
-        build_model(TrainConfig(filters=FILTERS, transform_degree=2))
+        build_model(TrainConfig(filters=FILTERS, transform_degree=2), "cpu")
         assert not torch.backends.cudnn.allow_tf32
         assert not torch.backends.cuda.matmul.allow_tf32
     finally:
@@ -218,7 +218,8 @@ def test_plateau_matches_jax(metrics):
 
 def test_pipeline_epochs_cover_the_split():
     images, labels, indicators = _data(3, n=10)
-    pipe = DevicePipeline2D(PackedDataset2D(images, labels, indicators), 4)
+    pipe = DevicePipeline2D(PackedDataset2D(images, labels, indicators), 4,
+                            "cpu")
     assert pipe.num_batches() == 2 and pipe.num_batches(False) == 3
     seen = torch.cat([b[2] for b in pipe.epoch(torch.Generator().manual_seed(0))])
     assert seen.shape == (8, 9)
@@ -227,14 +228,15 @@ def test_pipeline_epochs_cover_the_split():
     got = torch.cat([b[0] for b in batches])[:10]
     np.testing.assert_array_equal(got.numpy(), images)
     with pytest.raises(ValueError):
-        DevicePipeline2D(PackedDataset2D(images, labels, indicators), 11)
+        DevicePipeline2D(PackedDataset2D(images, labels, indicators), 11,
+                         "cpu")
 
 
 def _tiny_trainer(**kw):
     cfg = TrainConfig(filters=FILTERS, num_res_units=2, transform_degree=2,
                       input_size=SIZE, batch_size=BATCH, exclude_missing=True,
                       **kw)
-    return Trainer(cfg)
+    return Trainer(cfg, "cpu")
 
 
 def test_checkpoint_resumes_the_same_trajectory(tmp_path):
@@ -249,7 +251,7 @@ def test_checkpoint_resumes_the_same_trajectory(tmp_path):
     for d in draws[1:]:
         state, _ = tr.train_step(state, batch, d)
 
-    tr2, resumed = Trainer.restore(tmp_path / "m.ckpt")
+    tr2, resumed = Trainer.restore(tmp_path / "m.ckpt", "cpu")
     assert resumed.step == 1 and tr2.config == tr.config
     for d in draws[1:]:
         resumed, _ = tr2.train_step(resumed, batch, d)
@@ -258,7 +260,7 @@ def test_checkpoint_resumes_the_same_trajectory(tmp_path):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=k)
 
     # the inference loader reads the same file: float32, MONAI keys
-    cfg, model = load_checkpoint(tmp_path / "m.ckpt")
+    cfg, model = load_checkpoint(tmp_path / "m.ckpt", "cpu")
     assert {v.dtype for v in model.state_dict().values()} == {torch.float32}
     assert not model.training and cfg.filters == FILTERS
 
@@ -267,8 +269,8 @@ def test_fit_reduces_lr_on_plateau_and_saves_on_sigterm(tmp_path):
     images, labels, indicators = _data(5, n=8)
     ds = PackedDataset2D(images, labels, indicators)
     tr = _tiny_trainer(plateau_patience=0, plateau_threshold=10.0, epochs=2)
-    state = tr.fit(tr.init_state(), DevicePipeline2D(ds, 4),
-                   DevicePipeline2D(ds, 3), epochs=2)
+    state = tr.fit(tr.init_state(), DevicePipeline2D(ds, 4, "cpu"),
+                   DevicePipeline2D(ds, 3, "cpu"), epochs=2)
     # threshold 10: no epoch counts as better after the first; patience 0
     assert state.step == 4 and tr.config.steps_per_epoch == 2
     assert state.plateau.lr == pytest.approx(5e-4)
@@ -283,7 +285,7 @@ def test_fit_reduces_lr_on_plateau_and_saves_on_sigterm(tmp_path):
 
     tr2.train_epoch = epoch_then_sigterm
     with pytest.raises(Preempted) as exc:
-        tr2.fit(tr2.init_state(), DevicePipeline2D(ds, 4), epochs=3,
+        tr2.fit(tr2.init_state(), DevicePipeline2D(ds, 4, "cpu"), epochs=3,
                 checkpoint_path=tmp_path / "p.ckpt")
     assert exc.value.epoch == 0 and exc.value.state.step == 2
     _, saved = checkpoint.load(tmp_path / "p.ckpt")
@@ -307,6 +309,16 @@ def test_train_cli_trains_resumes_and_names_what_waits(tmp_path):
     cfg, state = checkpoint.load(ck / "model.ckpt")
     assert state.step == 2 and cfg.exclude_missing and cfg.num_res_units == 2
     assert (ck / "metrics.jsonl").read_text().count("val/dice/mean") == 2
-    for sub in ("train_mixup", "train_3d"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main([sub, *common])
+    # train_mixup trains (1 residual unit, weighted mixup, the Boundary loss
+    # with its distance maps); train_3d still names its ROADMAP item
+    mk = tmp_path / "run_mixup"
+    cli.main(["train_mixup", *common[:-1], str(mk), "--max_epochs", "1",
+              "--loss_fx", "Boundary", "Dice", "Focal"])
+    cfg, state = checkpoint.load(mk / "model.ckpt")
+    assert state.step == 1 and cfg.mixup and cfg.num_res_units == 1
+    assert cfg.loss_fx == ("Boundary", "Dice", "Focal")
+    assert "train/loss/Boundary" in (mk / "metrics.jsonl").read_text()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["train_3d", *common])
+    with pytest.raises(SystemExit, match="3D configuration"):
+        cli.main(["train", *common, "--preset", "model_3d"])
