@@ -11,7 +11,12 @@ Phases (any failure raises and the script exits non-zero):
      IN+PReLU site shapes (batch 32), float32 and bfloat16, three alphas, one
      near-constant channel.
   3. K2, conv3x3_in_prelu, against its plain version at Model L's stride-1
-     3x3 unit shapes (batch 32), float32 and bfloat16.
+     3x3 unit shapes (batch 32), float32 and bfloat16: every site on the
+     tensor-core route, two runs on one input torch.equal; per site the
+     float32 kernel's and the plain version's largest error against a
+     float64 conv + norm of the same inputs, and the time of the conv alone
+     through F.conv2d (cuDNN; float32 with TF32 off, and bfloat16) as a
+     yardstick the port never calls there.
   4. Serve: full-width Model L (filters 64..1024, 2 residual units, 3 -> 10,
      float32, random weights from seed 0) saved as a port checkpoint, loaded
      by SegmentationService on the card behind the HTTP server; 3 synthetic
@@ -36,7 +41,8 @@ Phases (any failure raises and the script exits non-zero):
      times, K2 and K2b 9 times; the loss must be finite and fall over 5
      steps on one fixed batch (fixed draws). The trained state is saved
      with training/checkpoint.py and SegmentationService serves one scan
-     from it.
+     from it. Then the step's parts, each alone (CUDA events), and its
+     device time by group of kernels (torch.profiler; phase 13 as well).
  10. Train, bfloat16: the same model from compute_dtype="bfloat16", 2 steps:
      float32 parameters, finite loss, the same launches.
  11. Gradient parity: one float32 step of the full-width model on 2 slices,
@@ -60,12 +66,16 @@ Phases (any failure raises and the script exits non-zero):
      to the scipy host path at 1e-4 relative; slices/s with and without
      HD95.
 
+No main path (serve, Model L, Model M, evaluation) may launch K2's FP32-pipe
+route: its count is asserted to be 0 after each.
+
 The line before the last lists each kernel's launches on its main path
 (phase 9's timed Model L steps; K5's are phase 13's Model M steps; the
 other paths' counts stand beside them), its largest float32 error, its time
-beside the plain version's and the least time the card could take (the
-larger of its operations over 67 TFLOP/s and its bytes over 3.35 TB/s); the
-last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
+beside the plain version's and the least time the card could take (see
+site_bounds), for K2 and K1b also in bfloat16, and for K2 the library's time
+for the conv alone; the last line is {"ok": true, "device": {...}}. Imports
+nothing of JAX.
 """
 
 import http.client
@@ -91,6 +101,8 @@ K1_SITES = {
     (16, 16, 512): 1,    # down3 unit0
     (256, 256, 10): 1,   # up0 transposed conv
     (16, 16, 1024): 0,   # not a site; the widest channel count
+    (5, 7, 3): 0,        # not a site; K1b one element a lane (105 elements)
+    (4, 4, 1030): 0,     # not a site; K1b two-phase with 3 column tiles
 }
 # Its stride-1 3x3 Conv+IN+PReLU units: (H, W, Cin, Cout) -> sites.
 K2_SITES = {
@@ -100,6 +112,10 @@ K2_SITES = {
     (16, 16, 512, 512): 1,     # down3 unit1
     (16, 16, 512, 1024): 1,    # bottom unit0
     (16, 16, 1024, 1024): 1,   # bottom unit1
+    # Not sites: ragged last pixel tiles (240 and 63 pixels), Cin below a
+    # pipeline step, Cout no multiple of the channel tile.
+    (20, 12, 24, 40): 0,
+    (7, 9, 8, 136): 0,
 }
 ALPHAS = (0.25, -0.1, 0.0)
 # Tolerances: |kernel - plain| <= atol + rtol * |plain|. float32 differs only
@@ -142,44 +158,67 @@ HD95_RTOL = 1e-4        # phase 14: device HD95 vs scipy, float32 distances
 EVAL_BATCH = 64
 EVAL_SLICES = 300       # 4 full batches and one padded
 # The H100's published peaks (SXM, dense): float32 outside the tensor cores,
-# and HBM3. A kernel's bound is the larger of its operations over the first
-# and its bytes (every input read once, every output written once) over the
-# second.
+# TF32 and bfloat16 on them, and HBM3. A kernel's bound is the larger of its
+# operations over the peak of the unit its contract allows and its bytes
+# (every input read once, every output written once) over the last.
 PEAK_FLOPS = 67e12
+PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
 
-def bound_ms(ops: float, nbytes: float):
+def bound_ms(ops: float, nbytes: float, peak: float = PEAK_FLOPS):
     """(least milliseconds the card could take, what bounds it)."""
-    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def site_bounds():
-    """The bound of each kernel over the sites of its main path, float32.
+    """The bound of each kernel over the sites of its main path.
     Operations per element, counted from the formulas: K1 8 (two running
     sums, normalise, PReLU), K1b 14 (xhat again, gh, three sums, dx), K2
     2 * 9 * Cin per output element for the conv and 8 for the norm, K2b 12,
-    K4 15 per output pixel (3 windows of clip, shift, two divisions)."""
+    K4 15 per output pixel (3 windows of clip, shift, two divisions).
+
+    The peak is that of the unit the kernel's contract allows. K2 in
+    float32 keeps float32 products by the split-TF32 scheme, three
+    tensor-core products for each one of the conv: its bound ("k2") is the
+    larger of 3 x the conv's operations over 495 TFLOP/s (plus the norm's
+    over 67) and its bytes over 3.35 TB/s; "k2_fp32_pipes" is the bound of
+    the same work on the FP32 pipes (67 TFLOP/s), which the kernel was held
+    to before it used the tensor cores. K2 in bfloat16 ("k2_bf16"): the
+    conv's operations over 989 TFLOP/s, or its bytes at 2 bytes an element
+    of x, w and the output. The other kernels compute on the FP32 pipes;
+    "k1b_bf16" counts 2 bytes an element."""
     out = {}
     for key, n in (("k1", BATCH), ("k1b", TRAIN_BATCH)):
-        ops = nbytes = 0
+        ops = elems = 0
         for (h, w, c), sites in K1_SITES.items():
             e = n * h * w * c * sites
             ops += (8 if key == "k1" else 14) * e
-            nbytes += (2 if key == "k1" else 3) * 4 * e
-        out[key] = bound_ms(ops, nbytes)
+            elems += (2 if key == "k1" else 3) * e
+        out[key] = bound_ms(ops, 4 * elems)
+        out[key + "_bf16"] = bound_ms(ops, 2 * elems)
     for key, n in (("k2", BATCH), ("k2b", TRAIN_BATCH)):
-        ops = nbytes = 0
+        conv_ops = norm_ops = elems = 0
         for (h, w, cin, cout), sites in K2_SITES.items():
             e = n * h * w * cout * sites
             if key == "k2":
-                ops += (2 * 9 * cin + 8) * e
-                nbytes += 4 * (e + sites * (n * h * w * cin + 9 * cin * cout))
+                conv_ops += 2 * 9 * cin * e
+                norm_ops += 8 * e
+                elems += e + sites * (n * h * w * cin + 9 * cin * cout)
             else:
-                ops += 12 * e
-                nbytes += 3 * 4 * e
-        out[key] = bound_ms(ops, nbytes)
+                norm_ops += 12 * e
+                elems += 3 * e
+        out[key] = bound_ms(conv_ops + norm_ops, 4 * elems)
+        if key == "k2":
+            out["k2_fp32_pipes"] = out["k2"]
+            # The norm's operations run beside the tensor cores' on the
+            # FP32 pipes; converted to the time they take there.
+            tf32 = 3 * conv_ops + norm_ops * (PEAK_TF32 / PEAK_FLOPS)
+            out["k2"] = bound_ms(tf32, 4 * elems, PEAK_TF32)
+            bf16 = conv_ops + norm_ops * (PEAK_BF16 / PEAK_FLOPS)
+            out["k2_bf16"] = bound_ms(bf16, 2 * elems, PEAK_BF16)
     pixels = TRAIN_BATCH * 256 * 256
     out["k4"] = bound_ms(15 * pixels,
                          4 * (TRAIN_BATCH * RAW * RAW + 3 * pixels))
@@ -195,13 +234,16 @@ def card_label() -> str:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean device milliseconds per call, by CUDA events after a warm-up."""
+    """Mean device milliseconds per call, by CUDA events after a warm-up.
+    The card first spins for some 15 ms while the host queues the calls, so
+    that a short kernel's time holds none of the host's launch time."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(30_000_000)  # cycles
     start.record()
     for _ in range(reps):
         fn()
@@ -267,15 +309,37 @@ def phase_k1(label, gen):
     return worst, ms, plain_ms
 
 
+def _conv_norm_f64(x, wt, b, alpha):
+    """conv3x3 + two-pass InstanceNorm + PReLU in float64 on the card, from
+    the stored values: the referee of phase 3."""
+    import torch
+    import torch.nn.functional as F
+
+    y = F.conv2d(x.double().permute(0, 3, 1, 2),
+                 wt.double().permute(3, 2, 0, 1), b.double(), padding=1)
+    mean = y.mean(dim=(2, 3), keepdim=True)
+    var = torch.square(y - mean).mean(dim=(2, 3), keepdim=True)
+    xhat = (y - mean) * torch.rsqrt(var + 1e-5)
+    return torch.where(xhat >= 0, xhat, float(alpha) * xhat).permute(0, 2, 3, 1)
+
+
 def phase_k2(label, gen):
     import torch
+    import torch.nn.functional as F
     from ctseg_tpu_torch.ops.conv_block import (
-        conv3x3_in_prelu, conv3x3_in_prelu_plain,
+        conv3x3_in_prelu, conv3x3_in_prelu_plain, conv_route,
     )
 
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    ms = plain_ms = 0.0
+    ms = {"float32": 0.0, "bfloat16": 0.0}
+    plain_ms = {"float32": 0.0, "bfloat16": 0.0}
+    lib_ms = {"float32": 0.0, "bfloat16": 0.0}
+    worst64 = {"kernel": 0.0, "plain": 0.0}
+    conv3x3_in_prelu.launches_simt = 0
     for (h, w, cin, cout), sites in K2_SITES.items():
+        if conv_route(cin, cout, h, w) != "tc":
+            raise AssertionError(f"K2 site {(h, w, cin, cout)} is not on the "
+                                 "tensor-core route")
         x32 = torch.randn((BATCH, h, w, cin), generator=gen, device=DEVICE)
         bound = 1.0 / (9 * cin) ** 0.5  # torch-default init scale
         w32 = (torch.rand((3, 3, cin, cout), generator=gen, device=DEVICE)
@@ -291,18 +355,46 @@ def phase_k2(label, gen):
                 p = conv3x3_in_prelu_plain(x, wt, b, alpha)
                 tag = f"K2 {(BATCH, h, w, cin, cout)} {dname} alpha={a}"
                 worst[dname] = max(worst[dname], check_close(tag, k, p, atol, rtol))
+            # No atomics, fixed-order sums: the kernel repeats itself bit
+            # for bit.
+            if not torch.equal(k, conv3x3_in_prelu(x, wt, b, alpha)):
+                raise AssertionError(f"{tag}: two runs on one input differ")
+            if dtype == torch.float32:
+                ref = _conv_norm_f64(x, wt, b, a)
+                e_k = float((k.double() - ref).abs().max())
+                e_p = float((p.double() - ref).abs().max())
+                worst64 = {"kernel": max(worst64["kernel"], e_k),
+                           "plain": max(worst64["plain"], e_p)}
+                print(f"[{label}] K2 {(BATCH, h, w, cin, cout)} float32 max "
+                      f"error against float64: kernel (split TF32) {e_k:.3e},"
+                      f" plain (cuDNN FP32) {e_p:.3e}")
+                del ref
             t_k = time_ms(lambda: conv3x3_in_prelu(x, wt, b, alpha), 5)
             t_p = time_ms(lambda: conv3x3_in_prelu_plain(x, wt, b, alpha), 5)
+            # The library's conv alone, on the layout cuDNN likes best.
+            xc = x.permute(0, 3, 1, 2)  # NCHW view of NHWC: channels_last
+            wc = wt.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            bc = b.to(dtype)
+            t_l = time_ms(lambda: F.conv2d(xc, wc, bc, padding=1), 5)
             gflop = 2 * 9 * cin * cout * h * w * BATCH / 1e9
             print(f"[{label}] K2 {(BATCH, h, w, cin, cout)} {dname}: kernel "
                   f"{t_k:.3f} ms ({gflop / t_k:.2f} TFLOP/s), plain {t_p:.3f} ms"
-                  f" ({gflop / t_p:.2f} TFLOP/s), sites/forward {sites}")
-            if dtype == torch.float32:
-                ms += sites * t_k
-                plain_ms += sites * t_p
+                  f" ({gflop / t_p:.2f} TFLOP/s), F.conv2d alone {t_l:.3f} ms "
+                  f"({gflop / t_l:.2f} TFLOP/s), sites/forward {sites}")
+            ms[dname] += sites * t_k
+            plain_ms[dname] += sites * t_p
+            lib_ms[dname] += sites * t_l
+    if conv3x3_in_prelu.launches_simt != 0:
+        raise AssertionError("a K2 site took the FP32-pipe route")
     print(f"K2 max |kernel - plain|: float32 {worst['float32']:.3e}, "
-          f"bfloat16 {worst['bfloat16']:.3e}")
-    return worst, ms, plain_ms
+          f"bfloat16 {worst['bfloat16']:.3e}; float32 against float64: kernel "
+          f"{worst64['kernel']:.3e}, plain {worst64['plain']:.3e}; per forward "
+          f"at batch {BATCH}: float32 kernel {ms['float32']:.3f} ms, plain "
+          f"{plain_ms['float32']:.3f}, F.conv2d alone {lib_ms['float32']:.3f};"
+          f" bfloat16 kernel {ms['bfloat16']:.3f} ms, plain "
+          f"{plain_ms['bfloat16']:.3f}, F.conv2d alone {lib_ms['bfloat16']:.3f}")
+    return worst, ms, plain_ms, lib_ms, worst64
 
 
 def _request(port, method, path, body=None):
@@ -361,6 +453,7 @@ def phase_serve(label, workdir: Path):
 
         instance_norm_prelu.launches = 0
         conv3x3_in_prelu.launches = 0
+        conv3x3_in_prelu.launches_simt = 0
         served = []
         for i, body in enumerate(bodies):
             t0 = time.perf_counter()
@@ -400,6 +493,10 @@ def phase_serve(label, workdir: Path):
               f"differ from request 0's by {moved}")
         launches = {"k1": instance_norm_prelu.launches,
                     "k2": conv3x3_in_prelu.launches}
+        if conv3x3_in_prelu.launches_simt != 0:
+            raise AssertionError(
+                f"serving took K2's FP32-pipe route "
+                f"{conv3x3_in_prelu.launches_simt} times")
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -453,6 +550,8 @@ def phase_forward(label, service, ckpt, scan):
         out = service.model(x.to(DEVICE)).cpu()
     if (instance_norm_prelu.launches - k1, conv3x3_in_prelu.launches - k2) != (8, 9):
         raise AssertionError("the CUDA forward did not run 8 K1 and 9 K2 launches")
+    if conv3x3_in_prelu.launches_simt != 0:
+        raise AssertionError("the CUDA forward took K2's FP32-pipe route")
     err = (out - ref).abs()
     if not bool(torch.isfinite(out).all()):
         raise AssertionError("CUDA logits are not finite")
@@ -492,7 +591,8 @@ def phase_k1b(label, gen):
 
     n = TRAIN_BATCH
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    ms = plain_ms = 0.0
+    ms = {"float32": 0.0, "bfloat16": 0.0}
+    plain_ms = {"float32": 0.0, "bfloat16": 0.0}
     for (h, w, c), sites in K1_SITES.items():
         x32 = _k1_input(gen, (n, h, w, c))
         g32 = torch.randn((n, h, w, c), generator=gen, device=DEVICE)
@@ -538,18 +638,32 @@ def phase_k1b(label, gen):
                 terms = (g.float() * torch.clamp_max(xhat, 0.0)).abs().sum()
                 check_dalpha(f"{tag} alpha={a}", da, pda, terms)
                 worst[dname] = max(worst[dname], err)
+            # Fixed-order sums, no atomics: a second call repeats both.
+            dx2, da2 = k1.instance_norm_prelu_bwd(x, g, pmean, pvar, alpha)
+            if not (torch.equal(da, da2) and torch.equal(dx, dx2)):
+                raise AssertionError(f"{tag}: two calls on one input differ")
+            del dx2
+            plan = k1.bwd_cluster_plan(n, h * w, c, x.element_size())
+            form = "two-phase" if plan is None else \
+                f"read-once in clusters of {plan['size']}"
+            plan = plan or k1.bwd_plan(n, h * w, c, x.element_size())
             t_k = time_ms(lambda: k1.instance_norm_prelu_bwd(
                 x, g, pmean, pvar, alpha), 20)
             t_p = time_ms(lambda: k1.instance_norm_prelu_bwd_plain(
                 x, g, pmean, pvar, alpha), 20)
+            site_bound = 3 * x.numel() * x.element_size() / PEAK_BYTES * 1e3
             print(f"[{label}] K1b {(n, h, w, c)} {dname}: kernel "
-                  f"{t_k:.4f} ms, plain {t_p:.4f} ms, sites/step {sites}")
-            if dtype == torch.float32:
-                ms += sites * t_k
-                plain_ms += sites * t_p
+                  f"{t_k:.4f} ms, plain {t_p:.4f} ms, its bytes' bound "
+                  f"{site_bound:.4f} ms ({site_bound / t_k:.2f} of the "
+                  f"kernel's time), {form}, grid {plan['grid']}, "
+                  f"{plan['vec']} elements a lane, sites/step {sites}")
+            ms[dname] += sites * t_k
+            plain_ms[dname] += sites * t_p
     print(f"K1b max |kernel - plain| (dx): float32 {worst['float32']:.3e}, "
-          f"bfloat16 {worst['bfloat16']:.3e}; per step at batch {n}: "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+          f"bfloat16 {worst['bfloat16']:.3e}; per step at batch {n}: float32 "
+          f"kernel {ms['float32']:.3f} ms, plain {plain_ms['float32']:.3f} ms;"
+          f" bfloat16 kernel {ms['bfloat16']:.3f} ms, plain "
+          f"{plain_ms['bfloat16']:.3f} ms")
     return worst, ms, plain_ms
 
 
@@ -691,9 +805,16 @@ def _counters():
 def reset_launches():
     for fn in _counters().values():
         fn.launches = 0
+    _counters()["k2"].launches_simt = 0
 
 
 def read_launches():
+    """Each kernel's launches since reset_launches. Raises if any K2 launch
+    took the FP32-pipe route: no main path may."""
+    k2 = _counters()["k2"]
+    if k2.launches_simt != 0:
+        raise AssertionError(f"{k2.launches_simt} of {k2.launches} K2 "
+                             "launches took the FP32-pipe route")
     return {k: fn.launches for k, fn in _counters().items()}
 
 
@@ -702,6 +823,63 @@ PER_STEP = {"k4": 1, "k1": 8, "k1b": 8, "k2": 9, "k2b": 9, "k5": 0}
 # non-top decoder levels'); one K5 launch makes both signs of all 128 x 9
 # distance maps.
 PER_STEP_M = {"k4": 1, "k1": 8, "k1b": 8, "k2": 4, "k2b": 4, "k5": 1}
+
+
+# Kernel-name fragments -> the group a train step's device time is summed
+# under (first match wins).
+KERNEL_GROUPS = (
+    ("conv3x3_wgmma_kernel", "K2 conv"),
+    ("prepare_weights_kernel", "K2 weights, statistics and apply"),
+    ("conv_stats_finalize_kernel", "K2 weights, statistics and apply"),
+    ("in_prelu_apply_kernel", "K2 weights, statistics and apply"),
+    ("in_prelu_bwd_saved_kernel", "K2b"),
+    ("in_prelu_bwd_", "K1b"),
+    ("in_prelu_fwd_kernel", "K1"),
+    ("window_normalize_kernel", "K4"),
+    ("min_plus_kernel", "K5"),
+    ("dgrad", "library conv dgrad"),
+    ("wgrad", "library conv wgrad"),
+    ("fft", "library FFT convs"),
+    ("nchwToNhwc", "library layout transposes"),
+    ("nhwcToNchw", "library layout transposes"),
+    ("scatter", "scatter_add (Dice counts)"),
+)
+
+
+def profile_step(label, what, step, steps=2):
+    """Device time of `step()` by group of kernels, from torch.profiler's
+    kernel events (the host-side operator events carry the same time again
+    and are left out)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    groups, others = {}, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3 / steps
+        name = next((g for frag, g in KERNEL_GROUPS if frag in e.key),
+                    "other library and torch kernels")
+        t, n = groups.get(name, (0.0, 0))
+        groups[name] = (t + ms, n + e.count / steps)
+        if name.startswith("other"):
+            others.append((ms, e.key[:60]))
+    total = sum(t for t, _ in groups.values())
+    if total == 0.0:
+        print(f"[{label}] {what} by kernel: the trace holds no device time")
+        return
+    rows = sorted(groups.items(), key=lambda kv: -kv[1][0])
+    print(f"[{label}] {what} by kernel (torch.profiler, {steps} steps), ms a "
+          f"step (launches): "
+          + "; ".join(f"{k} {t:.3f} ({n:g})" for k, (t, n) in rows)
+          + f"; all kernels {total:.3f}; the largest of the others: "
+          + ", ".join(f"{k} {t:.3f}" for t, k in sorted(others)[:-5:-1]))
 
 
 def phase_train(label, workdir: Path, scan: Path):
@@ -765,6 +943,40 @@ def phase_train(label, workdir: Path, scan: Path):
         raise AssertionError(f"served {labels.shape} {labels.dtype}")
     print(f"[{label}] the trained checkpoint ({ckpt_path.stat().st_size} "
           f"bytes) served one {SCAN} scan")
+
+    # The step's parts, each alone (CUDA events, mean of 5 after a warm-up).
+    model = state.model.train()
+    images, labels = trainer.train_transform(batch[0], batch[1], draws)
+    with torch.no_grad():
+        logits = trainer._logits(model, images)
+
+    def forward_no_grad():
+        with torch.no_grad():
+            trainer._logits(model, images)
+
+    def forward_losses_backward():
+        values, _ = trainer._losses_and_logits(model, images, labels, batch[2])
+        state.optimizer.zero_grad(set_to_none=True)
+        trainer.loss.total(values).backward()
+
+    timed = {
+        "transform (K4 + the labels' moves)": lambda: trainer.train_transform(
+            batch[0], batch[1], draws),
+        "forward alone, no_grad": forward_no_grad,
+        "forward, losses and backward": forward_losses_backward,
+        "Dice": lambda: trainer.dice(
+            trainer._predictions(logits, batch[2]), labels),
+        "Adam (foreach)": state.optimizer.step,  # on the gradients left above
+    }
+    phases = {name: time_ms(fn, 5) for name, fn in timed.items()}
+    rest = step_s * 1e3 - sum(
+        v for k, v in phases.items() if k != "forward alone, no_grad")
+    print(f"[{label}] Model L step by part, ms: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in phases.items())
+          + f"; the {step_s * 1e3:.3f} ms step less the transform, the "
+          f"forward, losses and backward, the Dice and Adam: {rest:.3f}")
+    profile_step(label, "Model L train step",
+                 lambda: trainer.train_step(state, batch, draws))
     return trainer, state, batch, draws, launches, step_s
 
 
@@ -1099,6 +1311,8 @@ def phase_train_model_m(label, workdir: Path):
           + f"; the rest of the {step_s * 1e3:.3f} ms step (backward, the "
           f"losses' backward and what autograd saves in the forward) {rest:.3f}")
 
+    profile_step(label, "Model M train step", lambda: trainer.train_step(
+        state, batch, draws, mixup_draws=mixup_draws))
     return ckpt_path, launches, step_s
 
 
@@ -1231,7 +1445,7 @@ def main() -> int:
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     k1_err, k1_ms, k1_plain = phase_k1(label, gen)
-    k2_err, k2_ms, k2_plain = phase_k2(label, gen)
+    k2_err, k2_ms, k2_plain, k2_lib, k2_err64 = phase_k2(label, gen)
     k1b_err, k1b_ms, k1b_plain = phase_k1b(label, gen)
     k2b_err, k2b_ms, k2b_plain = phase_k2b(label, gen)
     k4_err, k4_ms, k4_plain = phase_k4(label, gen)
@@ -1258,7 +1472,8 @@ def main() -> int:
     def entry(name, key, source, replaces, err, ms, plain_ms):
         # No one PyTorch call computes any of these functions (IN + PReLU,
         # conv + IN + PReLU, their backwards from saved statistics, windows +
-        # moves + normalize, a min-plus pass), so there is no library time.
+        # moves + normalize, a min-plus pass), so there is no library time;
+        # K2 carries the library's time for its conv part alone beside it.
         return {"name": name, "route": "cuda",
                 "source": f"ctseg_tpu_torch/csrc/{source}",
                 "replaces": f"ctseg_tpu/ops/pallas/{replaces}",
@@ -1272,15 +1487,34 @@ def main() -> int:
         entry("instance_norm_prelu", "k1", "instance_norm.cu",
               "instance_norm.py:254", k1_err, k1_ms, k1_plain),
         entry("instance_norm_prelu_bwd", "k1b", "instance_norm.cu",
-              "instance_norm.py:319", k1b_err, k1b_ms, k1b_plain),
+              "instance_norm.py:319", k1b_err, k1b_ms["float32"],
+              k1b_plain["float32"]),
         entry("conv3x3_in_prelu", "k2", "conv_block.cu",
-              "conv_block.py:146", k2_err, k2_ms, k2_plain),
+              "conv_block.py:146", k2_err, k2_ms["float32"],
+              k2_plain["float32"]),
         entry("in_prelu_bwd", "k2b", "conv_block.cu",
               "conv_block.py:193", k2b_err, k2b_ms, k2b_plain),
         entry("window_normalize_degree2", "k4", "preprocess.cu",
               "preprocess.py:81", {"float32": k4_err, "bfloat16": None},
               k4_ms, k4_plain),
     ]
+    # The bfloat16 totals of the two redesigned kernels, with their bounds at
+    # 2 bytes an element (K2: on the bfloat16 tensor-core peak).
+    kernels[1].update(
+        ms_bf16=k1b_ms["bfloat16"], plain_ms_bf16=k1b_plain["bfloat16"],
+        bound_ms_bf16=bounds["k1b_bf16"][0],
+        bound_by_bf16=bounds["k1b_bf16"][1])
+    kernels[2].update(
+        ms_bf16=k2_ms["bfloat16"], plain_ms_bf16=k2_plain["bfloat16"],
+        bound_ms_bf16=bounds["k2_bf16"][0],
+        bound_by_bf16=bounds["k2_bf16"][1],
+        bound_ms_fp32_pipes=bounds["k2_fp32_pipes"][0],
+        library_ms_conv=k2_lib["float32"],
+        library_ms_conv_bf16=k2_lib["bfloat16"],
+        max_abs_err_vs_float64=k2_err64["kernel"],
+        plain_max_abs_err_vs_float64=k2_err64["plain"],
+        # Read after the last main path; each path asserted 0 of its own.
+        launches_simt=_counters()["k2"].launches_simt)
     # K4 and K5 compute float32 only: no bfloat16 comparison exists to
     # report, so that key is null for them.
     k5 = entry("min_plus", "k5", "min_plus.cu", "min_plus.py:74",
@@ -1305,7 +1539,13 @@ def main() -> int:
           f"of one forward at the serving batch {BATCH} for K1 and K2, of "
           f"one backward at the training batch {TRAIN_BATCH} for K1b and "
           f"K2b, of one batch-{TRAIN_BATCH} transform for K4 and of one "
-          "Model M step's distance maps for K5; max_abs_err: float32)")
+          "Model M step's distance maps for K5; max_abs_err: float32; "
+          "ms_bf16, plain_ms_bf16, bound_ms_bf16: the same sums in bfloat16; "
+          "K2's bound_ms: 3 tensor-core products for each one of the conv at "
+          "the TF32 peak, bound_ms_fp32_pipes: the same work at the FP32 "
+          "pipes' peak; library_ms_conv: F.conv2d alone, the conv part of "
+          "K2 only; launches_simt: K2 launches on the FP32-pipe route, "
+          "asserted 0 on every main path)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace ctseg {
 
 // Codes the Python wrappers pass for the storage type.
@@ -33,9 +35,34 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's .to()
 }
 
+// Two floats rounded to nearest even into one 32-bit pair of bfloat16, the
+// first in the low half (the lower address).
+__device__ __forceinline__ unsigned int pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned int*>(&h);
+}
+
 // jnp.where(xhat >= 0, xhat, alpha * xhat): NaN takes the alpha branch.
 __device__ __forceinline__ float prelu(float v, float alpha) {
   return v >= 0.f ? v : alpha * v;
+}
+
+// 16 bytes global -> shared, or 16 zero bytes when !pred (src is then only
+// required to be a valid address).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int bytes = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // Sum of `v` over threadIdx.y for each threadIdx.x column, for a block of
@@ -58,7 +85,8 @@ __device__ __forceinline__ float column_sum(float v, float (*buf)[32]) {
 }
 
 // The IN+PReLU backward of one (sample, 32-channel tile) block of (32, kRows)
-// threads, shared by K1b and K2b, which differ only in where xhat comes from:
+// threads, K2b's routine (K1b's first version shared it; `xhat_at` is where
+// the two differed):
 //   gh = g * (xhat >= 0 ? 1 : alpha)
 //   dx = scale * (gh - mean(gh) - xhat * mean(gh * xhat))
 //   dalpha partial = sum over the block of g * min(xhat, 0)

@@ -12,8 +12,8 @@
 // xhat from the saved x, mean and var:
 //   gh = g * (xhat >= 0 ? 1 : alpha)
 //   dx = rsqrt(var + eps) * (gh - mean(gh) - xhat * mean(gh * xhat))
-//   dalpha = sum(g * min(xhat, 0)), as per-(sample, channel-tile) partials
-//   that the wrapper sums (the Pallas kernel's SMEM partials; no atomics).
+//   dalpha = sum(g * min(xhat, 0)), as deterministic partials that the
+//   wrapper sums (the Pallas kernel's SMEM partials; no atomics).
 //
 // What bounds it on an H100: memory. The forward reads x twice (stats, then
 // normalize) and writes y once; the backward reads x and g twice (sums, then
@@ -21,13 +21,59 @@
 // VMEM to read x once; a Hopper SM has 227 KB of shared memory, less than
 // one 128x128x64 slab, so the second read comes from L2 or HBM instead.
 //
-// Design: one block per (sample, 32-channel tile). The 32 lanes of a warp
-// take 32 neighbouring channels of one pixel, so every load is one coalesced
-// segment; the 16 warps stride over the pixels, which replaces the TPU's
-// sequential H grid. A column sum in shared memory combines the 16 partials.
-// Known weakness, left for a later change: at (N, 256, 256, 10) this is N
-// blocks with 22 of 32 lanes idle. A split-spatial two-phase reduction is
-// the fix.
+// Forward design: one block per (sample, 32-channel tile). The 32 lanes of a
+// warp take 32 neighbouring channels of one pixel, so every load is one
+// coalesced segment; the 16 warps stride over the pixels, which replaces the
+// TPU's sequential H grid. A column sum in shared memory combines the 16
+// partials. Known weakness, left for a later change: at (N, 256, 256, 10)
+// this is N blocks with 22 of 32 lanes idle.
+//
+// Backward design (K1b). Two forms, chosen by the wrapper from the shape
+// (ops/instance_norm.py::bwd_cluster_plan, bwd_plan), both with full lanes
+// at any C and the spatial axis split over blocks:
+//   - Full lanes. A sample is one flat row of S*C elements, and a lane takes
+//     16 bytes of it (4 float32, 8 bfloat16), neighbouring lanes
+//     neighbouring vectors. The row repeats its channel pattern every
+//     lcm(C, V) elements (V elements a vector): q = C / gcd(C, V) vectors, a
+//     "super-row". A block's threads form (rows, columns) over super-rows,
+//     so a thread's V channels never change while it strides over its rows,
+//     and its three running sums stay in registers. At C = 10 a super-row is
+//     5 vectors (2 pixels) and 255 of 256 lanes work. Samples whose byte
+//     length is no multiple of 16 take the same kernels with one element a
+//     lane.
+//   - Read-once form (in_prelu_bwd_cluster_kernel), where C is whole vectors
+//     and a sample's tile of channels fits a thread block cluster's shared
+//     memory: each of the cluster's 8 (or 16) blocks copies its share of the
+//     pixels of x and g into shared memory (cp.async), sums gh, gh*xhat and
+//     g*min(xhat, 0) over them, the blocks exchange the sums through
+//     distributed shared memory after a cluster-wide barrier (added in rank
+//     order: deterministic), and each writes dx from its resident rows: 12
+//     bytes an element, the bound's own count. Model L's 64x64x128,
+//     32x32x256 and 16x16x512 sites go this way with clusters of 8 and tiles
+//     of 32 to 512 channels, 128x128x64 with clusters of 16 and 16-channel
+//     tiles (64-byte rows; 8 blocks would hold 8 channels, 32-byte rows).
+//   - Two-phase form, everything else (256x256x10: a sample is 2.6 MB and
+//     its rows 40 bytes): grid (column tiles, spatial chunks, N). Phase 1
+//     sums over the block's chunk of super-rows (registers, then a
+//     fixed-order sum over the block's rows in shared memory) and writes one
+//     partial per (sample, chunk, sum, element column) to a float32
+//     workspace. A kernel of one thread a (sample, channel) adds the
+//     channel's partials over the chunks and the columns that carry it, in
+//     index order, into the two means. (Done by every block of phase 2
+//     instead, these dependent loads took longer than the block's own work
+//     at the 16x16 sites.) Phase 2 reads the means and writes dx: x and g
+//     are read twice, 20 bytes an element.
+//   - dalpha is torch.sum over the third plane of either form's workspace.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py phase 6; the 8
+// launches of one Model L backward at batch 128): K1b float32 3.545 ms
+// (6.095 ms before the redesign; its bytes' bound 2.043 ms), bfloat16 2.173
+// ms (bound 1.022 ms); the 256x256x10 site alone 0.652 ms (2.368 before).
+// Per site and per path: PERF.md, section 6.
+#include <cooperative_groups.h>
+
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
@@ -75,27 +121,471 @@ __global__ void __launch_bounds__(kTileC * kRows)
   }
 }
 
+constexpr int kBwdThreads = 256;
+
+// How the backward's blocks cut one sample of s pixels x c channels into
+// vectors of V elements; mirrors ops/instance_norm.py::bwd_plan.
+struct BwdGeometry {
+  int s, c;
+  int q;               // vectors per super-row: c / gcd(c, V)
+  int lcm;             // elements per super-row: q * V
+  int wc;              // columns (vectors) a block takes: min(q, threads)
+  int rr;              // super-rows a block takes per iteration
+  int coltiles;        // ceil(q / wc)
+  int rows_total;      // super-rows per sample
+  int rows_per_chunk;  // super-rows per spatial chunk
+  int chunks;
+};
+
+inline int gcd_int(int a, int b) {
+  while (b != 0) {
+    const int r = a % b;
+    a = b;
+    b = r;
+  }
+  return a;
+}
+
+inline bool make_geometry(int s, int c, int v, int chunks, int rows_per_chunk,
+                          BwdGeometry* geo) {
+  const int g = gcd_int(c, v);
+  geo->s = s;
+  geo->c = c;
+  geo->q = c / g;
+  geo->lcm = geo->q * v;
+  geo->wc = geo->q < kBwdThreads ? geo->q : kBwdThreads;
+  geo->rr = kBwdThreads / geo->wc;
+  geo->coltiles = (geo->q + geo->wc - 1) / geo->wc;
+  const int pixels_per_row = v / g;
+  if (s % pixels_per_row != 0) return false;
+  geo->rows_total = s / pixels_per_row;
+  geo->rows_per_chunk = rows_per_chunk;
+  geo->chunks = chunks;
+  return chunks >= 1 && rows_per_chunk >= 1 && chunks <= 65535 &&
+         static_cast<long long>(chunks) * rows_per_chunk >= geo->rows_total &&
+         static_cast<long long>(chunks - 1) * rows_per_chunk < geo->rows_total;
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p,
+                                         float (&out)[V]) {
+  if constexpr (V == 1) {
+    out[0] = ctseg::to_float(p[0]);
+  } else if constexpr (sizeof(T) == 4) {
+    static_assert(V == 4, "a 16-byte vector of float32");
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x;
+    out[1] = v.y;
+    out[2] = v.z;
+    out[3] = v.w;
+  } else {
+    static_assert(V == 8, "a 16-byte vector of bfloat16");
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const unsigned int words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // bfloat16 is the high half of a float32: low element first.
+      out[2 * i] = __uint_as_float(words[i] << 16);
+      out[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
+    }
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* __restrict__ p,
+                                          const float (&v)[V]) {
+  if constexpr (V == 1) {
+    p[0] = ctseg::from_float<T>(v[0]);
+  } else if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(ctseg::pack_bf16(v[0], v[1]), ctseg::pack_bf16(v[2], v[3]),
+                   ctseg::pack_bf16(v[4], v[5]), ctseg::pack_bf16(v[6], v[7]));
+  }
+}
+
+// A backward thread's place: column `col` of the block's tile (global column
+// gcol of the super-row), row `row` of the block's rr rows; its V channels'
+// mean and rsqrt(var + eps); the super-rows [r0, r1) of the block's chunk.
+template <int V>
+struct BwdThread {
+  int col, row, gcol, r0, r1;
+  bool active;
+  float mean[V], inv[V];
+  size_t base;  // first element of the sample
+
+  __device__ __forceinline__ BwdThread(const BwdGeometry& geo,
+                                       const float* __restrict__ mean_in,
+                                       const float* __restrict__ var_in) {
+    const int tid = threadIdx.x;
+    const int img = blockIdx.z;
+    col = tid % geo.wc;
+    row = tid / geo.wc;
+    gcol = blockIdx.x * geo.wc + col;
+    active = row < geo.rr && gcol < geo.q;
+    r0 = blockIdx.y * geo.rows_per_chunk;
+    r1 = min(r0 + geo.rows_per_chunk, geo.rows_total);
+    base = static_cast<size_t>(img) * geo.s * geo.c;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      mean[v] = 0.f;
+      inv[v] = 0.f;
+      if (active) {
+        const size_t stat = static_cast<size_t>(img) * geo.c +
+                            (static_cast<size_t>(gcol) * V + v) % geo.c;
+        mean[v] = mean_in[stat];
+        inv[v] = rsqrtf(var_in[stat] + ctseg::kEps);
+      }
+    }
+  }
+};
+
+// Phase 1: parts[img, chunk, k, i] = sum over the chunk's super-rows of sum k
+// (0: gh, 1: gh * xhat, 2: g * min(xhat, 0)) at element column i of the
+// super-row. Grid (column tiles, chunks, N).
+template <typename T, int V>
+__global__ void __launch_bounds__(kBwdThreads)
+    in_prelu_bwd_partials_kernel(const T* __restrict__ x,
+                                 const T* __restrict__ g,
+                                 const float* __restrict__ mean,
+                                 const float* __restrict__ var,
+                                 const float* __restrict__ alpha,
+                                 float* __restrict__ parts, BwdGeometry geo) {
+  __shared__ __align__(16) float red[3 * kBwdThreads * V];  // [k][row][i]
+  const BwdThread<V> th(geo, mean, var);
+  const float a = alpha[0];
+  float sums[3][V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) sums[0][v] = sums[1][v] = sums[2][v] = 0.f;
+  if (th.active) {
+#pragma unroll 2
+    for (int r = th.r0 + th.row; r < th.r1; r += geo.rr) {
+      const size_t off =
+          th.base + (static_cast<size_t>(r) * geo.q + th.gcol) * V;
+      float xv[V], gv[V];
+      load_vec<T, V>(x + off, xv);
+      load_vec<T, V>(g + off, gv);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float xh = (xv[v] - th.mean[v]) * th.inv[v];
+        const float gh = xh >= 0.f ? gv[v] : a * gv[v];
+        sums[0][v] += gh;
+        sums[1][v] += gh * xh;
+        sums[2][v] += gv[v] * fminf(xh, 0.f);
+      }
+    }
+  }
+  const int width = geo.wc * V;  // element columns of the block's tile
+  if (th.row < geo.rr) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        red[(k * geo.rr + th.row) * width + th.col * V + v] = sums[k][v];
+  }
+  __syncthreads();
+  float* dst = parts + (static_cast<size_t>(blockIdx.z) * geo.chunks +
+                        blockIdx.y) * 3 * geo.lcm;
+  for (int idx = threadIdx.x; idx < 3 * width; idx += kBwdThreads) {
+    const int k = idx / width;
+    const int i = idx - k * width;
+    const int gi = blockIdx.x * width + i;
+    if (gi >= geo.lcm) continue;
+    float total = 0.f;
+    for (int row = 0; row < geo.rr; ++row) {
+      total += red[(k * geo.rr + row) * width + i];
+    }
+    dst[k * geo.lcm + gi] = total;
+  }
+}
+
+constexpr int kMeansThreads = 128;
+
+// Between the phases: means[img, k, ch] = sum k of channel ch over the whole
+// sample / s, for k = 0 (gh) and 1 (gh * xhat): the partials of the chunks
+// in order, within a chunk the element columns that carry the channel in
+// order. Grid (ceil(c / 128), N): one thread a channel.
+__global__ void __launch_bounds__(kMeansThreads)
+    in_prelu_bwd_means_kernel(const float* __restrict__ parts,
+                              float* __restrict__ means, BwdGeometry geo) {
+  const int ch = blockIdx.x * kMeansThreads + threadIdx.x;
+  if (ch >= geo.c) return;
+  const float* src =
+      parts + static_cast<size_t>(blockIdx.y) * geo.chunks * 3 * geo.lcm;
+  float total[2] = {0.f, 0.f};
+#pragma unroll 4
+  for (int chunk = 0; chunk < geo.chunks; ++chunk) {
+    const float* p = src + static_cast<size_t>(chunk) * 3 * geo.lcm;
+    for (int e = ch; e < geo.lcm; e += geo.c) {
+      total[0] += p[e];
+      total[1] += p[geo.lcm + e];
+    }
+  }
+  float* dst = means + static_cast<size_t>(blockIdx.y) * 2 * geo.c + ch;
+  dst[0] = total[0] / static_cast<float>(geo.s);
+  dst[geo.c] = total[1] / static_cast<float>(geo.s);
+}
+
+// Phase 2: dx over the block's chunk, from the sample's two means per
+// channel. Same grid as phase 1.
+template <typename T, int V>
+__global__ void __launch_bounds__(kBwdThreads)
+    in_prelu_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                           const float* __restrict__ mean,
+                           const float* __restrict__ var,
+                           const float* __restrict__ alpha,
+                           const float* __restrict__ means,
+                           T* __restrict__ dx, BwdGeometry geo) {
+  const BwdThread<V> th(geo, mean, var);
+  if (!th.active) return;
+  const float a = alpha[0];
+  float m1[V], m2[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const size_t at = static_cast<size_t>(blockIdx.z) * 2 * geo.c +
+                      (static_cast<size_t>(th.gcol) * V + v) % geo.c;
+    m1[v] = means[at];
+    m2[v] = means[at + geo.c];
+  }
+#pragma unroll 2
+  for (int r = th.r0 + th.row; r < th.r1; r += geo.rr) {
+    const size_t off =
+        th.base + (static_cast<size_t>(r) * geo.q + th.gcol) * V;
+    float xv[V], gv[V], out[V];
+    load_vec<T, V>(x + off, xv);
+    load_vec<T, V>(g + off, gv);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float xh = (xv[v] - th.mean[v]) * th.inv[v];
+      const float gh = xh >= 0.f ? gv[v] : a * gv[v];
+      out[v] = th.inv[v] * (gh - m1[v] - xh * m2[v]);
+    }
+    store_vec<T, V>(dx + off, out);
+  }
+}
+
+// ---- K1b, read-once form: a thread block cluster holds the tile ----
+
+namespace cg = cooperative_groups;
+
+constexpr int kClusterThreads = 512;
+
+// A cluster takes a column tile of `wcc` vectors (wcc * V channels; c is a
+// multiple of V here, so a column is a channel group and q = c / V) over all
+// s pixels of one sample; its CTA of rank r takes pixels [r * rows_per_cta,
+// (r + 1) * rows_per_cta). A cluster is 8 blocks, or 16 (the most an H100
+// allows, a size CUDA calls non-portable) where only that brings the rows of
+// the tile to 64 bytes. Mirrors ops/instance_norm.py::bwd_cluster_plan.
+struct ClusterGeometry {
+  int s, c, q, wcc, rr, rows_per_cta;
+};
+
+// Dynamic shared memory of a CTA: its rows of x and of g, the block's
+// reduction buffer [3][rr][wcc * V], its own three sums per channel
+// [3][wcc * V] (read by the whole cluster), the two means [2][wcc * V].
+template <typename T, int V>
+size_t cluster_smem_bytes(const ClusterGeometry& geo) {
+  const size_t width = static_cast<size_t>(geo.wcc) * V;
+  return 2 * geo.rows_per_cta * width * sizeof(T) +
+         (3 * static_cast<size_t>(kClusterThreads) * V + 5 * width) *
+             sizeof(float);
+}
+
+// x and g are read from device memory once: each CTA copies its rows of
+// the tile into shared memory (cp.async), sums gh, gh * xhat and g *
+// min(xhat, 0) over them, and leaves the sums in its shared memory; after a
+// cluster-wide barrier every CTA adds the cluster's sums in rank order
+// through distributed shared memory, then writes dx from its resident
+// rows. dalpha's partials go to parts[img, rank, 2, channel]. Grid
+// (kClusterSize * column tiles, 1, N), clusters of kClusterSize along x
+// (set at launch).
+template <typename T, int V, int kClusterSize>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+        in_prelu_bwd_cluster_kernel(const T* __restrict__ x,
+                                    const T* __restrict__ g,
+                                    const float* __restrict__ mean,
+                                    const float* __restrict__ var,
+                                    const float* __restrict__ alpha,
+                                    T* __restrict__ dx,
+                                    float* __restrict__ parts,
+                                    ClusterGeometry geo) {
+  extern __shared__ __align__(16) unsigned char cluster_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ctile = blockIdx.x / kClusterSize;
+  const int img = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int width = geo.wcc * V;  // channels of the tile
+  T* xs = reinterpret_cast<T*>(cluster_smem);  // [rows_per_cta][width]
+  T* gs = xs + static_cast<size_t>(geo.rows_per_cta) * width;
+  float* red = reinterpret_cast<float*>(
+      gs + static_cast<size_t>(geo.rows_per_cta) * width);
+  float* own = red + 3 * kClusterThreads * V;  // [3][width]
+  float* means = own + 3 * width;              // [2][width]
+
+  const int r0 = rank * geo.rows_per_cta;
+  const int nrows = max(0, min(geo.rows_per_cta, geo.s - r0));
+  const size_t base = static_cast<size_t>(img) * geo.s * geo.c;
+  for (int idx = tid; idx < nrows * geo.wcc; idx += kClusterThreads) {
+    const int row = idx / geo.wcc;
+    const int col = idx - row * geo.wcc;
+    const size_t off = base + (static_cast<size_t>(r0 + row) * geo.q +
+                               ctile * geo.wcc + col) * V;
+    ctseg::cp_async16(xs + static_cast<size_t>(idx) * V, x + off, true);
+    ctseg::cp_async16(gs + static_cast<size_t>(idx) * V, g + off, true);
+  }
+  ctseg::cp_async_commit();
+
+  const int col = tid % geo.wcc;
+  const int row = tid / geo.wcc;  // < rr: wcc divides the block
+  const float a = alpha[0];
+  float m[V], inv[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const size_t stat = static_cast<size_t>(img) * geo.c +
+                        (ctile * geo.wcc + col) * V + v;
+    m[v] = mean[stat];
+    inv[v] = rsqrtf(var[stat] + ctseg::kEps);
+  }
+  ctseg::cp_async_wait<0>();
+  __syncthreads();
+
+  float sums[3][V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) sums[0][v] = sums[1][v] = sums[2][v] = 0.f;
+  for (int r = row; r < nrows; r += geo.rr) {
+    const size_t at = (static_cast<size_t>(r) * geo.wcc + col) * V;
+    float xv[V], gv[V];
+    load_vec<T, V>(xs + at, xv);
+    load_vec<T, V>(gs + at, gv);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float xh = (xv[v] - m[v]) * inv[v];
+      const float gh = xh >= 0.f ? gv[v] : a * gv[v];
+      sums[0][v] += gh;
+      sums[1][v] += gh * xh;
+      sums[2][v] += gv[v] * fminf(xh, 0.f);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      red[(k * geo.rr + row) * width + col * V + v] = sums[k][v];
+  __syncthreads();
+  for (int idx = tid; idx < 3 * width; idx += kClusterThreads) {
+    const int k = idx / width;
+    const int i = idx - k * width;
+    float total = 0.f;
+    for (int r = 0; r < geo.rr; ++r) total += red[(k * geo.rr + r) * width + i];
+    own[idx] = total;
+    if (k == 2) {
+      parts[((static_cast<size_t>(img) * kClusterSize + rank) * 3 + 2) * geo.c +
+            ctile * width + i] = total;
+    }
+  }
+  cluster.sync();  // every CTA's sums are in its shared memory
+  for (int idx = tid; idx < 2 * width; idx += kClusterThreads) {
+    float total = 0.f;
+#pragma unroll
+    for (int r = 0; r < kClusterSize; ++r) {
+      total += cluster.map_shared_rank(own, r)[idx];
+    }
+    means[idx] = total / static_cast<float>(geo.s);
+  }
+  cluster.sync();  // no CTA is read any more; the means are complete
+
+  float m1[V], m2[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    m1[v] = means[col * V + v];
+    m2[v] = means[width + col * V + v];
+  }
+  for (int r = row; r < nrows; r += geo.rr) {
+    const size_t at = (static_cast<size_t>(r) * geo.wcc + col) * V;
+    float xv[V], gv[V], out[V];
+    load_vec<T, V>(xs + at, xv);
+    load_vec<T, V>(gs + at, gv);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float xh = (xv[v] - m[v]) * inv[v];
+      const float gh = xh >= 0.f ? gv[v] : a * gv[v];
+      out[v] = inv[v] * (gh - m1[v] - xh * m2[v]);
+    }
+    store_vec<T, V>(dx + base + (static_cast<size_t>(r0 + r) * geo.q +
+                                 ctile * geo.wcc + col) * V,
+                    out);
+  }
+}
+
+template <typename T, int kClusterSize>
+cudaError_t launch_bwd_cluster(const void* x, const void* g, const void* mean,
+                               const void* var, const void* alpha, void* dx,
+                               void* parts, int n, int s, int c, int wcc,
+                               cudaStream_t stream) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(g) |
+                         reinterpret_cast<uintptr_t>(dx);
+  if (bits % 16 != 0 || c % kVec != 0 || wcc < 1 ||
+      kClusterThreads % wcc != 0 || (c / kVec) % wcc != 0) {
+    return cudaErrorInvalidValue;
+  }
+  ClusterGeometry geo;
+  geo.s = s;
+  geo.c = c;
+  geo.q = c / kVec;
+  geo.wcc = wcc;
+  geo.rr = kClusterThreads / wcc;
+  geo.rows_per_cta = (s + kClusterSize - 1) / kClusterSize;
+  const size_t bytes = cluster_smem_bytes<T, kVec>(geo);
+  if (bytes > 227 * 1024) return cudaErrorInvalidValue;
+  auto* kernel = in_prelu_bwd_cluster_kernel<T, kVec, kClusterSize>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  if (kClusterSize > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kClusterSize;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(kClusterSize * (geo.q / wcc), 1, n);
+  config.blockDim = dim3(kClusterThreads);
+  config.dynamicSmemBytes = bytes;
+  config.stream = stream;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(
+      &config, kernel, static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<const float*>(mean), static_cast<const float*>(var),
+      static_cast<const float*>(alpha), static_cast<T*>(dx),
+      static_cast<float*>(parts), geo);
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kTileC * kRows)
-    in_prelu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                        const float* __restrict__ mean,
-                        const float* __restrict__ var,
-                        const float* __restrict__ alpha, T* __restrict__ dx,
-                        float* __restrict__ dalpha_parts, int s, int c) {
-  __shared__ float buf[kRows][32];
-  const int ch = blockIdx.x * kTileC + threadIdx.x;
-  const bool active = ch < c;
-  const size_t base = static_cast<size_t>(blockIdx.y) * s * c + ch;
-  const size_t stat = static_cast<size_t>(blockIdx.y) * c + ch;
-  const float m = active ? mean[stat] : 0.f;
-  const float inv = active ? rsqrtf(var[stat] + ctseg::kEps) : 0.f;
-  const auto xhat_at = [=](size_t i) {
-    return (ctseg::to_float(x[i]) - m) * inv;
-  };
-  ctseg::in_prelu_bwd_block<kRows>(
-      g, dx, dalpha_parts + static_cast<size_t>(blockIdx.y) * gridDim.x +
-                 blockIdx.x,
-      xhat_at, inv, alpha[0], s, c, base, active, buf);
+cudaError_t launch_bwd_cluster_sized(const void* x, const void* g,
+                                     const void* mean, const void* var,
+                                     const void* alpha, void* dx, void* parts,
+                                     int n, int s, int c, int wcc,
+                                     int cluster_size, cudaStream_t stream) {
+  switch (cluster_size) {
+    case 8:
+      return launch_bwd_cluster<T, 8>(x, g, mean, var, alpha, dx, parts, n, s,
+                                      c, wcc, stream);
+    case 16:
+      return launch_bwd_cluster<T, 16>(x, g, mean, var, alpha, dx, parts, n,
+                                       s, c, wcc, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -111,19 +601,55 @@ cudaError_t launch_fwd(const void* x, void* y, const void* alpha,
   return cudaGetLastError();
 }
 
+template <typename T, int V>
+cudaError_t launch_bwd_v(const void* x, const void* g, const void* mean,
+                         const void* var, const void* alpha, void* dx,
+                         void* parts, void* means, int n, int s, int c,
+                         int chunks, int rows_per_chunk, cudaStream_t stream) {
+  BwdGeometry geo;
+  if (!make_geometry(s, c, V, chunks, rows_per_chunk, &geo)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid(geo.coltiles, geo.chunks, n);
+  in_prelu_bwd_partials_kernel<T, V><<<grid, kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<const float*>(mean), static_cast<const float*>(var),
+      static_cast<const float*>(alpha), static_cast<float*>(parts), geo);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 means_grid((c + kMeansThreads - 1) / kMeansThreads, n);
+  in_prelu_bwd_means_kernel<<<means_grid, kMeansThreads, 0, stream>>>(
+      static_cast<const float*>(parts), static_cast<float*>(means), geo);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  in_prelu_bwd_dx_kernel<T, V><<<grid, kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<const float*>(mean), static_cast<const float*>(var),
+      static_cast<const float*>(alpha), static_cast<const float*>(means),
+      static_cast<T*>(dx), geo);
+  return cudaGetLastError();
+}
+
+// `vec` is the elements a lane takes: 16 / sizeof(T), or 1.
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* g, const void* mean,
                        const void* var, const void* alpha, void* dx,
-                       void* dalpha_parts, int n, int s, int c,
-                       cudaStream_t stream) {
-  const dim3 grid((c + kTileC - 1) / kTileC, n);
-  const dim3 block(kTileC, kRows);
-  in_prelu_bwd_kernel<T><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g),
-      static_cast<const float*>(mean), static_cast<const float*>(var),
-      static_cast<const float*>(alpha), static_cast<T*>(dx),
-      static_cast<float*>(dalpha_parts), s, c);
-  return cudaGetLastError();
+                       void* parts, void* means, int n, int s, int c, int vec,
+                       int chunks, int rows_per_chunk, cudaStream_t stream) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  if (vec == 1) {
+    return launch_bwd_v<T, 1>(x, g, mean, var, alpha, dx, parts, means, n, s,
+                              c, chunks, rows_per_chunk, stream);
+  }
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(g) |
+                         reinterpret_cast<uintptr_t>(dx);
+  if (vec != kVec || bits % 16 != 0 ||
+      (static_cast<long long>(s) * c) % kVec != 0) {
+    return cudaErrorInvalidValue;
+  }
+  return launch_bwd_v<T, kVec>(x, g, mean, var, alpha, dx, parts, means, n,
+                               s, c, chunks, rows_per_chunk, stream);
 }
 
 }  // namespace
@@ -154,22 +680,54 @@ extern "C" int ctseg_in_prelu_fwd(const void* x, void* y, const void* alpha,
 
 // Backward (K1b). x, g, dx: (n, s, c) contiguous, of the type `dtype`
 // names; mean, var: (n, c) float32 from the training forward; alpha: one
-// float32; dalpha_parts: (n, ceil(c / 32)) float32, one partial per block.
+// float32. `vec`, `chunks`, `rows_per_chunk`: the plan of
+// ops/instance_norm.py::bwd_plan (vec 4 or 8 needs 16-byte aligned x, g, dx
+// and s * c a multiple of vec). Workspaces: parts, (n, chunks, 3, lcm(c,
+// vec)) float32, whose plane 2 holds dalpha's partials, and means, (n, 2, c)
+// float32. Three launches on `stream`.
 extern "C" int ctseg_in_prelu_bwd(const void* x, const void* g,
                                   const void* mean, const void* var,
-                                  const void* alpha, void* dx,
-                                  void* dalpha_parts, int n, int s, int c,
-                                  int dtype, int device, void* stream) {
+                                  const void* alpha, void* dx, void* parts,
+                                  void* means, int n, int s, int c, int vec,
+                                  int chunks, int rows_per_chunk, int dtype,
+                                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case ctseg::kFloat32:
-      return launch_bwd<float>(x, g, mean, var, alpha, dx, dalpha_parts, n, s,
-                               c, st);
+      return launch_bwd<float>(x, g, mean, var, alpha, dx, parts, means, n, s,
+                               c, vec, chunks, rows_per_chunk, st);
     case ctseg::kBFloat16:
-      return launch_bwd<__nv_bfloat16>(x, g, mean, var, alpha, dx,
-                                       dalpha_parts, n, s, c, st);
+      return launch_bwd<__nv_bfloat16>(x, g, mean, var, alpha, dx, parts,
+                                       means, n, s, c, vec, chunks,
+                                       rows_per_chunk, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Backward (K1b), read-once form, where ops/instance_norm.py::
+// bwd_cluster_plan gives a cluster size (8 or 16) and a tile width `wcc` (in
+// 16-byte vectors): tensors as above; c a multiple of the vector's elements;
+// parts: (n, cluster_size, 3, c) float32, of which only plane 2 (dalpha's
+// partials) is written. One launch on `stream`.
+extern "C" int ctseg_in_prelu_bwd_cluster(const void* x, const void* g,
+                                          const void* mean, const void* var,
+                                          const void* alpha, void* dx,
+                                          void* parts, int n, int s, int c,
+                                          int wcc, int cluster_size, int dtype,
+                                          int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case ctseg::kFloat32:
+      return launch_bwd_cluster_sized<float>(x, g, mean, var, alpha, dx, parts,
+                                             n, s, c, wcc, cluster_size, st);
+    case ctseg::kBFloat16:
+      return launch_bwd_cluster_sized<__nv_bfloat16>(
+          x, g, mean, var, alpha, dx, parts, n, s, c, wcc, cluster_size, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) for Hopper.
 
-At first use, nvcc compiles every source under csrc/ into one shared library
-with a plain C interface, for sm_90a, and ctypes loads it. The library is
+At first use, nvcc compiles every source under csrc/ for sm_90a (one nvcc
+process per source, all started together), links the objects into one shared
+library with a plain C interface, and ctypes loads it. The library is
 cached under ctseg_tpu_torch/_build/<key>/, where the key hashes the
 sources and the flags, so an edited source never loads a stale library.
 There is no fallback: without nvcc, `library()` raises.
@@ -26,7 +27,7 @@ BUILD_ROOT = _PKG / "_build"
 LIB_NAME = "libctseg_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # registers, shared memory and spills, kept in `log`
 )
 
@@ -37,11 +38,18 @@ _I = ctypes.c_int
 SIGNATURES = {
     # x, y, alpha, mean_out, var_out, n, s, c, dtype, device, stream
     "ctseg_in_prelu_fwd": [_P] * 5 + [_I] * 5 + [_P],
-    # x, g, mean, var, alpha, dx, dalpha_parts, n, s, c, dtype, device, stream
-    "ctseg_in_prelu_bwd": [_P] * 7 + [_I] * 5 + [_P],
+    # x, g, mean, var, alpha, dx, parts, means, n, s, c, vec, chunks,
+    # rows_per_chunk, dtype, device, stream
+    "ctseg_in_prelu_bwd": [_P] * 8 + [_I] * 8 + [_P],
+    # x, g, mean, var, alpha, dx, parts, n, s, c, wcc, cluster_size, dtype,
+    # device, stream
+    "ctseg_in_prelu_bwd_cluster": [_P] * 7 + [_I] * 7 + [_P],
     # x, w, bias, alpha, scratch, out, xhat_out, rsinv_out,
     # n, h, w, cin, cout, dtype, device, stream
     "ctseg_conv3x3_in_prelu_fwd": [_P] * 8 + [_I] * 7 + [_P],
+    # x, w, bias, alpha, scratch, stats, mean, rsinv, out, xhat_out,
+    # w_planes, n, h, w, cin, cout, dtype, device, stream
+    "ctseg_conv3x3_in_prelu_fwd_tc": [_P] * 11 + [_I] * 7 + [_P],
     # g, xhat, rsinv, alpha, dy, dalpha_parts, n, s, c, dtype, device, stream
     "ctseg_in_prelu_bwd_saved": [_P] * 6 + [_I] * 5 + [_P],
     # images, top, left, rot, flip, params, out, n, h, w, s, device, stream
@@ -105,19 +113,42 @@ def find_nvcc() -> str:
 
 
 def build(out_dir: Path) -> KernelLibrary:
-    """Compile csrc/*.cu into out_dir/LIB_NAME (atomically) and load it."""
+    """Compile csrc/*.cu, one nvcc per source in parallel, link the objects
+    into out_dir/LIB_NAME (atomically) and load it."""
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp)]
-    cmd += [str(p) for p in sources() if p.suffix == ".cu"]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sources():
+        if src.suffix != ".cu":
+            continue
+        obj = out_dir / f".{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+               str(src)]
+        jobs.append((obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", False
+    for obj, proc in jobs:
+        out, _ = proc.communicate()
+        log += out
+        failed = failed or proc.returncode != 0
+    objects = [str(obj) for obj, _ in jobs]
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    try:
+        if not failed:
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", str(tmp), *objects],
+                capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            failed = link.returncode != 0
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed:\n{log}")
+    finally:
+        for obj in objects:
+            Path(obj).unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
     os.replace(tmp, out_dir / LIB_NAME)
     (out_dir / "build.log").write_text(log)
     return KernelLibrary(out_dir / LIB_NAME, seconds, log)

@@ -11,6 +11,19 @@ and layouts are the JAX ones: x (N, H, W, Cin), w (3, 3, Cin, Cout), b
   - On a CUDA tensor it launches csrc/conv_block.cu, or raises: it never
     falls back to the plain version and never copies its inputs.
 
+The forward has two routes on the card, chosen by a stated shape rule
+(`conv_route`), not by a failure: the tensor-core kernels (`wgmma`:
+bfloat16 directly, float32 by the split-TF32 scheme, the statistics started
+in the conv's epilogue) take Cin and Cout that are multiples of 8 on
+16-byte aligned tensors; every other shape goes to the FP32-pipe kernels,
+whose launches are counted apart (`conv3x3_in_prelu.launches_simt`). A build
+or launch error of either route raises.
+
+`split_tf32`, `conv3x3_split_tf32_model`, `tile_stats` and
+`combine_tile_stats` are plain PyTorch models of what the tensor-core route
+computes (the three-product conv, the per-tile statistics and their
+combination). Tests hold them to float64; nothing on a main path calls them.
+
 Arithmetic, as in the Pallas kernel: the conv of the stored values (bf16 or
 f32) accumulated in float32, + bias, then TWO-pass statistics (mean, then the
 centred variance), eps 1e-5, PReLU. Unlike ops/instance_norm.py, which uses
@@ -31,7 +44,8 @@ from ctseg_tpu_torch.ops import _build
 
 EPS = 1e-5
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE_C = 32  # channels per block of the norm and backward kernels
+_TILE_C = 32  # channels per block of the FP32-pipe norm and the backward
+TILE_M = 128  # output pixels per block of the tensor-core conv (kTcBM)
 
 
 def _fwd_plain(x, w, b, alpha):
@@ -100,6 +114,97 @@ def conv3x3_backward(dy, x, w):
     return dx.permute(0, 2, 3, 1), dw.permute(2, 3, 1, 0), db
 
 
+def split_tf32(v: torch.Tensor):
+    """(big, small) of a float32 tensor, as `cvt.rna.tf32.f32` makes them:
+    big = v rounded to nearest (ties away from zero) to 10 mantissa bits,
+    small = (v - big) rounded the same way. v = big + small up to about
+    2^-22 |v|."""
+    if v.dtype != torch.float32:
+        raise TypeError(f"split_tf32 takes float32, got {v.dtype}")
+
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    big = rna(v)
+    return big, rna(v - big)
+
+
+def conv3x3_split_tf32_model(x, w):
+    """conv3x3_same(x, w) as the float32 tensor-core kernel takes it: each
+    operand split by `split_tf32`, the product as a_small*b_big +
+    a_big*b_small + a_big*b_big (products of tf32 values are exact in
+    float32), summed in float32, small terms first. x (N, H, W, Cin), w (3,
+    3, Cin, Cout) float32 -> (N, H, W, Cout) float32, no bias."""
+    a_big, a_small = split_tf32(x.permute(0, 3, 1, 2))
+    b_big, b_small = split_tf32(w.permute(3, 2, 0, 1))
+    y = F.conv2d(a_small, b_big, padding=1)
+    y = y + F.conv2d(a_big, b_small, padding=1)
+    y = y + F.conv2d(a_big, b_big, padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
+def tile_stats(y, tile: int = TILE_M):
+    """What the conv's epilogue writes: y (N, S, C) cut along S into tiles
+    of `tile` pixels (the last may be ragged) -> (count (tiles,), mean (N,
+    tiles, C), m2 (N, tiles, C)) with m2 the tile's centred sum of squares."""
+    parts = torch.split(y, tile, dim=1)
+    count = torch.tensor([p.shape[1] for p in parts], dtype=y.dtype)
+    mean = torch.stack([p.mean(dim=1) for p in parts], dim=1)
+    m2 = torch.stack(
+        [torch.square(p - p.mean(dim=1, keepdim=True)).sum(dim=1)
+         for p in parts], dim=1)
+    return count, mean, m2
+
+
+def combine_tile_stats(count, mean, m2):
+    """(mean, var) per (sample, channel) from the tiles' (count, mean, M2),
+    combined in tile order by Chan's parallel form, as the finalize kernel
+    does: var is the biased two-pass variance up to round-off."""
+    na = torch.zeros((), dtype=mean.dtype)
+    mu = torch.zeros_like(mean[:, 0])
+    acc = torch.zeros_like(mu)
+    for t in range(mean.shape[1]):
+        nb = count[t]
+        total = na + nb
+        delta = mean[:, t] - mu
+        mu = mu + delta * (nb / total)
+        acc = acc + m2[:, t] + delta * delta * (na * nb / total)
+        na = total
+    return mu, acc / na
+
+
+def conv_route(cin: int, cout: int, h: int, w: int, aligned: bool = True) -> str:
+    """"tc" (tensor cores) or "simt" (FP32 pipes) for a forward on the card.
+
+    The tensor-core kernel copies 16 bytes (4 float32, 8 bfloat16) at a time
+    and stores channel pairs: it takes Cin and Cout that are multiples of 8,
+    H and W below 32768 (a pixel's row and column share one register) and
+    16-byte aligned tensors. Everything else is the FP32-pipe kernel's."""
+    ok = cin % 8 == 0 and cout % 8 == 0 and max(h, w) < 32768 and aligned
+    return "tc" if ok else "simt"
+
+
+def conv_grid(n: int, h: int, w: int, cout: int):
+    """The tensor-core conv's grid and the statistics workspace's shape:
+    ((pixel tiles, channel tiles, N), (N, pixel tiles, Cout, 2)). Pixel tiles
+    are cut per sample (TILE_M pixels, the last ragged), so no tile holds
+    pixels of two samples; a block takes 128 channels where Cout is a
+    multiple of 128, else 64."""
+    tiles = -(-(h * w) // TILE_M)
+    block_n = 128 if cout % 128 == 0 else 64
+    return (tiles, -(-cout // block_n), n), (n, tiles, cout, 2)
+
+
+def weights_workspace(cin: int, cout: int, itemsize: int):
+    """Shape of the tensor-core conv's re-laid weights: (planes, 9, Cin
+    rounded up to a pipeline step, Cout). A step is 128 bytes of input
+    channels (32 float32, 64 bfloat16); float32 has two planes, the big and
+    the small part of the split-TF32 scheme."""
+    step = 128 // itemsize
+    return (2 if itemsize == 4 else 1, 9, -(-cin // step) * step, cout)
+
+
 def _check_shapes(x, w, b, alpha) -> None:
     if x.ndim != 4:
         raise ValueError(f"want x (N, H, W, Cin), got shape {tuple(x.shape)}")
@@ -157,11 +262,32 @@ def _forward(x, w, b, alpha, train: bool):
     lib = _build.library()
     scratch = torch.empty((n, h, wd, cout), dtype=torch.float32, device=x.device)
     out = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
-    xhat = rsinv = None
-    if train:
-        xhat = torch.empty_like(out)
-        rsinv = torch.empty((n, cout), dtype=torch.float32, device=x.device)
+    xhat = torch.empty_like(out) if train else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w))
+    if conv_route(cin, cout, h, wd, aligned) == "tc":
+        _, stats_shape = conv_grid(n, h, wd, cout)
+        stats = torch.empty(stats_shape, dtype=torch.float32, device=x.device)
+        mean = torch.empty((n, cout), dtype=torch.float32, device=x.device)
+        rsinv = torch.empty((n, cout), dtype=torch.float32, device=x.device)
+        # The weights as the conv stages them, laid out anew each call:
+        # float32 as their big and small tf32 planes.
+        wk = torch.empty(weights_workspace(cin, cout, x.element_size()),
+                         dtype=x.dtype, device=x.device)
+        err = lib.ctseg_conv3x3_in_prelu_fwd_tc(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), alpha.data_ptr(),
+            scratch.data_ptr(), stats.data_ptr(), mean.data_ptr(),
+            rsinv.data_ptr(), out.data_ptr(),
+            None if xhat is None else xhat.data_ptr(),
+            wk.data_ptr(),
+            n, h, wd, cin, cout, _DTYPE_CODES[x.dtype], x.device.index, stream,
+        )
+        lib.check(err, "conv3x3_in_prelu (tensor cores)")
+        conv3x3_in_prelu.launches += 1
+        return out, xhat, rsinv if train else None
+    rsinv = None
+    if train:
+        rsinv = torch.empty((n, cout), dtype=torch.float32, device=x.device)
     err = lib.ctseg_conv3x3_in_prelu_fwd(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), alpha.data_ptr(),
         scratch.data_ptr(), out.data_ptr(),
@@ -169,8 +295,9 @@ def _forward(x, w, b, alpha, train: bool):
         None if rsinv is None else rsinv.data_ptr(),
         n, h, wd, cin, cout, _DTYPE_CODES[x.dtype], x.device.index, stream,
     )
-    lib.check(err, "conv3x3_in_prelu")
+    lib.check(err, "conv3x3_in_prelu (FP32 pipes)")
     conv3x3_in_prelu.launches += 1
+    conv3x3_in_prelu.launches_simt += 1
     return out, xhat, rsinv
 
 
@@ -240,5 +367,6 @@ def conv3x3_in_prelu(x, w, b, alpha):
     return _forward(x, w, b, alpha, train=False)[0]
 
 
-conv3x3_in_prelu.launches = 0  # K2 launches since the last reset
+conv3x3_in_prelu.launches = 0  # K2 launches since the last reset, any route
+conv3x3_in_prelu.launches_simt = 0  # those that took the FP32-pipe route
 in_prelu_bwd.launches = 0  # K2b launches since the last reset

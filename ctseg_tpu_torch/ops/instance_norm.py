@@ -19,7 +19,21 @@ per-(sample, channel) mean and var (the residuals of the Pallas `_fwd_rule`)
 and saves them with x; the backward (`instance_norm_prelu_bwd`) recomputes
 xhat from them. Otherwise (serving, under inference_mode or no_grad) the
 forward writes y only.
+
+K1b on the card splits the spatial axis over blocks, in one of two forms
+chosen from the shape. `bwd_cluster_plan`: a thread block cluster holds a
+sample's tile of channels in shared memory, so x and g are read once.
+`bwd_plan`, everywhere else: a sample is cut into vectors of 16 bytes,
+"super-rows" of lcm(C, V) elements and spatial chunks; phase 1 writes
+per-chunk partial sums to a workspace, a small kernel adds them in index
+order into the two means per (sample, channel), phase 2 writes dx. Both
+plans are pure functions that mirror csrc/instance_norm.cu's geometry.
+`instance_norm_prelu_bwd_chunked` is a plain PyTorch model of the chunked
+arithmetic (either form: a cluster's blocks are 8 or 16 chunks); tests hold
+it to the plain version, nothing on a main path calls it.
 """
+
+import math
 
 import torch
 
@@ -27,7 +41,10 @@ from ctseg_tpu_torch.ops import _build
 
 EPS = 1e-5
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE_C = 32  # channels per CUDA block (csrc/instance_norm.cu kTileC)
+BWD_THREADS = 256  # threads per block of K1b (kBwdThreads)
+BWD_TARGET_BLOCKS = 132 * 16  # blocks K1b aims for: 16 on each of 132 SMs
+CLUSTER_THREADS = 512  # threads per block of K1b's read-once form
+CLUSTER_TILE_BYTES = 128 * 1024  # x and g rows a block holds in shared memory
 
 
 def _fwd_plain(x: torch.Tensor, alpha: torch.Tensor):
@@ -69,6 +86,104 @@ def instance_norm_prelu_bwd_plain(x, g, mean, var, alpha):
     dx = (inv * (gh - m1 - xhat * m2)).to(x.dtype)
     dalpha = (g32 * torch.clamp_max(xhat, 0.0)).sum()
     return dx, dalpha.reshape(1).to(alpha.dtype)
+
+
+def bwd_plan(n: int, s: int, c: int, itemsize: int, aligned: bool = True) -> dict:
+    """How K1b cuts n samples of s pixels x c channels (`itemsize` bytes an
+    element) into blocks: the geometry of csrc/instance_norm.cu.
+
+    vec: elements a lane takes, 16 bytes' worth when a sample's length is a
+    multiple of that (and the tensors are 16-byte aligned), else 1. A
+    super-row is lcm(c, vec) elements: q = c / gcd(c, vec) vectors over
+    vec / gcd pixels, after which the channel pattern repeats. A block takes
+    wc = min(q, 256) columns of it and rr = 256 // wc super-rows at a time,
+    over rows_per_chunk super-rows; the grid is (coltiles, chunks, n). The
+    chunks cover the rows_total super-rows once: chunk i is rows
+    [i * rows_per_chunk, min((i + 1) * rows_per_chunk, rows_total)).
+    workspace: the partials' shape, (n, chunks, 3, lcm)."""
+    vec = 16 // itemsize
+    if not aligned or (s * c) % vec != 0:
+        vec = 1
+    g = math.gcd(c, vec)
+    q = c // g
+    wc = min(q, BWD_THREADS)
+    rr = BWD_THREADS // wc
+    coltiles = -(-q // wc)
+    rows_total = s // (vec // g)
+    # Enough chunks to fill the card, each at least 4 iterations long.
+    wanted = -(-BWD_TARGET_BLOCKS // (n * coltiles))
+    chunks = max(1, min(wanted, rows_total // (4 * rr), 65535))
+    rows_per_chunk = -(-rows_total // chunks)
+    chunks = -(-rows_total // rows_per_chunk)
+    return {
+        "vec": vec, "q": q, "lcm": q * vec, "wc": wc, "rr": rr,
+        "coltiles": coltiles, "rows_total": rows_total,
+        "rows_per_chunk": rows_per_chunk, "chunks": chunks,
+        "grid": (coltiles, chunks, n),
+        "workspace": (n, chunks, 3, q * vec),
+    }
+
+
+def bwd_cluster_plan(n: int, s: int, c: int, itemsize: int,
+                     aligned: bool = True):
+    """The read-once form of K1b, or None where it does not apply.
+
+    A cluster of 8 or 16 blocks holds one sample's tile of `wcc` 16-byte
+    vectors (wcc * vec channels) over all s pixels in its shared memory,
+    block r the pixels [r * rows_per_cta, (r + 1) * rows_per_cta), so x and
+    g are read from device memory once. It applies when the channels are
+    whole vectors (c % vec == 0) and some power-of-two tile width that
+    divides c / vec fits a block's share of x and g into CLUSTER_TILE_BYTES:
+    with 8 blocks and rows of at least 128 bytes (wcc >= 8) where that
+    fits, else with 16 blocks and rows of at least 64 bytes. Model L's
+    64x64x128, 32x32x256 and 16x16x512 sites take clusters of 8, 128x128x64
+    clusters of 16 (16 float32 channels a tile); 256x256x10 (40-byte pixel
+    rows) takes the two-phase form."""
+    vec = 16 // itemsize
+    if not aligned or c % vec != 0 or s < 1:
+        return None
+    q = c // vec
+    for size, least in ((8, 8), (16, 4)):
+        rows_per_cta = -(-s // size)
+        wcc = CLUSTER_THREADS
+        while wcc >= least:
+            if q % wcc == 0 and \
+                    2 * rows_per_cta * wcc * 16 <= CLUSTER_TILE_BYTES:
+                return {
+                    "vec": vec, "q": q, "wcc": wcc, "size": size,
+                    "rr": CLUSTER_THREADS // wcc, "coltiles": q // wcc,
+                    "rows_per_cta": rows_per_cta,
+                    "grid": (size * (q // wcc), 1, n),
+                    "workspace": (n, size, 3, c),
+                }
+            wcc //= 2
+    return None
+
+
+def instance_norm_prelu_bwd_chunked(x, g, mean, var, alpha, chunk: int):
+    """K1b as the split-spatial kernels compute it, in plain PyTorch: the
+    three sums per (sample, chunk of `chunk` pixels, channel), the chunks
+    added in index order, then dx. Same signature and results as
+    `instance_norm_prelu_bwd_plain`, up to the order of the sums."""
+    ctype = torch.promote_types(x.dtype, torch.float32)
+    n, c = x.shape[0], x.shape[-1]
+    inv = torch.rsqrt(var.to(ctype).reshape(n, 1, c) + EPS)
+    xhat = (x.to(ctype).reshape(n, -1, c) - mean.to(ctype).reshape(n, 1, c)) * inv
+    g32 = g.to(ctype).reshape(n, -1, c)
+    a = alpha.reshape(()).to(ctype)
+    gh = torch.where(xhat >= 0, g32, a * g32)
+    terms = (gh, gh * xhat, g32 * torch.clamp_max(xhat, 0.0))
+    totals = []
+    for t in terms:
+        total = torch.zeros((n, c), dtype=ctype)
+        for part in torch.split(t, chunk, dim=1):  # the workspace's rows
+            total = total + part.sum(dim=1)
+        totals.append(total)
+    s = xhat.shape[1]
+    m1 = (totals[0] / s).reshape(n, 1, c)
+    m2 = (totals[1] / s).reshape(n, 1, c)
+    dx = (inv * (gh - m1 - xhat * m2)).reshape(x.shape).to(x.dtype)
+    return dx, totals[2].sum().reshape(1).to(alpha.dtype)
 
 
 def _check_shapes(x: torch.Tensor, alpha: torch.Tensor) -> None:
@@ -131,8 +246,9 @@ def instance_norm_prelu_bwd(x, g, mean, var, alpha):
     """K1b: (dx, dalpha) of PReLU(InstanceNorm(x)) for the cotangent g.
 
     x, g: (N, *spatial, C) of one dtype; mean, var: (N, C) from the training
-    forward. On CUDA, launches the kernel (dalpha summed from per-block
-    partials with torch.sum, a fixed order) or raises.
+    forward. On CUDA, launches the read-once cluster kernel or the two-phase
+    kernels (dalpha summed from the workspace's partials with torch.sum, a
+    fixed order) or raises.
     """
     _check_shapes(x, alpha)
     if x.device.type == "cpu":
@@ -151,17 +267,34 @@ def instance_norm_prelu_bwd(x, g, mean, var, alpha):
     n, s, c = _check_cuda(x, alpha, g=g, mean=mean, var=var)
     lib = _build.library()
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    parts = torch.empty((n, -(-c // _TILE_C)), dtype=torch.float32,
-                        device=x.device)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, g, dx))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.ctseg_in_prelu_bwd(
-        x.data_ptr(), g.data_ptr(), mean.data_ptr(), var.data_ptr(),
-        alpha.data_ptr(), dx.data_ptr(), parts.data_ptr(), n, s, c,
-        _DTYPE_CODES[x.dtype], x.device.index, stream,
-    )
+    cluster = bwd_cluster_plan(n, s, c, x.element_size(), aligned)
+    if cluster is not None:
+        parts = torch.empty(cluster["workspace"], dtype=torch.float32,
+                            device=x.device)
+        err = lib.ctseg_in_prelu_bwd_cluster(
+            x.data_ptr(), g.data_ptr(), mean.data_ptr(), var.data_ptr(),
+            alpha.data_ptr(), dx.data_ptr(), parts.data_ptr(), n, s, c,
+            cluster["wcc"], cluster["size"], _DTYPE_CODES[x.dtype],
+            x.device.index, stream,
+        )
+    else:
+        plan = bwd_plan(n, s, c, x.element_size(), aligned)
+        parts = torch.empty(plan["workspace"], dtype=torch.float32,
+                            device=x.device)
+        means = torch.empty((n, 2, c), dtype=torch.float32, device=x.device)
+        err = lib.ctseg_in_prelu_bwd(
+            x.data_ptr(), g.data_ptr(), mean.data_ptr(), var.data_ptr(),
+            alpha.data_ptr(), dx.data_ptr(), parts.data_ptr(),
+            means.data_ptr(), n, s, c,
+            plan["vec"], plan["chunks"], plan["rows_per_chunk"],
+            _DTYPE_CODES[x.dtype], x.device.index, stream,
+        )
     lib.check(err, "instance_norm_prelu_bwd")
     instance_norm_prelu_bwd.launches += 1
-    return dx, parts.sum().reshape(1)
+    # Plane 2 of either workspace holds dalpha's partials.
+    return dx, parts[:, :, 2].sum().reshape(1)
 
 
 class _InstanceNormPReLU(torch.autograd.Function):
