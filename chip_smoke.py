@@ -9,7 +9,10 @@ Phases (any failure raises and the script exits non-zero):
      float32 conv and matmul, the CUDA kernels compiled from csrc/ with nvcc.
   2. K1, instance_norm_prelu, against its plain PyTorch version at Model L's
      IN+PReLU site shapes (batch 32), float32 and bfloat16, three alphas, one
-     near-constant channel.
+     near-constant channel; two runs on one input torch.equal; faster than
+     the plain version at every site; per site its share of its bytes' bound
+     and the time of F.instance_norm alone (a yardstick the port never
+     calls); the float32 and bfloat16 totals.
   3. K2, conv3x3_in_prelu, against its plain version at Model L's stride-1
      3x3 unit shapes (batch 32), float32 and bfloat16: every site on the
      tensor-core route, two runs on one input torch.equal; per site the
@@ -42,39 +45,50 @@ Phases (any failure raises and the script exits non-zero):
      steps on one fixed batch (fixed draws). The trained state is saved
      with training/checkpoint.py and SegmentationService serves one scan
      from it. Then the step's parts, each alone (CUDA events), and its
-     device time by group of kernels (torch.profiler; phase 13 as well).
+     device time by group of kernels (torch.profiler; phase 14 as well).
  10. Train, bfloat16: the same model from compute_dtype="bfloat16", 2 steps:
      float32 parameters, finite loss, the same launches.
  11. Gradient parity: one float32 step of the full-width model on 2 slices,
      CUDA kernels against a CPU copy on the plain path from the same
      weights and draws (and a float64 CPU copy as the referee).
- 12. K5, min_plus, against its plain version, torch.equal required: at the
-     Model M train step's shape (2,304 maps of 256x256, scale 1), at the
+ 12. K5, min_plus, against its plain version, torch.equal required: on
+     random maps with entries, rows and whole maps at BIG at the Model M
+     train step's shape (2,304 maps of 256x256, scale 1), at the
      evaluation's (1,152 maps, one scale per map from 0.3-3.0) and at a K
-     that is no multiple of the kernel's row group; entries, rows and whole
-     maps at BIG.
- 13. Train Model M, float32: full width (PRESETS["model_m"]: 1 residual
+     that is no multiple of the kernel's row group; on the step's own maps
+     (the row scan of both signs of the class masks of 128 label maps); on
+     one evaluation batch's (the row scan of the inverted surfaces, with
+     spacings); and on maps where no pair can be pruned.
+ 13. The distance-map paths made of kernels (csrc/edt.cu's row scan and
+     signed map around K5) against the plain compositions run on the card,
+     torch.equal required: signed_distance_maps_from_labels on 128 label
+     maps (uint8, int32, int64; a missing class, an empty slice), 3D signed
+     maps, edt_squared with one spacing per slice at the evaluation's shape
+     and in 3D; each of the two kernels against its plain version.
+ 14. Train Model M, float32: full width (PRESETS["model_m"]: 1 residual
      unit, degree 2, weighted mixup, Boundary+Dice+Focal with
      exclude_missing, batch 128) on phase 9's synthetic split: Trainer.fit
      for one epoch with validation, then 2 warm-up and 5 timed train_steps
      on one fixed batch with fixed draws. Each step must launch K4 once, K1
-     and K1b 8 times, K2 and K2b 4 times and K5 once; the loss must be
-     finite and fall. The step's parts are timed one by one.
- 14. Evaluate: the trained Model M checkpoint through evaluate_2d with HD95
+     and K1b 8 times, K2 and K2b 4 times and the row scan, K5 and the signed
+     map once each; the loss must be finite and fall. The step's parts are
+     timed one by one.
+ 15. Evaluate: the trained Model M checkpoint through evaluate_2d with HD95
      on 300 slices of 280x280 with per-slice spacings (batches of 64, the
-     last one padded): K5 once per batch; the device HD95 of 4 slices held
-     to the scipy host path at 1e-4 relative; slices/s with and without
-     HD95.
+     last one padded): the row scan and K5 once per batch; the device HD95
+     of 4 slices held to the scipy host path at 1e-4 relative; slices/s with
+     and without HD95; HD95's device time by part on one batch.
 
 No main path (serve, Model L, Model M, evaluation) may launch K2's FP32-pipe
 route: its count is asserted to be 0 after each.
 
 The line before the last lists each kernel's launches on its main path
-(phase 9's timed Model L steps; K5's are phase 13's Model M steps; the
-other paths' counts stand beside them), its largest float32 error, its time
-beside the plain version's and the least time the card could take (see
-site_bounds), for K2 and K1b also in bfloat16, and for K2 the library's time
-for the conv alone; the last line is {"ok": true, "device": {...}}. Imports
+(phase 9's timed Model L steps; K5's and the EDT kernels' are phase 14's
+Model M steps; the other paths' counts stand beside them), its largest
+float32 error, its time beside the plain version's and the least time the
+card could take (see site_bounds), for K1, K1b, K2 and K2b also in
+bfloat16, and for K1 and K2 the library's time for the norm and the conv
+alone; the last line is {"ok": true, "device": {...}}. Imports
 nothing of JAX.
 """
 
@@ -154,7 +168,7 @@ TIMED_STEPS = 5
 GRAD_RTOL = 1e-3        # whole gradient, and IN-cancelled biases, vs CPU f32
 GRAD_PARAM_RTOL = 1e-2  # each conv weight or bias vs float64, of its norm
 GRAD_SLOPE_RTOL = 1e-4  # each PReLU slope vs float64, of sum |g*min(xhat,0)|
-HD95_RTOL = 1e-4        # phase 14: device HD95 vs scipy, float32 distances
+HD95_RTOL = 1e-4        # phase 15: device HD95 vs scipy, float32 distances
 EVAL_BATCH = 64
 EVAL_SLICES = 300       # 4 full batches and one padded
 # The H100's published peaks (SXM, dense): float32 outside the tensor cores,
@@ -189,7 +203,7 @@ def site_bounds():
     to before it used the tensor cores. K2 in bfloat16 ("k2_bf16"): the
     conv's operations over 989 TFLOP/s, or its bytes at 2 bytes an element
     of x, w and the output. The other kernels compute on the FP32 pipes;
-    "k1b_bf16" counts 2 bytes an element."""
+    "k1_bf16", "k1b_bf16" and "k2b_bf16" count 2 bytes an element."""
     out = {}
     for key, n in (("k1", BATCH), ("k1b", TRAIN_BATCH)):
         ops = elems = 0
@@ -211,6 +225,8 @@ def site_bounds():
                 norm_ops += 12 * e
                 elems += 3 * e
         out[key] = bound_ms(conv_ops + norm_ops, 4 * elems)
+        if key == "k2b":
+            out["k2b_bf16"] = bound_ms(norm_ops, 2 * elems)
         if key == "k2":
             out["k2_fp32_pipes"] = out["k2"]
             # The norm's operations run beside the tensor cores' on the
@@ -271,12 +287,17 @@ def check_close(name, kernel, plain, atol, rtol) -> float:
 
 def phase_k1(label, gen):
     import torch
+    import torch.nn.functional as F
+    from ctseg_tpu_torch.ops import instance_norm as k1
     from ctseg_tpu_torch.ops.instance_norm import (
         instance_norm_prelu, instance_norm_prelu_plain,
     )
 
-    worst = {"float32": 0.0, "bfloat16": 0.0}
-    ms = plain_ms = 0.0
+    names = ("float32", "bfloat16")
+    worst = dict.fromkeys(names, 0.0)
+    ms = dict.fromkeys(names, 0.0)
+    plain_ms = dict.fromkeys(names, 0.0)
+    lib_ms = dict.fromkeys(names, 0.0)
     for (h, w, c), sites in K1_SITES.items():
         x32 = torch.randn((BATCH, h, w, c), generator=gen, device=DEVICE)
         x32 = x32 * 1.5 + 0.5
@@ -296,17 +317,43 @@ def phase_k1(label, gen):
                     raise AssertionError(f"{tag}: near-constant channel not finite")
                 err = check_close(tag, k[..., 1:], p[..., 1:], atol, rtol)
                 worst[dname] = max(worst[dname], err)
+            # No atomics, fixed-order sums: the kernel repeats itself bit
+            # for bit.
+            if not torch.equal(k, instance_norm_prelu(x, alpha)):
+                raise AssertionError(f"{tag}: two runs on one input differ")
             alpha = torch.full((1,), 0.25, device=DEVICE)
             t_k = time_ms(lambda: instance_norm_prelu(x, alpha), 20)
             t_p = time_ms(lambda: instance_norm_prelu_plain(x, alpha), 20)
+            # The library's InstanceNorm alone (no PReLU), on the NCHW view
+            # of the same channels_last memory: a yardstick the port never
+            # calls.
+            xc = x.permute(0, 3, 1, 2)
+            t_l = time_ms(lambda: F.instance_norm(xc), 20)
+            plan = k1.fwd_cluster_plan(BATCH, h * w, c, x.element_size())
+            form = "two-phase" if plan is None else (
+                f"read-once in clusters of {plan['size']}, tiles of "
+                f"{plan['wcc']} vectors")
+            site_bound = 2 * x.numel() * x.element_size() / PEAK_BYTES * 1e3
             print(f"[{label}] K1 {(BATCH, h, w, c)} {dname}: kernel {t_k:.4f} ms"
-                  f", plain {t_p:.4f} ms, sites/forward {sites}")
-            if dtype == torch.float32:
-                ms += sites * t_k
-                plain_ms += sites * t_p
+                  f", plain {t_p:.4f} ms, F.instance_norm alone {t_l:.4f} ms, "
+                  f"its bytes' bound {site_bound:.4f} ms ({site_bound / t_k:.2f}"
+                  f" of the kernel's time), {form}, sites/forward {sites}")
+            if sites and not t_k < t_p:
+                raise AssertionError(f"{tag}: the kernel ({t_k:.4f} ms) is no "
+                                     f"faster than its plain version ({t_p:.4f})")
+            ms[dname] += sites * t_k
+            plain_ms[dname] += sites * t_p
+            lib_ms[dname] += sites * t_l
+    bounds = site_bounds()
     print(f"K1 max |kernel - plain|: float32 {worst['float32']:.3e}, "
-          f"bfloat16 {worst['bfloat16']:.3e}")
-    return worst, ms, plain_ms
+          f"bfloat16 {worst['bfloat16']:.3e}; per forward at batch {BATCH}: "
+          f"float32 kernel {ms['float32']:.4f} ms, its bytes' bound "
+          f"{bounds['k1'][0]:.4f}, plain {plain_ms['float32']:.4f}, "
+          f"F.instance_norm alone {lib_ms['float32']:.4f}; bfloat16 kernel "
+          f"{ms['bfloat16']:.4f} ms, bound {bounds['k1_bf16'][0]:.4f}, plain "
+          f"{plain_ms['bfloat16']:.4f}, F.instance_norm alone "
+          f"{lib_ms['bfloat16']:.4f}")
+    return worst, ms, plain_ms, lib_ms
 
 
 def _conv_norm_f64(x, wt, b, alpha):
@@ -675,7 +722,8 @@ def phase_k2b(label, gen):
 
     n = TRAIN_BATCH
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    ms = plain_ms = 0.0
+    ms = {"float32": 0.0, "bfloat16": 0.0}
+    plain_ms = {"float32": 0.0, "bfloat16": 0.0}
     for (h, w, cin, cout), sites in K2_SITES.items():
         g32 = torch.randn((n, h, w, cout), generator=gen, device=DEVICE)
         xh32 = torch.randn((n, h, w, cout), generator=gen, device=DEVICE)
@@ -697,9 +745,8 @@ def phase_k2b(label, gen):
             t_p = time_ms(lambda: k2.in_prelu_bwd_plain(g, xhat, rsinv, alpha), 20)
             print(f"[{label}] K2b {(n, h, w, cin, cout)} {dname}: kernel "
                   f"{t_k:.4f} ms, plain {t_p:.4f} ms, sites/step {sites}")
-            if dtype == torch.float32:
-                ms += sites * t_k
-                plain_ms += sites * t_p
+            ms[dname] += sites * t_k
+            plain_ms[dname] += sites * t_p
     # K2's training forward: xhat and rsinv beside out, against the plain's.
     for (h, w, cin, cout) in K2_SITES:
         x32 = torch.randn((n, h, w, cin), generator=gen, device=DEVICE)
@@ -719,8 +766,10 @@ def phase_k2b(label, gen):
             check_close(f"{tag} rsinv", rsinv, prsinv, 1e-5, 1e-4)
             del out, xhat, pout, pxhat
     print(f"K2b max |kernel - plain| (dy): float32 {worst['float32']:.3e}, "
-          f"bfloat16 {worst['bfloat16']:.3e}; per step at batch {n}: "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; K2's training "
+          f"bfloat16 {worst['bfloat16']:.3e}; per step at batch {n}: float32 "
+          f"kernel {ms['float32']:.3f} ms, plain {plain_ms['float32']:.3f} ms; "
+          f"bfloat16 kernel {ms['bfloat16']:.3f} ms, plain "
+          f"{plain_ms['bfloat16']:.3f} ms; K2's training "
           f"forward (out, xhat, rsinv) matched at every site, batch {n}")
     return worst, ms, plain_ms
 
@@ -789,10 +838,12 @@ def _model_l_config(dtype="float32"):
 
 def _counters():
     from ctseg_tpu_torch.ops import (
-        conv_block, instance_norm, min_plus, preprocess,
+        conv_block, edt, instance_norm, min_plus, preprocess,
     )
 
     return {
+        "scan": edt.row_scan,
+        "signed": edt.signed_map,
         "k4": preprocess.window_normalize_degree2,
         "k1": instance_norm.instance_norm_prelu,
         "k1b": instance_norm.instance_norm_prelu_bwd,
@@ -818,11 +869,13 @@ def read_launches():
     return {k: fn.launches for k, fn in _counters().items()}
 
 
-PER_STEP = {"k4": 1, "k1": 8, "k1b": 8, "k2": 9, "k2b": 9, "k5": 0}
+PER_STEP = {"k4": 1, "k1": 8, "k1b": 8, "k2": 9, "k2b": 9, "k5": 0,
+            "scan": 0, "signed": 0}
 # Model M: 1 residual unit leaves 4 stride-1 units (the bottom's and the 3
-# non-top decoder levels'); one K5 launch makes both signs of all 128 x 9
-# distance maps.
-PER_STEP_M = {"k4": 1, "k1": 8, "k1b": 8, "k2": 4, "k2b": 4, "k5": 1}
+# non-top decoder levels'); one launch each of the row scan, K5 and the
+# signed-map kernel makes both signs of all 128 x 9 distance maps.
+PER_STEP_M = {"k4": 1, "k1": 8, "k1b": 8, "k2": 4, "k2b": 4, "k5": 1,
+              "scan": 1, "signed": 1}
 
 
 # Kernel-name fragments -> the group a train step's device time is summed
@@ -834,9 +887,11 @@ KERNEL_GROUPS = (
     ("in_prelu_apply_kernel", "K2 weights, statistics and apply"),
     ("in_prelu_bwd_saved_kernel", "K2b"),
     ("in_prelu_bwd_", "K1b"),
-    ("in_prelu_fwd_kernel", "K1"),
+    ("in_prelu_fwd_", "K1"),
     ("window_normalize_kernel", "K4"),
     ("min_plus_kernel", "K5"),
+    ("row_scan_kernel", "EDT row scan"),
+    ("signed_map_kernel", "EDT signed map"),
     ("dgrad", "library conv dgrad"),
     ("wgrad", "library conv wgrad"),
     ("fft", "library FFT convs"),
@@ -1154,22 +1209,78 @@ def _k5_input(gen, b, k, l):
     return x.contiguous()
 
 
+def _eval_surfaces(seed):
+    """The inverted surfaces and per-map spacings one evaluation batch hands
+    to edt_squared: the structures of EVAL_BATCH slices of the evaluation's
+    split as targets, the same shifted by (3, 5) pixels as predictions."""
+    import torch
+    from ctseg_tpu_torch.metrics.hd95 import _surface_device
+
+    ds = _eval_split(seed, EVAL_BATCH)
+    target = torch.from_numpy(ds.labels[:, :SIZE, :SIZE].copy()).to(DEVICE)
+    pred = torch.roll(target, (3, 5), dims=(1, 2))
+    classes = torch.arange(1, 10, device=DEVICE).reshape(9, 1, 1)
+    ts = _surface_device(target.unsqueeze(1) == classes, 2)
+    ps = _surface_device(pred.unsqueeze(1) == classes, 2)
+    spacing = torch.from_numpy(ds.spacings).to(DEVICE).unsqueeze(1)
+    return torch.logical_not(torch.stack([ts, ps])), spacing  # (2,64,9,H,W)
+
+
+def _step_labels():
+    """The 128 label maps of 256x256 of the Model M phase's timed steps: the
+    same batch of the synthetic split, with the same degree-2 draws (crop,
+    quarter turns, flip) applied."""
+    import torch
+    from ctseg_tpu_torch.data.pipeline import DevicePipeline2D
+    from ctseg_tpu_torch.transforms import augment
+
+    train = DevicePipeline2D(_synthetic_split(0, 2 * TRAIN_BATCH), TRAIN_BATCH)
+    batch = next(train.epoch(torch.Generator(device=DEVICE).manual_seed(2)))
+    draws = augment.draw_degree2(
+        torch.Generator(device=DEVICE).manual_seed(3), TRAIN_BATCH, RAW, RAW,
+        SIZE)
+    return augment.apply_degree2(batch[1], draws, SIZE).contiguous()
+
+
 def phase_k5(label, gen):
     import torch
+    from ctseg_tpu_torch.ops import edt
     from ctseg_tpu_torch.ops.min_plus import BIG, min_plus, min_plus_plain
 
     n_train = TRAIN_BATCH * 9 * 2  # both signs of every class mask of a step
     n_eval = EVAL_BATCH * 9 * 2    # both directions of every (slice, class)
+    big = float(torch.tensor(BIG, dtype=torch.float32))
+    ones = torch.ones(n_train, device=DEVICE)
+    # The step's own maps: the row scan of both signs of the class masks.
+    step_maps = edt.label_scan(_step_labels(), 10)[0].reshape(-1, SIZE, SIZE)
+    # The evaluation's: the row scan of the inverted surfaces, each map with
+    # its slice's spacings.
+    surfaces, spacing = _eval_surfaces(5)
+    sp = spacing.expand(2, EVAL_BATCH, 9, 2).reshape(-1, 2)
+    eval_maps = edt.row_scan(surfaces.reshape(-1, SIZE, SIZE),
+                             sp[:, 1].contiguous())
+    # Nothing to prune: no value at BIG, no zero, and in every 32-column
+    # tile one column that stays above the largest cost plus the smallest
+    # value, so no walk ends early.
+    dense = 1e6 + 10 * torch.rand((n_train, SIZE, SIZE), generator=gen,
+                                  device=DEVICE)
+    dense[:, :, 7::32] = 2e6
     cases = {
-        "train": (n_train, SIZE, SIZE, torch.ones(n_train, device=DEVICE)),
-        "eval": (n_eval, SIZE, SIZE, torch.rand(
+        # Random integers with entries, a row and two maps at BIG.
+        "train": (_k5_input(gen, n_train, SIZE, SIZE), ones),
+        "eval": (_k5_input(gen, n_eval, SIZE, SIZE), torch.rand(
             n_eval, generator=gen, device=DEVICE) * 2.7 + 0.3),
-        "ragged": (37, 100, 70, torch.rand(
+        "ragged": (_k5_input(gen, 37, 100, 70), torch.rand(
             37, generator=gen, device=DEVICE) * 2.7 + 0.3),
+        "step maps": (step_maps, ones),
+        "eval surfaces": (eval_maps, sp[:, 0].contiguous()),
+        "unprunable": (dense, ones),
     }
+    del step_maps, eval_maps, dense, surfaces
     times = {}
-    for name, (b, k, l, scale) in cases.items():
-        x = _k5_input(gen, b, k, l)
+    for name in list(cases):
+        x, scale = cases.pop(name)
+        b, k, l = x.shape
         out = min_plus(x, scale)
         plain = min_plus_plain(x, scale)
         torch.cuda.synchronize()
@@ -1179,22 +1290,128 @@ def phase_k5(label, gen):
             raise AssertionError(
                 f"K5 {name} {(b, k, l)} differs from its plain version at "
                 f"{int((diff > 0).sum())} values, by up to {float(diff.max())!r}")
-        if float(out.max()) != float(torch.tensor(BIG, dtype=torch.float32)) \
-                or not bool((out[0] == out.max()).all()):
+        if name in ("train", "eval", "ragged") and (
+                float(out.max()) != big or not bool((out[0] == big).all())):
             raise AssertionError(f"K5 {name}: an all-BIG map must stay at BIG")
         t_k = time_ms(lambda: min_plus(x, scale), 10)
         t_p = time_ms(lambda: min_plus_plain(x, scale), 1)
-        bound, by = bound_ms(2.0 * b * k * k * l, 2 * 4.0 * b * k * l)
+        # A pruned pass can beat the all-pairs operations count, so the
+        # bound is the bytes; the all-pairs form's stands beside it.
+        bound, by = bound_ms(0.0, 2 * 4.0 * b * k * l)
+        all_pairs, _ = bound_ms(2.0 * b * k * k * l, 0.0)
         # The peak counts a multiply-add as 2 operations; a pair here is one
         # add and one min, 2 instructions, so the issue rate allows half.
         issue = 2.0 * b * k * k * l / (PEAK_FLOPS / 2) * 1e3
-        times[name] = (t_k, t_p, bound, by, err, issue)
+        times[name] = (t_k, t_p, bound, by, err, issue, all_pairs)
         print(f"[{label}] K5 {name} {(b, k, l)}: bit-equal to its plain "
               f"version (max |diff| {err!r}); kernel {t_k:.4f} ms, plain "
-              f"{t_p:.3f} ms, bound {bound:.4f} ms by {by} (2 operations a "
-              f"pair), {issue:.4f} ms at one instruction a lane a cycle")
+              f"{t_p:.3f} ms, bound {bound:.4f} ms by {by} ({bound / t_k:.2f} of"
+              f" the kernel's time); all pairs would take {all_pairs:.4f} ms "
+              f"at 2 operations a pair, {issue:.4f} ms at one instruction a "
+              f"lane a cycle")
         del x, out, plain, diff
     return times
+
+
+def phase_edt(label, gen):
+    """The distance-map paths made of kernels (row scan, K5, signed map)
+    against the plain compositions run on the card, torch.equal required,
+    and the two kernels around K5 each against its plain version."""
+    import torch
+    from ctseg_tpu_torch.ops import edt
+
+    def same(what, kernel, plain):
+        """max |kernel - plain|, measured; anything but torch.equal raises."""
+        torch.cuda.synchronize()
+        diff = (kernel - plain).abs()
+        if not torch.equal(kernel, plain):
+            raise AssertionError(
+                f"{what} differs from its plain version at "
+                f"{int((diff > 0).sum())} values, by up to {float(diff.max())!r}")
+        return float(diff.max())
+
+    out = {}
+    labels = _step_labels()
+    n, e = TRAIN_BATCH, SIZE * SIZE
+    for lab in (labels, labels.long(), labels.int()):
+        same(f"signed_distance_maps_from_labels ({lab.dtype})",
+             edt.signed_distance_maps_from_labels(lab),
+             edt.signed_distance_maps_from_labels_plain(lab))
+    # A class missing from a slice, an empty slice, a class filling rows.
+    odd = labels.clone()
+    odd[1][odd[1] == 3] = 0
+    odd[2] = 0
+    odd[3, 40:90] = 5
+    same("signed_distance_maps_from_labels (missing and filling classes)",
+         edt.signed_distance_maps_from_labels(odd),
+         edt.signed_distance_maps_from_labels_plain(odd))
+    vol = torch.rand((2, 3, 24, 20, 37), generator=gen, device=DEVICE) > 0.6
+    vol[0, 1] = False
+    same("signed_distance_map, 3D", edt.signed_distance_map(vol, 3),
+         edt.signed_distance_map_plain(vol, 3))
+    t_k = time_ms(lambda: edt.signed_distance_maps_from_labels(labels), 10)
+    t_p = time_ms(lambda: edt.signed_distance_maps_from_labels_plain(labels), 3)
+    print(f"[{label}] signed_distance_maps_from_labels, {n} label maps of "
+          f"{SIZE}x{SIZE} (uint8, int32, int64; a missing class, an empty "
+          f"slice; 3D masks): torch.equal to the plain composition; kernels "
+          f"{t_k:.4f} ms, plain composition (K5 inside) {t_p:.3f} ms")
+    out["maps"] = (t_k, t_p)
+
+    surfaces, spacing = _eval_surfaces(6)
+    same("edt_squared with per-sample spacings",
+         edt.edt_squared(surfaces, spacing, 2),
+         edt.edt_squared_plain(surfaces, spacing, 2))
+    sp3 = torch.rand((2, 3, 3), generator=gen, device=DEVICE) * 2.7 + 0.3
+    same("edt_squared, 3D with per-map spacings",
+         edt.edt_squared(vol, sp3), edt.edt_squared_plain(vol, sp3))
+    t_k = time_ms(lambda: edt.edt_squared(surfaces, spacing, 2), 10)
+    t_p = time_ms(lambda: edt.edt_squared_plain(surfaces, spacing, 2), 3)
+    print(f"[{label}] edt_squared of {tuple(surfaces.shape)} inverted "
+          f"surfaces with one spacing per slice (and of 3D masks): "
+          f"torch.equal to the plain composition; kernels {t_k:.4f} ms, "
+          f"plain composition (K5 inside) {t_p:.3f} ms")
+    out["edt_squared"] = (t_k, t_p)
+
+    # The two kernels alone, at the Model M step's shape.
+    d2, flags = edt.label_scan(labels, 10)
+    pd2, pflags = edt.label_scan_plain(labels, 10)
+    err = same("label_scan", d2, pd2)
+    if not torch.equal(flags.bool(), pflags):
+        raise AssertionError("label_scan's nonempty flags differ")
+    masks = surfaces.reshape(-1, SIZE, SIZE)
+    scale = spacing.expand(2, EVAL_BATCH, 9, 2).reshape(-1, 2)[:, 1].contiguous()
+    err = max(err, same("row_scan", edt.row_scan(masks, scale),
+                        edt.row_scan_plain(masks, scale)))
+    t_k = time_ms(lambda: edt.label_scan(labels, 10), 10)
+    t_p = time_ms(lambda: edt.label_scan_plain(labels, 10), 3)
+    t_ke = time_ms(lambda: edt.row_scan(masks, scale), 10)
+    t_pe = time_ms(lambda: edt.row_scan_plain(masks, scale), 3)
+    # Bytes: the labels (or the mask) read once, the distances written once.
+    bound = bound_ms(0.0, labels.numel() * labels.element_size()
+                     + 4.0 * d2.numel())
+    bound_e = bound_ms(0.0, 5.0 * masks.numel())
+    print(f"[{label}] EDT row scan: bit-equal to its plain version (max "
+          f"|diff| {err!r}); from "
+          f"{n} label maps to {tuple(d2.shape)}: kernel {t_k:.4f} ms, plain "
+          f"{t_p:.3f} ms, its bytes' bound {bound[0]:.4f} ms; of "
+          f"{tuple(masks.shape)} masks with spacings: kernel {t_ke:.4f} ms, "
+          f"plain {t_pe:.3f} ms, bound {bound_e[0]:.4f} ms")
+    out["scan"] = (t_k, t_p, bound, t_ke, t_pe, bound_e[0], err)
+
+    d2 = edt._min_plus_passes(d2, 3, 2, None).reshape(2, n, 9, e)
+    flat = labels.reshape(n, e)
+    err = same("signed_map", edt.signed_map(d2, flat, flags),
+               edt.signed_map_plain(d2, flat, flags))
+    t_k = time_ms(lambda: edt.signed_map(d2, flat, flags), 10)
+    t_p = time_ms(lambda: edt.signed_map_plain(d2, flat, flags), 3)
+    bound = bound_ms(0.0, flat.numel() * flat.element_size()
+                     + 4.0 * d2.numel() * 1.5)
+    print(f"[{label}] EDT signed map {tuple(d2.shape)} -> {(n, 9, e)}: "
+          f"bit-equal to its plain version (max |diff| {err!r}); kernel "
+          f"{t_k:.4f} ms, plain {t_p:.3f} ms, its bytes' bound "
+          f"{bound[0]:.4f} ms")
+    out["signed"] = (t_k, t_p, bound, err)
+    return out
 
 
 def _model_m_config():
@@ -1297,7 +1514,7 @@ def phase_train_model_m(label, workdir: Path):
             batch[0], batch[1], draws),
         "mixup: probabilities, draw, mix": lambda: mixup.weighted_mixup(
             gen, images, labels, cfg.mixup_alpha),
-        "signed distance maps (K5 + scan, sqrt, sign)":
+        "signed distance maps (row scan, K5, signed map)":
             lambda: trainer._dist_maps(labels),
         "forward alone, no_grad": forward_no_grad,
         "both loss sets, forward only": both_loss_sets,
@@ -1357,7 +1574,7 @@ def phase_evaluate(label, ckpt_path: Path):
     launches = read_launches()
     k5_launches = launches["k5"]
     want = {"k4": 0, "k1": 8 * batches, "k1b": 0, "k2": 4 * batches,
-            "k2b": 0, "k5": batches}
+            "k2b": 0, "k5": batches, "scan": batches, "signed": 0}
     if launches != want:
         raise AssertionError(f"evaluate_2d launched {launches} over "
                              f"{batches} batches; want {want}")
@@ -1415,7 +1632,60 @@ def phase_evaluate(label, ckpt_path: Path):
     print(f"[{label}] device HD95 vs scipy on {n} slices: {held} (slice, "
           f"structure) values, worst relative difference {worst:.3e} "
           f"(bound {HD95_RTOL:.0e})")
-    return k5_launches, result["slices_per_sec"]
+    _hd95_parts(label, trainer, state.model, dataset)
+    return launches, result["slices_per_sec"]
+
+
+def _hd95_parts(label, trainer, model, dataset):
+    """HD95's device time by part on one evaluation batch (CUDA events,
+    each part alone on the inputs the whole function gives it)."""
+    import torch
+    from ctseg_tpu_torch.metrics import hd95
+    from ctseg_tpu_torch.ops import edt
+    from ctseg_tpu_torch.ops.min_plus import min_plus
+
+    n = EVAL_BATCH
+    images, labels = trainer.test_transform(
+        torch.from_numpy(dataset.images[:n]).to(DEVICE),
+        torch.from_numpy(dataset.labels[:n]).to(DEVICE))
+    x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        preds = trainer._predictions(
+            model.eval()(x).float(),
+            torch.from_numpy(dataset.indicators[:n]).to(DEVICE))
+    spacing = torch.from_numpy(
+        dataset.spacings[:n] * np.float32(RAW / SIZE)).to(DEVICE)
+    classes = torch.arange(1, 10, device=DEVICE).reshape(9, 1, 1)
+
+    def surfaces():
+        return (hd95._surface_device(preds.unsqueeze(1) == classes, 2),
+                hd95._surface_device(labels.unsqueeze(1) == classes, 2))
+
+    ps, ts = surfaces()
+    inverted = torch.logical_not(torch.stack([ts, ps]))
+    masks = inverted.reshape(-1, SIZE, SIZE)
+    sp = spacing[:, None].expand(2, n, 9, 2).reshape(-1, 2)
+    col, row = sp[:, 1].contiguous(), sp[:, 0].contiguous()
+    d2 = edt.row_scan(masks, col)
+    done = min_plus(d2, row).reshape(2, n * 9, -1)
+    flat_p, flat_t = ps.reshape(n * 9, -1), ts.reshape(n * 9, -1)
+    parts = {
+        "surfaces": surfaces,
+        "inverting and stacking them":
+            lambda: torch.logical_not(torch.stack([ts, ps])),
+        "row scan": lambda: edt.row_scan(masks, col),
+        "min-plus (K5)": lambda: min_plus(d2, row),
+        "percentiles (sort)": lambda: (
+            hd95._masked_percentile_sqrt(done[0], flat_p, 95.0),
+            hd95._masked_percentile_sqrt(done[1], flat_t, 95.0)),
+    }
+    ms = {k: time_ms(fn, 5) for k, fn in parts.items()}
+    whole = time_ms(lambda: hd95.hd95_per_structure_device(
+        preds, labels, spacing=spacing), 5)
+    print(f"[{label}] HD95 of one evaluation batch of {n} slices by part, "
+          "ms: " + "; ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f"; the whole function {whole:.3f}; the rest "
+          f"{whole - sum(ms.values()):.3f}")
 
 
 def main() -> int:
@@ -1444,7 +1714,7 @@ def main() -> int:
             print("  ptxas:", line.strip().removeprefix("ptxas info    :").strip())
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    k1_err, k1_ms, k1_plain = phase_k1(label, gen)
+    k1_err, k1_ms, k1_plain, k1_lib = phase_k1(label, gen)
     k2_err, k2_ms, k2_plain, k2_lib, k2_err64 = phase_k2(label, gen)
     k1b_err, k1b_ms, k1b_plain = phase_k1b(label, gen)
     k2b_err, k2b_ms, k2b_plain = phase_k2b(label, gen)
@@ -1462,52 +1732,64 @@ def main() -> int:
         del batch, draws
         torch.cuda.empty_cache()
         k5_times = phase_k5(label, gen)
+        edt_times = phase_edt(label, gen)
+        torch.cuda.empty_cache()
         ckpt_m, launches_m, _ = phase_train_model_m(label, Path(tmp))
         torch.cuda.empty_cache()
-        k5_eval_launches, _ = phase_evaluate(label, ckpt_m)
+        launches_eval, _ = phase_evaluate(label, ckpt_m)
 
     bounds = site_bounds()
-    bounds["k5"] = k5_times["train"][2:4]
+    bounds["k5"] = k5_times["step maps"][2:4]
+    bounds["scan"] = edt_times["scan"][2]
+    bounds["signed"] = edt_times["signed"][2]
 
     def entry(name, key, source, replaces, err, ms, plain_ms):
         # No one PyTorch call computes any of these functions (IN + PReLU,
         # conv + IN + PReLU, their backwards from saved statistics, windows +
-        # moves + normalize, a min-plus pass), so there is no library time;
-        # K2 carries the library's time for its conv part alone beside it.
+        # moves + normalize, a min-plus pass, a two-sided row scan, the
+        # signed map), so there is no library time; K1 and K2 carry the
+        # library's time for their norm and conv part alone beside it.
         return {"name": name, "route": "cuda",
                 "source": f"ctseg_tpu_torch/csrc/{source}",
-                "replaces": f"ctseg_tpu/ops/pallas/{replaces}",
+                "replaces": replaces,
                 "launches": launches[key], "launches_model_m": launches_m[key],
+                "launches_eval": launches_eval[key],
                 "max_abs_err": err["float32"],
                 "max_abs_err_bf16": err["bfloat16"],
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[key][0],
                 "bound_by": bounds[key][1], "library_ms": None}
 
+    pallas = "ctseg_tpu/ops/pallas/"
     kernels = [
         entry("instance_norm_prelu", "k1", "instance_norm.cu",
-              "instance_norm.py:254", k1_err, k1_ms, k1_plain),
+              pallas + "instance_norm.py:254", k1_err, k1_ms["float32"],
+              k1_plain["float32"]),
         entry("instance_norm_prelu_bwd", "k1b", "instance_norm.cu",
-              "instance_norm.py:319", k1b_err, k1b_ms["float32"],
+              pallas + "instance_norm.py:319", k1b_err, k1b_ms["float32"],
               k1b_plain["float32"]),
         entry("conv3x3_in_prelu", "k2", "conv_block.cu",
-              "conv_block.py:146", k2_err, k2_ms["float32"],
+              pallas + "conv_block.py:146", k2_err, k2_ms["float32"],
               k2_plain["float32"]),
         entry("in_prelu_bwd", "k2b", "conv_block.cu",
-              "conv_block.py:193", k2b_err, k2b_ms, k2b_plain),
+              pallas + "conv_block.py:193", k2b_err, k2b_ms["float32"],
+              k2b_plain["float32"]),
         entry("window_normalize_degree2", "k4", "preprocess.cu",
-              "preprocess.py:81", {"float32": k4_err, "bfloat16": None},
-              k4_ms, k4_plain),
+              pallas + "preprocess.py:81",
+              {"float32": k4_err, "bfloat16": None}, k4_ms, k4_plain),
     ]
-    # The bfloat16 totals of the two redesigned kernels, with their bounds at
-    # 2 bytes an element (K2: on the bfloat16 tensor-core peak).
-    kernels[1].update(
-        ms_bf16=k1b_ms["bfloat16"], plain_ms_bf16=k1b_plain["bfloat16"],
-        bound_ms_bf16=bounds["k1b_bf16"][0],
-        bound_by_bf16=bounds["k1b_bf16"][1])
+    # The bfloat16 totals of the norm kernels and the conv, with their bounds
+    # at 2 bytes an element (K2: on the bfloat16 tensor-core peak).
+    for i, key, ms, plain in ((0, "k1", k1_ms, k1_plain),
+                              (1, "k1b", k1b_ms, k1b_plain),
+                              (2, "k2", k2_ms, k2_plain),
+                              (3, "k2b", k2b_ms, k2b_plain)):
+        kernels[i].update(
+            ms_bf16=ms["bfloat16"], plain_ms_bf16=plain["bfloat16"],
+            bound_ms_bf16=bounds[key + "_bf16"][0],
+            bound_by_bf16=bounds[key + "_bf16"][1])
+    kernels[0].update(library_ms_norm=k1_lib["float32"],
+                      library_ms_norm_bf16=k1_lib["bfloat16"])
     kernels[2].update(
-        ms_bf16=k2_ms["bfloat16"], plain_ms_bf16=k2_plain["bfloat16"],
-        bound_ms_bf16=bounds["k2_bf16"][0],
-        bound_by_bf16=bounds["k2_bf16"][1],
         bound_ms_fp32_pipes=bounds["k2_fp32_pipes"][0],
         library_ms_conv=k2_lib["float32"],
         library_ms_conv_bf16=k2_lib["bfloat16"],
@@ -1515,37 +1797,63 @@ def main() -> int:
         plain_max_abs_err_vs_float64=k2_err64["plain"],
         # Read after the last main path; each path asserted 0 of its own.
         launches_simt=_counters()["k2"].launches_simt)
-    # K4 and K5 compute float32 only: no bfloat16 comparison exists to
-    # report, so that key is null for them.
-    k5 = entry("min_plus", "k5", "min_plus.cu", "min_plus.py:74",
-               {"float32": k5_times["train"][4], "bfloat16": None},
-               k5_times["train"][0], k5_times["train"][1])
+    # K4, K5 and the EDT kernels compute float32 only: no bfloat16
+    # comparison exists to report, so that key is null for them.
+    step, rand = k5_times["step maps"], k5_times["train"]
+    k5 = entry("min_plus", "k5", "min_plus.cu", pallas + "min_plus.py:74",
+               {"float32": step[4], "bfloat16": None}, step[0], step[1])
     # K5's main path is the Model M step; Model L's has no Boundary loss.
     k5.update(launches=launches_m["k5"], launches_model_l=launches["k5"],
-              launches_eval=k5_eval_launches, ms_eval=k5_times["eval"][0],
-              plain_ms_eval=k5_times["eval"][1],
-              bound_ms_eval=k5_times["eval"][2],
-              max_abs_err_eval=k5_times["eval"][4],
-              issue_bound_ms=k5_times["train"][5],
-              issue_bound_ms_eval=k5_times["eval"][5])
+              all_pairs_bound_ms=step[6], issue_bound_ms=step[5],
+              ms_random=rand[0], plain_ms_random=rand[1],
+              ms_unprunable=k5_times["unprunable"][0],
+              ms_eval=k5_times["eval surfaces"][0],
+              plain_ms_eval=k5_times["eval surfaces"][1],
+              bound_ms_eval=k5_times["eval surfaces"][2],
+              all_pairs_bound_ms_eval=k5_times["eval surfaces"][6],
+              ms_eval_random=k5_times["eval"][0],
+              max_abs_err_eval=k5_times["eval surfaces"][4])
     kernels.append(k5)
+    # The two kernels around K5 replace no Pallas kernel: the JAX package
+    # leaves these passes to XLA.
+    scan = entry("edt_row_scan", "scan", "edt.cu",
+                 "ctseg_tpu/ops/edt.py:28 (jnp, no Pallas kernel)",
+                 {"float32": edt_times["scan"][6], "bfloat16": None},
+                 edt_times["scan"][0], edt_times["scan"][1])
+    scan.update(launches=launches_m["scan"], launches_model_l=launches["scan"],
+                ms_eval=edt_times["scan"][3], plain_ms_eval=edt_times["scan"][4],
+                bound_ms_eval=edt_times["scan"][5])
+    signed = entry("edt_signed_map", "signed", "edt.cu",
+                   "ctseg_tpu/ops/edt.py:139 (jnp, no Pallas kernel)",
+                   {"float32": edt_times["signed"][3], "bfloat16": None},
+                   edt_times["signed"][0], edt_times["signed"][1])
+    signed.update(launches=launches_m["signed"],
+                  launches_model_l=launches["signed"])
+    kernels += [scan, signed]
     kernels[0]["launches_serve"] = serve_launches["k1"]
     kernels[2]["launches_serve"] = serve_launches["k2"]
     print(f"(launches: phase 9's {TIMED_STEPS} timed Model L train steps, for "
-          f"K5 phase 13's {TIMED_STEPS} Model M steps; launches_model_m: "
-          "phase 13's; launches_serve: phase 4's requests; launches_eval: "
-          "phase 14's evaluation; ms, plain_ms, bound_ms: float32 device "
+          f"K5 and the EDT kernels phase 14's {TIMED_STEPS} Model M steps; "
+          "launches_model_m: phase 14's; launches_serve: phase 4's requests; "
+          "launches_eval: phase 15's evaluation; ms, plain_ms, bound_ms: "
+          "float32 device "
           "time, kernel vs plain version vs the card's least, of the sites "
           f"of one forward at the serving batch {BATCH} for K1 and K2, of "
           f"one backward at the training batch {TRAIN_BATCH} for K1b and "
           f"K2b, of one batch-{TRAIN_BATCH} transform for K4 and of one "
-          "Model M step's distance maps for K5; max_abs_err: float32; "
+          "Model M step's distance maps (made from the phase's labels) for "
+          "K5 and the EDT kernels; max_abs_err: float32; "
           "ms_bf16, plain_ms_bf16, bound_ms_bf16: the same sums in bfloat16; "
           "K2's bound_ms: 3 tensor-core products for each one of the conv at "
           "the TF32 peak, bound_ms_fp32_pipes: the same work at the FP32 "
           "pipes' peak; library_ms_conv: F.conv2d alone, the conv part of "
-          "K2 only; launches_simt: K2 launches on the FP32-pipe route, "
-          "asserted 0 on every main path)")
+          "K2 only; library_ms_norm: F.instance_norm alone, K1 without its "
+          "PReLU; launches_simt: K2 launches on the FP32-pipe route, "
+          "asserted 0 on every main path; K5's bound_ms: its bytes, "
+          "all_pairs_bound_ms: the operations of the all-pairs form; "
+          "ms_random, ms_unprunable: K5 on random maps with holes at BIG and "
+          "on maps where no pair can be pruned; *_eval: on one evaluation "
+          "batch's surfaces)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,18 +15,37 @@
 //   dalpha = sum(g * min(xhat, 0)), as deterministic partials that the
 //   wrapper sums (the Pallas kernel's SMEM partials; no atomics).
 //
-// What bounds it on an H100: memory. The forward reads x twice (stats, then
-// normalize) and writes y once; the backward reads x and g twice (sums, then
-// dx) and writes dx once. The TPU kernel kept a whole (H, W, C-tile) slab in
-// VMEM to read x once; a Hopper SM has 227 KB of shared memory, less than
-// one 128x128x64 slab, so the second read comes from L2 or HBM instead.
+// What bounds it on an H100: memory. The bound counts x read once and y
+// written once (the backward: x and g read once, dx written once). The TPU
+// kernel kept a whole (H, W, C-tile) slab in VMEM to read x once; a Hopper SM
+// has 227 KB of shared memory, less than one 128x128x64 slab, so here a
+// thread block cluster holds the slab, or the second read comes from L2 or
+// HBM.
 //
-// Forward design: one block per (sample, 32-channel tile). The 32 lanes of a
-// warp take 32 neighbouring channels of one pixel, so every load is one
-// coalesced segment; the 16 warps stride over the pixels, which replaces the
-// TPU's sequential H grid. A column sum in shared memory combines the 16
-// partials. Known weakness, left for a later change: at (N, 256, 256, 10)
-// this is N blocks with 22 of 32 lanes idle.
+// Forward and backward share one geometry, chosen by the wrapper from the
+// shape (ops/instance_norm.py::fwd_cluster_plan, fwd_plan, bwd_cluster_plan,
+// bwd_plan): full lanes at any C (16 bytes a lane over the flattened
+// sample) and the spatial axis split over blocks. Described under the
+// backward, which had it first; the forward (K1f) differs as follows:
+//   - Read-once form (in_prelu_fwd_cluster_kernel): only x is resident, and
+//     the kernel works on super-rows, so it also takes a C that is no whole
+//     number of vectors when the tile spans the whole super-row (256x256x10:
+//     a cluster of 16 blocks holds the 2.6 MB sample, 80-byte super-rows).
+//     A cluster is 1, 2, 8 or 16 blocks, the fewest that hold the tile in
+//     96 KB a block: a cluster-wide barrier costs more the more blocks wait
+//     at it, and Model L's 16x16x512 site fits one block a tile.
+//     Each block sums x and x^2 over its resident rows; after a cluster-wide
+//     barrier every block adds the cluster's sums in rank order through
+//     distributed shared memory, folds the element columns that carry one
+//     channel in index order, forms mean and rsqrt(var + eps), and writes y
+//     from its resident rows: 8 bytes an element, the bound's own count.
+//   - Two-phase form, everything else: per-chunk partial sums of x and x^2
+//     to a float32 workspace, a kernel of one thread a (sample, channel) that
+//     adds them in index order into mean and var, a normalize pass: x is
+//     read twice, 12 bytes an element.
+//   - The statistics are the one-pass form either way; no atomics, so two
+//     runs on one input are equal bit for bit. The training variant writes
+//     mean and var (N, C) for K1b.
 //
 // Backward design (K1b). Two forms, chosen by the wrapper from the shape
 // (ops/instance_norm.py::bwd_cluster_plan, bwd_plan), both with full lanes
@@ -65,11 +84,16 @@
 //     are read twice, 20 bytes an element.
 //   - dalpha is torch.sum over the third plane of either form's workspace.
 //
-// Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py phase 6; the 8
-// launches of one Model L backward at batch 128): K1b float32 3.545 ms
-// (6.095 ms before the redesign; its bytes' bound 2.043 ms), bfloat16 2.173
-// ms (bound 1.022 ms); the 256x256x10 site alone 0.652 ms (2.368 before).
-// Per site and per path: PERF.md, section 6.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py phases 2 and 6).
+// K1f, the 8 launches of one Model L forward at batch 32: float32 0.522 ms
+// (1.844 ms as one block per (sample, 32 channels) reading x twice; its
+// bytes' bound 0.341 ms), bfloat16 0.292 ms (bound 0.170 ms); the
+// 256x256x10 site alone 0.092 ms (0.930 before; its two-phase form 0.149). K1b, the 8
+// launches of one Model L backward at batch 128: float32 3.545 ms (6.095 ms
+// before its redesign; bound 2.043 ms), bfloat16 2.173 ms (bound 1.022 ms);
+// the 256x256x10 site alone 0.652 ms (2.368 before). Per site and per path:
+// PERF.md, section 6; every geometry of the forward per site:
+// csrc/tools/sweep_instance_norm_fwd.py.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -77,49 +101,6 @@
 #include "common.cuh"
 
 namespace {
-
-constexpr int kTileC = 32;  // channels per block: one per lane
-constexpr int kRows = 16;   // warps per block, striding over pixels
-
-template <typename T>
-__global__ void __launch_bounds__(kTileC * kRows)
-    in_prelu_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
-                        const float* __restrict__ alpha,
-                        float* __restrict__ mean_out,
-                        float* __restrict__ var_out, int s, int c) {
-  __shared__ float buf[kRows][32];
-  const int ch = blockIdx.x * kTileC + threadIdx.x;
-  const bool active = ch < c;
-  const size_t base = static_cast<size_t>(blockIdx.y) * s * c + ch;
-
-  float sum = 0.f;
-  float sum_sq = 0.f;
-  if (active) {
-    for (int p = threadIdx.y; p < s; p += kRows) {
-      const float v = ctseg::to_float(x[base + static_cast<size_t>(p) * c]);
-      sum += v;
-      sum_sq += v * v;
-    }
-  }
-  sum = ctseg::column_sum<kRows>(sum, buf);
-  sum_sq = ctseg::column_sum<kRows>(sum_sq, buf);
-  if (!active) return;
-
-  const float mean = sum / static_cast<float>(s);
-  const float d = sum_sq / static_cast<float>(s) - mean * mean;
-  const float var = d < 0.f ? 0.f : d;  // clamp; NaN passes like jnp.maximum
-  if (mean_out != nullptr && threadIdx.y == 0) {
-    mean_out[static_cast<size_t>(blockIdx.y) * c + ch] = mean;
-    var_out[static_cast<size_t>(blockIdx.y) * c + ch] = var;
-  }
-  const float inv = rsqrtf(var + ctseg::kEps);
-  const float a = alpha[0];
-  for (int p = threadIdx.y; p < s; p += kRows) {
-    const size_t i = base + static_cast<size_t>(p) * c;
-    const float xhat = (ctseg::to_float(x[i]) - mean) * inv;
-    y[i] = ctseg::from_float<T>(ctseg::prelu(xhat, a));
-  }
-}
 
 constexpr int kBwdThreads = 256;
 
@@ -205,9 +186,11 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p,
   }
 }
 
-// A backward thread's place: column `col` of the block's tile (global column
-// gcol of the super-row), row `row` of the block's rr rows; its V channels'
-// mean and rsqrt(var + eps); the super-rows [r0, r1) of the block's chunk.
+// A thread's place in the two-phase kernels (backward and forward): column
+// `col` of the block's tile (global column gcol of the super-row), row `row`
+// of the block's rr rows; its V channels' mean and rsqrt(var + eps) (left 0
+// where the statistics are still to be made: mean_in null); the super-rows
+// [r0, r1) of the block's chunk.
 template <int V>
 struct BwdThread {
   int col, row, gcol, r0, r1;
@@ -231,7 +214,7 @@ struct BwdThread {
     for (int v = 0; v < V; ++v) {
       mean[v] = 0.f;
       inv[v] = 0.f;
-      if (active) {
+      if (active && mean_in != nullptr) {
         const size_t stat = static_cast<size_t>(img) * geo.c +
                             (static_cast<size_t>(gcol) * V + v) % geo.c;
         mean[v] = mean_in[stat];
@@ -362,6 +345,115 @@ __global__ void __launch_bounds__(kBwdThreads)
       out[v] = th.inv[v] * (gh - m1[v] - xh * m2[v]);
     }
     store_vec<T, V>(dx + off, out);
+  }
+}
+
+// ---- K1f, two-phase form ----
+
+// Phase 1: parts[img, chunk, k, i] = sum over the chunk's super-rows of x
+// (k = 0) and x^2 (k = 1) at element column i of the super-row. Grid (column
+// tiles, chunks, N).
+template <typename T, int V>
+__global__ void __launch_bounds__(kBwdThreads)
+    in_prelu_fwd_partials_kernel(const T* __restrict__ x,
+                                 float* __restrict__ parts, BwdGeometry geo) {
+  __shared__ __align__(16) float red[2 * kBwdThreads * V];  // [k][row][i]
+  const BwdThread<V> th(geo, nullptr, nullptr);
+  float sums[2][V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) sums[0][v] = sums[1][v] = 0.f;
+  if (th.active) {
+#pragma unroll 4
+    for (int r = th.r0 + th.row; r < th.r1; r += geo.rr) {
+      float xv[V];
+      load_vec<T, V>(
+          x + th.base + (static_cast<size_t>(r) * geo.q + th.gcol) * V, xv);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        sums[0][v] += xv[v];
+        sums[1][v] += xv[v] * xv[v];
+      }
+    }
+  }
+  const int width = geo.wc * V;  // element columns of the block's tile
+  if (th.row < geo.rr) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        red[(k * geo.rr + th.row) * width + th.col * V + v] = sums[k][v];
+  }
+  __syncthreads();
+  float* dst = parts + (static_cast<size_t>(blockIdx.z) * geo.chunks +
+                        blockIdx.y) * 2 * geo.lcm;
+  for (int idx = threadIdx.x; idx < 2 * width; idx += kBwdThreads) {
+    const int k = idx / width;
+    const int i = idx - k * width;
+    const int gi = blockIdx.x * width + i;
+    if (gi >= geo.lcm) continue;
+    float total = 0.f;
+    for (int row = 0; row < geo.rr; ++row) {
+      total += red[(k * geo.rr + row) * width + i];
+    }
+    dst[k * geo.lcm + gi] = total;
+  }
+}
+
+// The one-pass statistics from the two sums over a sample of s pixels.
+__device__ __forceinline__ void mean_var(float sum, float sum_sq, int s,
+                                         float* mean, float* var) {
+  *mean = sum / static_cast<float>(s);
+  const float d = sum_sq / static_cast<float>(s) - *mean * *mean;
+  *var = d < 0.f ? 0.f : d;  // clamp; NaN passes like jnp.maximum
+}
+
+// Between the phases: mean and var of channel ch over the whole sample, from
+// the partials of the chunks in order, within a chunk the element columns
+// that carry the channel in order. Grid (ceil(c / 128), N): one thread a
+// channel.
+__global__ void __launch_bounds__(kMeansThreads)
+    in_prelu_fwd_stats_kernel(const float* __restrict__ parts,
+                              float* __restrict__ mean,
+                              float* __restrict__ var, BwdGeometry geo) {
+  const int ch = blockIdx.x * kMeansThreads + threadIdx.x;
+  if (ch >= geo.c) return;
+  const float* src =
+      parts + static_cast<size_t>(blockIdx.y) * geo.chunks * 2 * geo.lcm;
+  float total[2] = {0.f, 0.f};
+#pragma unroll 4
+  for (int chunk = 0; chunk < geo.chunks; ++chunk) {
+    const float* p = src + static_cast<size_t>(chunk) * 2 * geo.lcm;
+    for (int e = ch; e < geo.lcm; e += geo.c) {
+      total[0] += p[e];
+      total[1] += p[geo.lcm + e];
+    }
+  }
+  const size_t at = static_cast<size_t>(blockIdx.y) * geo.c + ch;
+  mean_var(total[0], total[1], geo.s, mean + at, var + at);
+}
+
+// Phase 2: y over the block's chunk. Same grid as phase 1.
+template <typename T, int V>
+__global__ void __launch_bounds__(kBwdThreads)
+    in_prelu_fwd_normalize_kernel(const T* __restrict__ x,
+                                  const float* __restrict__ mean,
+                                  const float* __restrict__ var,
+                                  const float* __restrict__ alpha,
+                                  T* __restrict__ y, BwdGeometry geo) {
+  const BwdThread<V> th(geo, mean, var);
+  if (!th.active) return;
+  const float a = alpha[0];
+#pragma unroll 4
+  for (int r = th.r0 + th.row; r < th.r1; r += geo.rr) {
+    const size_t off =
+        th.base + (static_cast<size_t>(r) * geo.q + th.gcol) * V;
+    float xv[V], out[V];
+    load_vec<T, V>(x + off, xv);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      out[v] = ctseg::prelu((xv[v] - th.mean[v]) * th.inv[v], a);
+    }
+    store_vec<T, V>(y + off, out);
   }
 }
 
@@ -588,17 +680,262 @@ cudaError_t launch_bwd_cluster_sized(const void* x, const void* g,
   }
 }
 
-template <typename T>
-cudaError_t launch_fwd(const void* x, void* y, const void* alpha,
-                       void* mean_out, void* var_out, int n, int s, int c,
-                       cudaStream_t stream) {
-  const dim3 grid((c + kTileC - 1) / kTileC, n);
-  const dim3 block(kTileC, kRows);
-  in_prelu_fwd_kernel<T><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y),
+// ---- K1f, read-once form ----
+
+constexpr int kFwdClusterThreads = 256;
+
+// A cluster takes a column tile of `wcc` vectors of the super-row (all q of
+// them unless c is whole vectors) over all super-rows of one sample; its CTA
+// of rank r takes super-rows [r * rows_per_cta, (r + 1) * rows_per_cta).
+// Mirrors ops/instance_norm.py::fwd_cluster_plan.
+struct FwdClusterGeometry {
+  int s, c, q, wcc, rr, rows_per_cta, rows_total;
+};
+
+// Dynamic shared memory of a CTA: its rows of x, the block's reduction
+// buffer [2][rr][wcc * V], its own two sums per element column [2][wcc * V]
+// (read by the whole cluster), mean and rsqrt(var + eps) [2][wcc * V].
+template <typename T, int V>
+size_t fwd_cluster_smem_bytes(const FwdClusterGeometry& geo) {
+  const size_t width = static_cast<size_t>(geo.wcc) * V;
+  return geo.rows_per_cta * width * sizeof(T) +
+         (2 * static_cast<size_t>(kFwdClusterThreads) * V + 4 * width) *
+             sizeof(float);
+}
+
+// Grid (kClusterSize * column tiles, 1, N), clusters of kClusterSize along x
+// (set at launch).
+template <typename T, int V, int kClusterSize>
+__global__ void __launch_bounds__(kFwdClusterThreads)
+    in_prelu_fwd_cluster_kernel(const T* __restrict__ x, T* __restrict__ y,
+                                const float* __restrict__ alpha,
+                                float* __restrict__ mean_out,
+                                float* __restrict__ var_out,
+                                FwdClusterGeometry geo) {
+  extern __shared__ __align__(16) unsigned char cluster_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ctile = blockIdx.x / kClusterSize;
+  const int img = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int width = geo.wcc * V;  // element columns of the tile
+  T* xs = reinterpret_cast<T*>(cluster_smem);  // [rows_per_cta][width]
+  float* red = reinterpret_cast<float*>(
+      xs + static_cast<size_t>(geo.rows_per_cta) * width);
+  float* own = red + 2 * kFwdClusterThreads * V;  // [2][width]
+  float* stat = own + 2 * width;                  // [2][width]
+
+  const int r0 = rank * geo.rows_per_cta;
+  const int nrows = max(0, min(geo.rows_per_cta, geo.rows_total - r0));
+  const size_t base = static_cast<size_t>(img) * geo.s * geo.c;
+  for (int idx = tid; idx < nrows * geo.wcc; idx += kFwdClusterThreads) {
+    const int row = idx / geo.wcc;
+    const int col = idx - row * geo.wcc;
+    ctseg::cp_async16(xs + static_cast<size_t>(idx) * V,
+                      x + base + (static_cast<size_t>(r0 + row) * geo.q +
+                                  ctile * geo.wcc + col) * V,
+                      true);
+  }
+  ctseg::cp_async_commit();
+  ctseg::cp_async_wait<0>();
+  __syncthreads();
+
+  const int col = tid % geo.wcc;
+  const int row = tid / geo.wcc;
+  const bool active = row < geo.rr;  // rr * wcc <= the block's threads
+  float sums[2][V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) sums[0][v] = sums[1][v] = 0.f;
+  if (active) {
+    for (int r = row; r < nrows; r += geo.rr) {
+      float xv[V];
+      load_vec<T, V>(xs + (static_cast<size_t>(r) * geo.wcc + col) * V, xv);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        sums[0][v] += xv[v];
+        sums[1][v] += xv[v] * xv[v];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        red[(k * geo.rr + row) * width + col * V + v] = sums[k][v];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < 2 * width; idx += kFwdClusterThreads) {
+    const int k = idx / width;
+    const int i = idx - k * width;
+    float total = 0.f;
+    for (int r = 0; r < geo.rr; ++r) total += red[(k * geo.rr + r) * width + i];
+    own[idx] = total;
+  }
+  cluster.sync();  // every CTA's sums are in its shared memory
+  for (int i = tid; i < width; i += kFwdClusterThreads) {
+    // The element columns of the tile that carry column i's channel, in
+    // order (one where c is whole vectors), each over the ranks in order.
+    float total[2] = {0.f, 0.f};
+    for (int e = i % geo.c; e < width; e += geo.c) {
+#pragma unroll
+      for (int r = 0; r < kClusterSize; ++r) {
+        const float* theirs = cluster.map_shared_rank(own, r);
+        total[0] += theirs[e];
+        total[1] += theirs[width + e];
+      }
+    }
+    float mean, var;
+    mean_var(total[0], total[1], geo.s, &mean, &var);
+    stat[i] = mean;
+    stat[width + i] = rsqrtf(var + ctseg::kEps);
+    if (mean_out != nullptr && rank == 0 && i < geo.c) {
+      const size_t at = static_cast<size_t>(img) * geo.c +
+                        (static_cast<size_t>(ctile) * width + i) % geo.c;
+      mean_out[at] = mean;
+      var_out[at] = var;
+    }
+  }
+  cluster.sync();  // no CTA is read any more; the statistics are complete
+
+  if (!active) return;
+  const float a = alpha[0];
+  float m[V], inv[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    m[v] = stat[col * V + v];
+    inv[v] = stat[width + col * V + v];
+  }
+  for (int r = row; r < nrows; r += geo.rr) {
+    float xv[V], out[V];
+    load_vec<T, V>(xs + (static_cast<size_t>(r) * geo.wcc + col) * V, xv);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      out[v] = ctseg::prelu((xv[v] - m[v]) * inv[v], a);
+    }
+    store_vec<T, V>(y + base + (static_cast<size_t>(r0 + r) * geo.q +
+                                ctile * geo.wcc + col) * V,
+                    out);
+  }
+}
+
+template <typename T, int kClusterSize>
+cudaError_t launch_fwd_cluster(const void* x, void* y, const void* alpha,
+                               void* mean_out, void* var_out, int n, int s,
+                               int c, int wcc, cudaStream_t stream) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  const uintptr_t bits =
+      reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y);
+  const int g = gcd_int(c, kVec);
+  FwdClusterGeometry geo;
+  geo.s = s;
+  geo.c = c;
+  geo.q = c / g;
+  geo.wcc = wcc;
+  if (bits % 16 != 0 || (static_cast<long long>(s) * c) % kVec != 0 ||
+      wcc < 1 || wcc > kFwdClusterThreads || geo.q % wcc != 0 ||
+      (c % kVec != 0 && wcc != geo.q)) {
+    return cudaErrorInvalidValue;
+  }
+  geo.rr = kFwdClusterThreads / wcc;
+  geo.rows_total = s / (kVec / g);
+  geo.rows_per_cta = (geo.rows_total + kClusterSize - 1) / kClusterSize;
+  const size_t bytes = fwd_cluster_smem_bytes<T, kVec>(geo);
+  if (bytes > 227 * 1024) return cudaErrorInvalidValue;
+  auto* kernel = in_prelu_fwd_cluster_kernel<T, kVec, kClusterSize>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  if (kClusterSize > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kClusterSize;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(kClusterSize * (geo.q / wcc), 1, n);
+  config.blockDim = dim3(kFwdClusterThreads);
+  config.dynamicSmemBytes = bytes;
+  config.stream = stream;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(
+      &config, kernel, static_cast<const T*>(x), static_cast<T*>(y),
       static_cast<const float*>(alpha), static_cast<float*>(mean_out),
-      static_cast<float*>(var_out), s, c);
+      static_cast<float*>(var_out), geo);
+}
+
+template <typename T>
+cudaError_t launch_fwd_cluster_sized(const void* x, void* y, const void* alpha,
+                                     void* mean_out, void* var_out, int n,
+                                     int s, int c, int wcc, int cluster_size,
+                                     cudaStream_t stream) {
+  switch (cluster_size) {
+    case 1:
+      return launch_fwd_cluster<T, 1>(x, y, alpha, mean_out, var_out, n, s, c,
+                                      wcc, stream);
+    case 2:
+      return launch_fwd_cluster<T, 2>(x, y, alpha, mean_out, var_out, n, s, c,
+                                      wcc, stream);
+    case 8:
+      return launch_fwd_cluster<T, 8>(x, y, alpha, mean_out, var_out, n, s, c,
+                                      wcc, stream);
+    case 16:
+      return launch_fwd_cluster<T, 16>(x, y, alpha, mean_out, var_out, n, s,
+                                       c, wcc, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int V>
+cudaError_t launch_fwd_v(const void* x, void* y, const void* alpha,
+                         void* parts, void* mean, void* var, int n, int s,
+                         int c, int chunks, int rows_per_chunk,
+                         cudaStream_t stream) {
+  BwdGeometry geo;
+  if (!make_geometry(s, c, V, chunks, rows_per_chunk, &geo)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid(geo.coltiles, geo.chunks, n);
+  in_prelu_fwd_partials_kernel<T, V><<<grid, kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<float*>(parts), geo);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 stats_grid((c + kMeansThreads - 1) / kMeansThreads, n);
+  in_prelu_fwd_stats_kernel<<<stats_grid, kMeansThreads, 0, stream>>>(
+      static_cast<const float*>(parts), static_cast<float*>(mean),
+      static_cast<float*>(var), geo);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  in_prelu_fwd_normalize_kernel<T, V><<<grid, kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(mean),
+      static_cast<const float*>(var), static_cast<const float*>(alpha),
+      static_cast<T*>(y), geo);
   return cudaGetLastError();
+}
+
+// `vec` is the elements a lane takes: 16 / sizeof(T), or 1.
+template <typename T>
+cudaError_t launch_fwd(const void* x, void* y, const void* alpha, void* parts,
+                       void* mean, void* var, int n, int s, int c, int vec,
+                       int chunks, int rows_per_chunk, cudaStream_t stream) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  if (vec == 1) {
+    return launch_fwd_v<T, 1>(x, y, alpha, parts, mean, var, n, s, c, chunks,
+                              rows_per_chunk, stream);
+  }
+  const uintptr_t bits =
+      reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y);
+  if (vec != kVec || bits % 16 != 0 ||
+      (static_cast<long long>(s) * c) % kVec != 0) {
+    return cudaErrorInvalidValue;
+  }
+  return launch_fwd_v<T, kVec>(x, y, alpha, parts, mean, var, n, s, c, chunks,
+                               rows_per_chunk, stream);
 }
 
 template <typename T, int V>
@@ -654,13 +991,43 @@ cudaError_t launch_bwd(const void* x, const void* g, const void* mean,
 
 }  // namespace
 
-// Forward. x, y: (n, s, c) contiguous, of the type `dtype` names; alpha: one
-// float32 on the device. mean_out, var_out: (n, c) float32 for the training
-// forward, or both null (serving: no extra writes). Launches on `stream`,
-// allocates nothing, returns the launch's cudaError_t.
+// Forward (K1f), two-phase form. x, y: (n, s, c) contiguous, of the type
+// `dtype` names; alpha: one float32 on the device. `vec`, `chunks`,
+// `rows_per_chunk`: the plan of ops/instance_norm.py::fwd_plan (vec 4 or 8
+// needs 16-byte aligned x and y and s * c a multiple of vec). parts: (n,
+// chunks, 2, lcm(c, vec)) float32 workspace; mean, var: (n, c) float32,
+// written (the training forward's outputs, a workspace otherwise). Three
+// launches on `stream`; allocates nothing, returns the last cudaError_t.
 extern "C" int ctseg_in_prelu_fwd(const void* x, void* y, const void* alpha,
-                                  void* mean_out, void* var_out, int n, int s,
-                                  int c, int dtype, int device, void* stream) {
+                                  void* parts, void* mean, void* var, int n,
+                                  int s, int c, int vec, int chunks,
+                                  int rows_per_chunk, int dtype, int device,
+                                  void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case ctseg::kFloat32:
+      return launch_fwd<float>(x, y, alpha, parts, mean, var, n, s, c, vec,
+                               chunks, rows_per_chunk, st);
+    case ctseg::kBFloat16:
+      return launch_fwd<__nv_bfloat16>(x, y, alpha, parts, mean, var, n, s, c,
+                                       vec, chunks, rows_per_chunk, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Forward (K1f), read-once form, where ops/instance_norm.py::
+// fwd_cluster_plan gives a cluster size (8 or 16) and a tile width `wcc` (in
+// 16-byte vectors of the super-row). mean_out, var_out: (n, c) float32 for
+// the training forward, or both null (serving: no extra writes). One launch
+// on `stream`.
+extern "C" int ctseg_in_prelu_fwd_cluster(const void* x, void* y,
+                                          const void* alpha, void* mean_out,
+                                          void* var_out, int n, int s, int c,
+                                          int wcc, int cluster_size, int dtype,
+                                          int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if ((mean_out == nullptr) != (var_out == nullptr)) {
@@ -669,10 +1036,11 @@ extern "C" int ctseg_in_prelu_fwd(const void* x, void* y, const void* alpha,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case ctseg::kFloat32:
-      return launch_fwd<float>(x, y, alpha, mean_out, var_out, n, s, c, st);
+      return launch_fwd_cluster_sized<float>(x, y, alpha, mean_out, var_out, n,
+                                             s, c, wcc, cluster_size, st);
     case ctseg::kBFloat16:
-      return launch_fwd<__nv_bfloat16>(x, y, alpha, mean_out, var_out, n, s,
-                                       c, st);
+      return launch_fwd_cluster_sized<__nv_bfloat16>(
+          x, y, alpha, mean_out, var_out, n, s, c, wcc, cluster_size, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -33,11 +33,16 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # name -> argtypes; every pointer and the stream as c_void_p so none is cut
 # to 32 bits.
 SIGNATURES = {
-    # x, y, alpha, mean_out, var_out, n, s, c, dtype, device, stream
-    "ctseg_in_prelu_fwd": [_P] * 5 + [_I] * 5 + [_P],
+    # x, y, alpha, parts, mean, var, n, s, c, vec, chunks, rows_per_chunk,
+    # dtype, device, stream
+    "ctseg_in_prelu_fwd": [_P] * 6 + [_I] * 8 + [_P],
+    # x, y, alpha, mean_out, var_out, n, s, c, wcc, cluster_size, dtype,
+    # device, stream
+    "ctseg_in_prelu_fwd_cluster": [_P] * 5 + [_I] * 7 + [_P],
     # x, g, mean, var, alpha, dx, parts, means, n, s, c, vec, chunks,
     # rows_per_chunk, dtype, device, stream
     "ctseg_in_prelu_bwd": [_P] * 8 + [_I] * 8 + [_P],
@@ -56,6 +61,11 @@ SIGNATURES = {
     "ctseg_window_normalize": [_P] * 7 + [_I] * 5 + [_P],
     # x, scale, out, b, k, l, device, stream
     "ctseg_min_plus": [_P] * 3 + [_I] * 4 + [_P],
+    # src, scale, out, has_site, samples, rows_per_map, w, classes, labels,
+    # ltype, device, stream
+    "ctseg_edt_row_scan": [_P] * 4 + [_L] + [_I] * 6 + [_P],
+    # d2, labels, has_site, out, maps, elems, classes, ltype, device, stream
+    "ctseg_edt_signed_map": [_P] * 4 + [_L] + [_I] * 4 + [_P],
 }
 
 

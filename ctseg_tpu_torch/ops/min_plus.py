@@ -15,8 +15,13 @@ the last of an N-D map is a reshape to (prod(before), K, prod(after)).
 
 Both round each pair's value three times (the product scale * (i - k), its
 square, the sum with x) and reduce with `min`, so they are equal bit for
-bit, and equal to the JAX kernel and its jnp form. Not differentiable: the
-transform's inputs are label masks, and the maps it makes are data.
+bit, and equal to the JAX kernel and its jnp form. The kernel leaves out
+pairs that cannot lower the minimum (rows at BIG, rows beyond the distance
+at which the cost alone reaches the accumulator, output rows that are 0);
+`min_plus_pruned_model` is a plain PyTorch model of that search, which tests
+hold bit-equal to the all-pairs form; nothing on a main path calls it. Not
+differentiable: the transform's inputs are label masks, and the maps it
+makes are data.
 """
 
 import torch
@@ -24,7 +29,9 @@ import torch
 from ctseg_tpu_torch.ops import _build
 
 BIG = 1e12  # float32(1e12) = 999999995904: no row, or no site in the map
-MAX_K = 1760  # rows of one (K, 32) tile that fit a block's shared memory
+MAX_K = 1752  # rows of one (K, 32) tile, with its cost table, in a block's shared memory
+TILE = 32  # columns a block of the kernel takes
+ROWS = 8  # output rows a warp holds, and rows of x it meets a step
 # Elements of the plain version's (b, i, K, L) intermediate per chunk.
 _PLAIN_CHUNK = 1 << 26
 
@@ -51,6 +58,67 @@ def min_plus_plain(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.clamp_max(out, BIG)
 
 
+def min_plus_pruned_model(x: torch.Tensor, scale: torch.Tensor):
+    """The kernel's pruned search in plain PyTorch, tile by tile and group
+    by group as csrc/min_plus.cu walks them: (out, pairs evaluated). Per
+    (map, TILE columns): the rows [first, last] that hold a value below BIG
+    and the smallest value xmin; per group of ROWS output rows: 0 where the
+    rows are 0 in every column and xmin >= 0, else blocks of ROWS rows
+    outward from the group, until fl(cost[d] + xmin), d the nearest distance
+    of the next step, is no less than the group's largest accumulator."""
+    b, k, l = x.shape
+    kp = -(-k // ROWS) * ROWS
+    big = torch.tensor(BIG, dtype=x.dtype)
+    xp = torch.full((b, kp, l), BIG, dtype=x.dtype)
+    xp[:, :k] = x
+    out = torch.empty((b, kp, l), dtype=x.dtype)
+    pairs = 0
+    idx = torch.arange(kp + ROWS, dtype=x.dtype)
+    rows = torch.arange(ROWS)
+
+    def meet(acc, cost, tile, i0, kb):
+        d = (i0 + rows[:, None] - kb - rows[None, :]).abs()  # (r, j)
+        v = cost[d][:, :, None] + tile[kb:kb + ROWS][None, :, :]
+        return torch.minimum(acc, v.amin(dim=1)), ROWS * ROWS * tile.shape[1]
+
+    for m in range(b):
+        sd = scale[m].to(x.dtype) * idx
+        cost = sd * sd
+        for l0 in range(0, l, TILE):
+            tile = xp[m, :, l0:l0 + TILE]
+            below = (tile < big).any(dim=1).nonzero()
+            if below.numel() == 0:
+                out[m, :, l0:l0 + TILE] = big
+                continue
+            fb, lb = int(below[0]) // ROWS, int(below[-1]) // ROWS
+            xmin = tile[tile < big].min()
+            for i0 in range(0, kp, ROWS):
+                ib = i0 // ROWS
+                acc = torch.full((ROWS, tile.shape[1]), BIG, dtype=x.dtype)
+                if xmin >= 0 and bool((tile[i0:i0 + ROWS] == 0).all()):
+                    out[m, i0:i0 + ROWS, l0:l0 + TILE] = 0
+                    continue
+                t = max(0, fb - ib, ib - lb)
+                if t == 0:
+                    acc, n = meet(acc, cost, tile, i0, i0)
+                    pairs += n
+                    t = 1
+                while True:
+                    down, up = ib - t, ib + t
+                    if down < fb and up > lb:
+                        break
+                    dmin = ROWS * t - (ROWS - 1)
+                    if cost[dmin] + xmin >= acc.max():
+                        break
+                    for blk in (down, up):
+                        if fb <= blk <= lb:
+                            acc, n = meet(acc, cost, tile, i0, blk * ROWS)
+                            pairs += n
+                    t += 1
+                out[m, i0:i0 + ROWS, l0:l0 + TILE] = acc
+    return out[:, :k].contiguous(), pairs
+
+
 def min_plus(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """(B, K, L) float32 maps, (B,) float32 scales -> (B, K, L)."""
     if x.ndim != 3:
@@ -72,11 +140,11 @@ def min_plus(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
                 f"kernel wants contiguous float32 {name}, got {t.dtype} with "
                 f"strides {tuple(t.stride())}"
             )
-    tiles = -(-l // 32)
+    tiles = -(-l // TILE)
     if k > MAX_K or b * tiles >= 2**31:
         raise ValueError(
             f"kernel does not take {b} maps of ({k}, {l}): at most {MAX_K} "
-            f"rows and 2**31 - 1 (map, 32-column tile) blocks"
+            f"rows and 2**31 - 1 (map, {TILE}-column tile) blocks"
         )
 
     lib = _build.library()
