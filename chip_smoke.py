@@ -35,7 +35,11 @@ Phases (any failure raises and the script exits non-zero):
      their plain versions at the train step's unit shapes (phase 3's at
      batch 128), float32 and bfloat16.
   8. K4, window_normalize_degree2, against its plain version on 128 raw
-     280x280 HU slices with draws covering all 8 (k, flip) pairs: bit-equal.
+     280x280 HU slices with draws covering all 8 (k, flip) pairs, to 256,
+     200 and 201 (ragged tiles), with identity draws, and at every float32
+     value of the windows' span (its quotients come from reciprocals):
+     bit-equal; NaN where a draw leaves the slice; its time with every draw
+     at k in {0, 2} and at k in {1, 3}.
   9. Train, float32: full-width Model L (2 residual units, degree 2,
      Focal+Dice with exclude_missing, batch 128) on a synthetic
      PackedDataset2D of 2x128 slices of 280x280 (as bench.py makes it):
@@ -64,7 +68,9 @@ Phases (any failure raises and the script exits non-zero):
      torch.equal required: signed_distance_maps_from_labels on 128 label
      maps (uint8, int32, int64; a missing class, an empty slice), 3D signed
      maps, edt_squared with one spacing per slice at the evaluation's shape
-     and in 3D; each of the two kernels against its plain version.
+     and in 3D; each of the two kernels against its plain version, the
+     scan also at widths of 37, 255, 264, 1000 and 24576 (element by element,
+     and the segment loop), on an unaligned map and for every label type.
  14. Train Model M, float32: full width (PRESETS["model_m"]: 1 residual
      unit, degree 2, weighted mixup, Boundary+Dice+Focal with
      exclude_missing, batch 128) on phase 9's synthetic split: Trainer.fit
@@ -236,8 +242,8 @@ def site_bounds():
             bf16 = conv_ops + norm_ops * (PEAK_BF16 / PEAK_FLOPS)
             out["k2_bf16"] = bound_ms(bf16, 2 * elems, PEAK_BF16)
     pixels = TRAIN_BATCH * 256 * 256
-    out["k4"] = bound_ms(15 * pixels,
-                         4 * (TRAIN_BATCH * RAW * RAW + 3 * pixels))
+    # K4: the 256x256 crop read once and the output written once.
+    out["k4"] = bound_ms(15 * pixels, 4 * (pixels + 3 * pixels))
     return out
 
 
@@ -782,37 +788,112 @@ def phase_k4(label, gen):
     n, size = TRAIN_BATCH, 256
     images = torch.randn((n, RAW, RAW), generator=gen, device=DEVICE) * 600 + 100
     i = torch.arange(n, device=DEVICE, dtype=torch.int32)
-    draws = Degree2Draws(
-        top=torch.randint(0, RAW - size + 1, (n,), generator=gen,
-                          device=DEVICE, dtype=torch.int32),
-        left=torch.randint(0, RAW - size + 1, (n,), generator=gen,
-                           device=DEVICE, dtype=torch.int32),
-        k=i % 4, flip=(i // 4) % 2,  # all 8 (k, flip) pairs
-    )
-    out = k4.window_normalize_degree2(images, draws, size)
-    plain = k4.window_normalize_degree2_plain(images, draws, size)
+
+    def draws(k, size):
+        return Degree2Draws(
+            top=torch.randint(0, RAW - size + 1, (n,), generator=gen,
+                              device=DEVICE, dtype=torch.int32),
+            left=torch.randint(0, RAW - size + 1, (n,), generator=gen,
+                               device=DEVICE, dtype=torch.int32),
+            k=k.to(torch.int32), flip=(i // 4) % 2)
+
+    def same(what, kernel, plain):
+        diff = (kernel - plain).abs()
+        if not torch.equal(kernel, plain):
+            raise AssertionError(
+                f"K4 {what} differs from its plain version at "
+                f"{int((diff > 0).sum())} values, by up to {float(diff.max())!r}")
+        return float(diff.max())
+
+    every = draws(i % 4, size)  # all 8 (k, flip) pairs
+    out = k4.window_normalize_degree2(images, every, size)
+    plain = k4.window_normalize_degree2_plain(images, every, size)
     if out.shape != (n, size, size, 3) or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"K4 output {tuple(out.shape)} not finite")
-    diff = (out - plain).abs()
-    err = float(diff.max())
-    if not torch.equal(out, plain):
-        raise AssertionError(
-            f"K4 differs from its plain version at {int((diff > 0).sum())} "
-            f"values, by up to {float(diff.max())!r}"
-        )
+    err = same("over all 8 (k, flip) pairs", out, plain)
+    # Ragged tiles: S no multiple of the tile (whole float4 rows), and S no
+    # multiple of 4 (float by float).
+    for s in (200, 201):
+        d = draws(i % 4, s)
+        err = max(err, same(f"to {s}", k4.window_normalize_degree2(images, d, s),
+                            k4.window_normalize_degree2_plain(images, d, s)))
     # Identity draws: fused_window_normalize's function, exactly.
     sub = images[:, :size, :size].contiguous()
     ident = k4.identity_draws(n, DEVICE)
-    if not torch.equal(k4.window_normalize_degree2(sub, ident, size),
-                       k4.window_normalize_degree2_plain(sub, ident, size)):
-        raise AssertionError("K4 with identity draws differs")
-    t_k = time_ms(lambda: k4.window_normalize_degree2(images, draws, size), 20)
-    t_p = time_ms(lambda: k4.window_normalize_degree2_plain(images, draws,
+    same("with identity draws", k4.window_normalize_degree2(sub, ident, size),
+         k4.window_normalize_degree2_plain(sub, ident, size))
+    # A draw outside the slice (5 rows below it, 3 columns left of it): NaN
+    # exactly where the plain version reads a slice padded with NaN.
+    outside = Degree2Draws(torch.full_like(i, RAW - size + 5),
+                           torch.full_like(i, -3), i % 4, (i // 4) % 2)
+    padded = torch.full((n, RAW + 5, RAW + 3), float("nan"), device=DEVICE)
+    padded[:, :RAW, 3:] = images
+    got = k4.window_normalize_degree2(images, outside, size)
+    want = k4.window_normalize_degree2_plain(
+        padded, outside._replace(left=outside.left + 3), size)
+    nan = torch.isnan(want)
+    if not (torch.equal(torch.isnan(got), nan) and bool(nan.any())
+            and torch.equal(got[~nan], want[~nan])):
+        raise AssertionError("K4: a draw outside the slice must give NaN "
+                             "exactly at the pixels it reaches out to")
+    checked = _k4_every_value(k4)
+    even = draws(2 * (i % 2), size)  # k in {0, 2}
+    odd = draws(1 + 2 * (i % 2), size)  # k in {1, 3}
+    t_k = time_ms(lambda: k4.window_normalize_degree2(images, every, size), 20)
+    t_02 = time_ms(lambda: k4.window_normalize_degree2(images, even, size), 20)
+    t_13 = time_ms(lambda: k4.window_normalize_degree2(images, odd, size), 20)
+    t_p = time_ms(lambda: k4.window_normalize_degree2_plain(images, every,
                                                             size), 20)
-    print(f"[{label}] K4 ({n}, {RAW}, {RAW}) -> ({n}, {size}, {size}, 3): "
-          f"bit-equal to its plain version over all 8 (k, flip) pairs "
-          f"(max |diff| {err!r}); kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
-    return err, t_k, t_p
+    bound = site_bounds()["k4"][0]
+    print(f"[{label}] K4 ({n}, {RAW}, {RAW}) -> ({n}, {size}, {size}, 3), "
+          f"tiles of {k4.TILE}: bit-equal to its plain version over all 8 "
+          f"(k, flip) pairs, to 200 and 201, with identity draws (max |diff| "
+          f"{err!r}), and at all {checked} float32 values of the windows' "
+          f"span; NaN where a draw leaves the slice; kernel {t_k:.4f} ms "
+          f"(k in {{0, 2}} {t_02:.4f}, k in {{1, 3}} {t_13:.4f}), plain "
+          f"{t_p:.4f} ms, bound {bound:.4f} ms by the crop's bytes "
+          f"({bound / t_k:.2f} of the kernel's time)")
+    return err, t_k, t_p, t_02, t_13
+
+
+def _k4_every_value(k4) -> int:
+    """K4 against its plain version at every float32 value from the lowest
+    window's bottom to the highest one's top (outside it every window
+    clamps), and at the infinities, a NaN and 0: its quotients are correctly
+    rounded for every input, not only for the phase's. Returns the count."""
+    import torch
+
+    params = k4._params(torch.device(DEVICE))
+    lo, hi = float(params[:, 0].min()), float(params[:, 1].max())
+    bits = lambda v: int(np.array(v, np.float32).view(np.int32))  # noqa: E731
+    # Bit patterns grow with the magnitude: [+0, hi] and [-0, lo].
+    spans = [(0, bits(hi)), (bits(-0.0), bits(lo))]
+    size, per = 256, 2048  # slices of 256x256, 2^27 values a launch
+    checked = 0
+    for first, last in spans:
+        for start in range(first, last + 1, per * size * size):
+            stop = min(start + per * size * size, last + 1)
+            v = torch.arange(start, stop, dtype=torch.int64, device=DEVICE)
+            v = v.to(torch.int32).view(torch.float32)
+            pad = -len(v) % (size * size)
+            v = torch.cat([v, torch.tensor(
+                [float("inf"), float("-inf"), float("nan"), 0.0] * (pad // 4)
+                + [0.0] * (pad % 4), device=DEVICE)])
+            images = v.reshape(-1, size, size)
+            ident = k4.identity_draws(images.shape[0], DEVICE)
+            got = k4.window_normalize_degree2(images, ident, size)
+            want = k4.window_normalize_degree2_plain(images, ident, size)
+            same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+            if not bool(same.all()):
+                at = int(torch.nonzero(~same.all(-1).flatten())[0])
+                raise AssertionError(
+                    f"K4 differs from its plain version at input "
+                    f"{float(images.flatten()[at])!r}: "
+                    f"{got.reshape(-1, 3)[at].tolist()} vs "
+                    f"{want.reshape(-1, 3)[at].tolist()}")
+            checked += stop - start
+            del v, images, got, want, same
+    return checked
 
 
 def _synthetic_split(seed, n):
@@ -1382,6 +1463,46 @@ def phase_edt(label, gen):
     scale = spacing.expand(2, EVAL_BATCH, 9, 2).reshape(-1, 2)[:, 1].contiguous()
     err = max(err, same("row_scan", edt.row_scan(masks, scale),
                         edt.row_scan_plain(masks, scale)))
+    # Rows the main path does not give: widths no multiple of 8 (element by
+    # element), one segment and a few elements more, long rows (the segment
+    # loop, up to MAX_W), an unaligned map; both modes, every label type; a
+    # class missing, an empty map, a class filling rows, sparse sites and
+    # sites only at the rows' ends (the carries between segments).
+    shapes = ((16, 37), (16, 255), (12, 264), (4, 1000), (2, edt.MAX_W))
+    for r, w in shapes + ((16, SIZE),):
+        lab = torch.randint(0, 10, (6, r, w), generator=gen, device=DEVICE,
+                            dtype=torch.uint8)
+        lab[1][lab[1] == 3] = 0
+        lab[2] = 0
+        lab[3, :2] = 5
+        lab[4] = torch.where(torch.rand((r, w), generator=gen, device=DEVICE)
+                             < 0.002, 7, 0)
+        lab[5] = 0
+        lab[5, :, 0], lab[5, :, -1] = 8, 2
+        mask = lab != 0
+        if w == SIZE:  # unaligned: one byte into an allocation
+            lab = torch.empty(lab.numel() + 1, dtype=torch.uint8,
+                              device=DEVICE)[1:].view(lab.shape).copy_(lab)
+            mask = torch.empty(mask.numel() + 1, dtype=torch.bool,
+                               device=DEVICE)[1:].view(mask.shape).copy_(mask)
+        for t in (lab, lab.int(), lab.long(), lab == 5):
+            d, f = edt.label_scan(t, 10)
+            pd, pf = edt.label_scan_plain(t, 10)
+            err = max(err, same(f"label_scan {tuple(t.shape)} {t.dtype}", d,
+                                pd))
+            if not torch.equal(f.bool(), pf):
+                raise AssertionError(f"label_scan {tuple(t.shape)}: flags")
+        sc = torch.rand(6, generator=gen, device=DEVICE) * 2.7 + 0.3
+        for m_scale in (None, sc):
+            err = max(err, same(f"row_scan {tuple(mask.shape)}",
+                                edt.row_scan(mask, m_scale),
+                                edt.row_scan_plain(mask, m_scale)))
+    # Rows of 8192 (the segment loop), as a 3D map's would be: timed only.
+    long_rows = torch.randint(0, 10, (8, 32, 8192), generator=gen,
+                              device=DEVICE, dtype=torch.uint8)
+    t_long = time_ms(lambda: edt.label_scan(long_rows, 10), 10)
+    bound_long = bound_ms(0.0, long_rows.numel() * (1 + 4.0 * 18))[0]
+    del long_rows
     t_k = time_ms(lambda: edt.label_scan(labels, 10), 10)
     t_p = time_ms(lambda: edt.label_scan_plain(labels, 10), 3)
     t_ke = time_ms(lambda: edt.row_scan(masks, scale), 10)
@@ -1391,12 +1512,18 @@ def phase_edt(label, gen):
                      + 4.0 * d2.numel())
     bound_e = bound_ms(0.0, 5.0 * masks.numel())
     print(f"[{label}] EDT row scan: bit-equal to its plain version (max "
-          f"|diff| {err!r}); from "
+          f"|diff| {err!r}), also at widths {[w for _, w in shapes]}, "
+          f"unaligned and for every label type; from "
           f"{n} label maps to {tuple(d2.shape)}: kernel {t_k:.4f} ms, plain "
-          f"{t_p:.3f} ms, its bytes' bound {bound[0]:.4f} ms; of "
+          f"{t_p:.3f} ms, its bytes' bound {bound[0]:.4f} ms "
+          f"({bound[0] / t_k:.2f} of the kernel's time); of "
           f"{tuple(masks.shape)} masks with spacings: kernel {t_ke:.4f} ms, "
-          f"plain {t_pe:.3f} ms, bound {bound_e[0]:.4f} ms")
-    out["scan"] = (t_k, t_p, bound, t_ke, t_pe, bound_e[0], err)
+          f"plain {t_pe:.3f} ms, bound {bound_e[0]:.4f} ms "
+          f"({bound_e[0] / t_ke:.2f}); 8 label maps of 32 rows of 8192: "
+          f"kernel {t_long:.4f} ms, bound {bound_long:.4f} ms "
+          f"({bound_long / t_long:.2f})")
+    out["scan"] = (t_k, t_p, bound, t_ke, t_pe, bound_e[0], err, t_long,
+                   bound_long)
 
     d2 = edt._min_plus_passes(d2, 3, 2, None).reshape(2, n, 9, e)
     flat = labels.reshape(n, e)
@@ -1718,7 +1845,7 @@ def main() -> int:
     k2_err, k2_ms, k2_plain, k2_lib, k2_err64 = phase_k2(label, gen)
     k1b_err, k1b_ms, k1b_plain = phase_k1b(label, gen)
     k2b_err, k2b_ms, k2b_plain = phase_k2b(label, gen)
-    k4_err, k4_ms, k4_plain = phase_k4(label, gen)
+    k4_err, k4_ms, k4_plain, k4_02, k4_13 = phase_k4(label, gen)
     with tempfile.TemporaryDirectory() as tmp:
         service, ckpt, scan, serve_launches = phase_serve(label, Path(tmp))
         phase_forward(label, service, ckpt, scan)
@@ -1797,6 +1924,7 @@ def main() -> int:
         plain_max_abs_err_vs_float64=k2_err64["plain"],
         # Read after the last main path; each path asserted 0 of its own.
         launches_simt=_counters()["k2"].launches_simt)
+    kernels[4].update(ms_k_0_2=k4_02, ms_k_1_3=k4_13)
     # K4, K5 and the EDT kernels compute float32 only: no bfloat16
     # comparison exists to report, so that key is null for them.
     step, rand = k5_times["step maps"], k5_times["train"]
@@ -1822,7 +1950,9 @@ def main() -> int:
                  edt_times["scan"][0], edt_times["scan"][1])
     scan.update(launches=launches_m["scan"], launches_model_l=launches["scan"],
                 ms_eval=edt_times["scan"][3], plain_ms_eval=edt_times["scan"][4],
-                bound_ms_eval=edt_times["scan"][5])
+                bound_ms_eval=edt_times["scan"][5],
+                ms_long_rows=edt_times["scan"][7],
+                bound_ms_long_rows=edt_times["scan"][8])
     signed = entry("edt_signed_map", "signed", "edt.cu",
                    "ctseg_tpu/ops/edt.py:139 (jnp, no Pallas kernel)",
                    {"float32": edt_times["signed"][3], "bfloat16": None},
@@ -1853,7 +1983,10 @@ def main() -> int:
           "all_pairs_bound_ms: the operations of the all-pairs form; "
           "ms_random, ms_unprunable: K5 on random maps with holes at BIG and "
           "on maps where no pair can be pruned; *_eval: on one evaluation "
-          "batch's surfaces)")
+          "batch's surfaces; K4's ms_k_0_2 and ms_k_1_3: every draw at k "
+          "in {0, 2} and at k in {1, 3}, bound_ms: the crop read once and "
+          "the output written once; the scan's *_long_rows: 8 label maps of "
+          "32 rows of 8192)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

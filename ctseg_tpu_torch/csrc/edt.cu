@@ -12,17 +12,31 @@
 //       (exact integers), BIG where the row has no site;
 //   d2 = min(fl(fl(g * scale)^2), BIG)       (__fmul_rn twice; nothing to
 //                                             contract),
-// bit-equal to the plain form. One warp a source row: the row's sites become
-// one ballot word per 32 elements (kept in shared memory), a lane finds its
-// nearest site to either side with clz / ffs inside its word and from the
-// per-word carries outside it. Two sources:
+// bit-equal to the plain form. One warp a source row, taken a segment of
+// kSeg = 256 elements at a time: each lane holds kV = 8 consecutive elements
+// in registers (one 8-byte load of a uint8 row, 16-byte loads of int32 and
+// int64), and an output row's sites are a kV-bit word a lane, made by
+// compares: no ballot and no shared memory. Within a lane the last site at or
+// before an element and the next at or after it are running selects over the
+// word's bits; across lanes they come from two 5-step warp scans
+// (__shfl_up_sync of the running max of the lanes' last sites,
+// __shfl_down_sync of the running min of their first ones). Each lane writes
+// its 8 outputs as two 16-byte stores: a warp writes 1 KB of a row at once.
+// Two sources:
 //   - a mask (rows, W) of bytes: the sites are its zeros (edt_squared);
-//   - a label map (N, R, W) and C classes: source row (n, c, r) gives two
-//     output rows, of the class mask's complement (sites: label == c + 1) at
-//     map (0, n, c) and of the mask itself (sites: label != c + 1) at map
-//     (1, n, c): the (2, N, C, R, W) stack of booleans is never made. A row
-//     of the first kind that holds a site stores 1 into has_site[n * C + c]
-//     (a plain store of one value, no counted atomic): the mask is not empty.
+//   - a label map (N, R, W) and C classes: the warp reads source row (n, r)
+//     once and emits all 2C output rows from its registers: for class c, the
+//     class mask's complement (sites: label == c + 1) at map (0, n, c) and
+//     the mask itself (sites: label != c + 1) at map (1, n, c). The (2, N, C,
+//     R, W) stack of booleans is never made. A row of the first kind that
+//     holds a site stores 1 into has_site[n * C + c] (a plain store of one
+//     value, no counted atomic): the mask is not empty.
+// A row longer than one segment (up to kMaxW) is taken one output row at a
+// time: a right-to-left pass leaves each segment's next-site carry in shared
+// memory (one __reduce_min_sync a segment), then the left-to-right pass
+// emits with the last-site carry in a register. A width that is no multiple
+// of kV, or an unaligned tensor, loads and stores element by element (kVec
+// false); the arithmetic is the same.
 //
 // Signed map: out = (sqrt(d2_out) * neg - (sqrt(d2_in) - 1) * pos) / 255, zero
 // where the mask is empty, with IEEE sqrt and division and each product and
@@ -31,9 +45,8 @@
 // elementwise pass: 8 bytes read and 4 written an element, plus the labels.
 //
 // What bounds both on an H100: bytes (the scan writes 4 bytes an element and
-// reads 1 / (2 C) of a label; the signed map moves 12).
-#include <climits>
-
+// reads 1 / (2 C) of a label; the signed map moves 12). A fill of the scan's
+// output alone runs at 0.185 ms for the Model M step's 604 MB.
 #include "common.cuh"
 
 namespace {
@@ -41,98 +54,231 @@ namespace {
 constexpr float kBig = 1e12f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kScanWarps = 8;
-constexpr int kNone = INT_MAX;
+constexpr int kV = 8;             // elements a lane holds
+constexpr int kSeg = 32 * kV;     // elements a warp takes at once
+constexpr int kMaxW = 24576;      // ops/edt.py's MAX_W
+constexpr int kMaxSegs = kMaxW / kSeg;
+constexpr int kFar = 1 << 30;     // a site index beyond every row: none there
+constexpr int kNoSite = 1 << 29;  // a distance this long: the row has none
 
-// Sites of chunk `c` of a row of `w` elements: the stored word, or (`invert`)
-// its complement within the row.
-__device__ __forceinline__ unsigned sites_of(const unsigned* words, int c,
-                                             int w, bool invert) {
-  const unsigned wd = words[c];
-  if (!invert) return wd;
-  const int left = w - c * 32;
-  return ~wd & (left >= 32 ? kFull : (1u << left) - 1u);
-}
+// A lane's elements: int, or long long for int64 labels.
+template <typename L>
+struct Lane {
+  using T = int;
+};
+template <>
+struct Lane<long long> {
+  using T = long long;
+};
 
-// One output row from the row's ballot words. `nxt` is scratch of `chunks`
-// ints. Returns whether the row holds a site. Called by the whole warp.
-__device__ __forceinline__ bool emit_row(const unsigned* words, int* nxt,
-                                         int w, int chunks, bool invert,
-                                         float s, float* __restrict__ out) {
-  const int lane = threadIdx.x;
-  __syncwarp();
-  if (lane == 0) {  // the first site after each chunk
-    int carry = kNone;
-    for (int c = chunks - 1; c >= 0; --c) {
-      nxt[c] = carry;
-      const unsigned wd = sites_of(words, c, w, invert);
-      if (wd != 0u) carry = c * 32 + __ffs(wd) - 1;
+// The kV elements of `row` from j0 (lanes past the row's end load nothing).
+template <typename L, bool kVec>
+__device__ __forceinline__ void load_lane(const L* __restrict__ row, int j0,
+                                          int w,
+                                          typename Lane<L>::T (&v)[kV]) {
+#pragma unroll
+  for (int i = 0; i < kV; ++i) v[i] = 0;
+  if (!kVec) {
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      if (j0 + i < w) v[i] = row[j0 + i];
+    }
+    return;
+  }
+  if (j0 >= w) return;
+  if constexpr (sizeof(L) == 1) {
+    const uint2 u = *reinterpret_cast<const uint2*>(row + j0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[i] = (u.x >> (8 * i)) & 0xff;
+      v[4 + i] = (u.y >> (8 * i)) & 0xff;
+    }
+  } else if constexpr (sizeof(L) == 4) {
+    const int4* p = reinterpret_cast<const int4*>(row + j0);
+    const int4 a = p[0], b = p[1];
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  } else {
+    const longlong2* p = reinterpret_cast<const longlong2*>(row + j0);
+#pragma unroll
+    for (int q = 0; q < kV / 2; ++q) {
+      const longlong2 t = p[q];
+      v[2 * q] = t.x, v[2 * q + 1] = t.y;
     }
   }
-  __syncwarp();
-  int prev = -1;  // the last site before the chunk
-  for (int c = 0; c < chunks; ++c) {
-    const unsigned wd = sites_of(words, c, w, invert);
-    const int j = c * 32 + lane;
-    const unsigned at_or_before = wd & (kFull >> (31 - lane));
-    const unsigned at_or_after = wd & (kFull << lane);
-    const int last =
-        at_or_before != 0u ? c * 32 + 31 - __clz(at_or_before) : prev;
-    const int next =
-        at_or_after != 0u ? c * 32 + __ffs(at_or_after) - 1 : nxt[c];
-    int d = kNone;
-    if (last >= 0) d = j - last;
-    if (next != kNone) d = min(d, next - j);
-    const float g = d == kNone ? kBig : static_cast<float>(d);
-    const float gs = __fmul_rn(g, s);
-    if (j < w) out[j] = fminf(__fmul_rn(gs, gs), kBig);
-    if (wd != 0u) prev = c * 32 + 31 - __clz(wd);
-  }
-  return prev >= 0;
 }
 
-// Grid: ceil(rows / kScanWarps) blocks of (32, kScanWarps) threads; dynamic
-// shared memory 2 * chunks ints a warp.
-template <typename L, bool kLabels>
+// Bit i: element j0 + i lies in a row of w elements.
+__device__ __forceinline__ unsigned valid_bits(int j0, int w) {
+  const int left = w - j0;
+  return left <= 0 ? 0u : left >= kV ? (1u << kV) - 1u : (1u << left) - 1u;
+}
+
+// Bit i: v[i] == want.
+template <typename T>
+__device__ __forceinline__ unsigned match_bits(const T (&v)[kV], T want) {
+  unsigned bits = 0u;
+#pragma unroll
+  for (int i = 0; i < kV; ++i) bits |= static_cast<unsigned>(v[i] == want) << i;
+  return bits;
+}
+
+// d2 of an element d steps from its nearest site (kNoSite or more: the row
+// has none). g is d as a float without a conversion instruction (the
+// mantissa of 2^23 + d, less 2^23: exact, one full-rate add).
+__device__ __forceinline__ float distance2(int d, float s) {
+  const float g = d >= kNoSite ? kBig
+                               : __fsub_rn(__int_as_float(0x4b000000 | d),
+                                           8388608.f);
+  const float gs = __fmul_rn(g, s);
+  return fminf(__fmul_rn(gs, gs), kBig);
+}
+
+// One segment of one output row. Bit i of `s` says whether element j0 + i is
+// a site; last_in is the last site before the segment (-kFar: none), next_in
+// the first after it (kFar: none). Writes the lane's d2 into out (the output
+// row) and returns the last site up to the segment's end (-kFar: none).
+// Called by the whole warp.
+template <bool kVec>
+__device__ __forceinline__ int emit_segment(unsigned s, int j0, int w,
+                                            int last_in, int next_in,
+                                            float scale,
+                                            float* __restrict__ out) {
+  const int lane = threadIdx.x;
+  int last = s != 0u ? j0 + 31 - __clz(s) : -kFar;  // the lane's own
+  int first = s != 0u ? j0 + __ffs(s) - 1 : kFar;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {  // inclusive scans across the lanes
+    const int up = __shfl_up_sync(kFull, last, o);
+    const int down = __shfl_down_sync(kFull, first, o);
+    if (lane >= o) last = max(last, up);
+    if (lane < 32 - o) first = min(first, down);
+  }
+  const int seg_last = max(__shfl_sync(kFull, last, 31), last_in);
+  // The nearest sites in the lanes before and after this one.
+  int before = __shfl_up_sync(kFull, last, 1);
+  int after = __shfl_down_sync(kFull, first, 1);
+  before = lane == 0 ? last_in : max(before, last_in);
+  after = lane == 31 ? next_in : min(after, next_in);
+  int next[kV];
+#pragma unroll
+  for (int i = kV - 1; i >= 0; --i) {
+    if (s >> i & 1u) after = j0 + i;
+    next[i] = after;
+  }
+  float d2[kV];
+#pragma unroll
+  for (int i = 0; i < kV; ++i) {
+    const int j = j0 + i;
+    if (s >> i & 1u) before = j;
+    d2[i] = distance2(min(j - before, next[i] - j), scale);
+  }
+  if (kVec) {
+    if (j0 < w) {
+      float4* o = reinterpret_cast<float4*>(out + j0);
+      o[0] = make_float4(d2[0], d2[1], d2[2], d2[3]);
+      o[1] = make_float4(d2[4], d2[5], d2[6], d2[7]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      if (j0 + i < w) out[j0 + i] = d2[i];
+    }
+  }
+  return seg_last;
+}
+
+// One output row longer than a segment. sites(g) gives the lane's site bits
+// in segment g; carry is one int a segment of shared memory. Returns whether
+// the row holds a site. Called by the whole warp.
+template <bool kVec, typename Sites>
+__device__ __forceinline__ bool emit_long_row(Sites sites, int segs, int w,
+                                              float scale, float* out,
+                                              int* carry) {
+  const int lane = threadIdx.x;
+  int next = kFar;  // the first site after segment g
+  for (int g = segs - 1; g >= 0; --g) {
+    const unsigned s = sites(g);
+    if (lane == 0) carry[g] = next;
+    next = min(next, __reduce_min_sync(
+                         kFull, s != 0u ? g * kSeg + lane * kV + __ffs(s) - 1
+                                        : kFar));
+  }
+  __syncwarp();
+  int last = -kFar;
+  for (int g = 0; g < segs; ++g) {
+    last = emit_segment<kVec>(sites(g), g * kSeg + lane * kV, w, last,
+                              carry[g], scale, out);
+  }
+  __syncwarp();  // every lane has read the carries before they are rewritten
+  return last >= 0;
+}
+
+// Grid: ceil(rows / kScanWarps) blocks of (32, kScanWarps) threads, one warp
+// a source row: a mask row, or a label row (n, r) with all its classes.
+template <typename L, bool kLabels, bool kVec>
 __global__ void __launch_bounds__(32 * kScanWarps)
     row_scan_kernel(const L* __restrict__ src, const float* __restrict__ scale,
                     float* __restrict__ out, int* __restrict__ has_site,
-                    long long rows, int w, int chunks, int rows_per_map,
-                    int classes, long long samples) {
-  extern __shared__ int scan_smem[];
+                    long long rows, int w, int rows_per_map, int classes,
+                    long long samples) {
+  using T = typename Lane<L>::T;
+  __shared__ int carries[kScanWarps][kMaxSegs];
   const long long row =
       static_cast<long long>(blockIdx.x) * kScanWarps + threadIdx.y;
   if (row >= rows) return;  // warps are independent: no block barrier below
-  unsigned* words =
-      reinterpret_cast<unsigned*>(scan_smem) + threadIdx.y * 2 * chunks;
-  int* nxt = scan_smem + (threadIdx.y * 2 + 1) * chunks;
   const int lane = threadIdx.x;
-
-  long long src_row = row, map = row / rows_per_map;
-  int want = 0;
-  if (kLabels) {  // row = (n * classes + c) * rows_per_map + r
-    const long long n = map / classes;
-    want = static_cast<int>(map - n * classes) + 1;
-    src_row = n * rows_per_map + (row - map * rows_per_map);
+  const int j0 = lane * kV;
+  const int segs = (w + kSeg - 1) / kSeg;
+  int* carry = carries[threadIdx.y];
+  const long long map = row / rows_per_map;  // the mask, or the sample n
+  const L* in = src + row * w;
+  // The lane's site bits in segment g where the elements equal `want`, or
+  // (`other`) where they do not.
+  auto sites = [&](int g, T want, bool other) {
+    T v[kV];
+    load_lane<L, kVec>(in, g * kSeg + j0, w, v);
+    const unsigned bits = match_bits(v, want);
+    return (other ? ~bits : bits) & valid_bits(g * kSeg + j0, w);
+  };
+  if (!kLabels) {  // sites at the zeros
+    const float s = scale == nullptr ? 1.f : scale[map];
+    float* o = out + row * w;
+    const bool any =
+        segs == 1
+            ? emit_segment<kVec>(sites(0, T(0), false), j0, w, -kFar, kFar, s,
+                                 o) >= 0
+            : emit_long_row<kVec>(
+                  [&](int g) { return sites(g, T(0), false); }, segs, w, s, o,
+                  carry);
+    if (has_site != nullptr && any && lane == 0) has_site[map] = 1;
+    return;
   }
-  const L* in = src + src_row * w;
-#pragma unroll 8  // the chunks' loads go out together, then the ballots
-  for (int c = 0; c < chunks; ++c) {
-    const int j = c * 32 + lane;
-    bool site = false;
-    if (j < w) {
-      site = kLabels ? static_cast<long long>(in[j]) == want : in[j] == 0;
+  const long long r = row - map * rows_per_map;
+  const size_t plane =
+      static_cast<size_t>(samples) * classes * rows_per_map * w;
+  T v[kV];  // a row of one segment stays in registers for every class
+  if (segs == 1) load_lane<L, kVec>(in, j0, w, v);
+  const unsigned valid = valid_bits(j0, w);
+  for (int c = 0; c < classes; ++c) {
+    const long long m = map * classes + c;  // map (n, c)
+    float* o0 = out + (m * rows_per_map + r) * w;
+    float* o1 = o0 + plane;
+    const float s0 = scale == nullptr ? 1.f : scale[m];
+    const float s1 = scale == nullptr ? 1.f : scale[samples * classes + m];
+    const T want = static_cast<T>(c + 1);
+    bool any;
+    if (segs == 1) {
+      const unsigned pos = match_bits(v, want) & valid;
+      any = emit_segment<kVec>(pos, j0, w, -kFar, kFar, s0, o0) >= 0;
+      emit_segment<kVec>(~pos & valid, j0, w, -kFar, kFar, s1, o1);
+    } else {
+      any = emit_long_row<kVec>([&](int g) { return sites(g, want, false); },
+                                segs, w, s0, o0, carry);
+      emit_long_row<kVec>([&](int g) { return sites(g, want, true); }, segs,
+                          w, s1, o1, carry);
     }
-    const unsigned wd = __ballot_sync(kFull, site);
-    if (lane == 0) words[c] = wd;
-  }
-  const float s = scale == nullptr ? 1.f : scale[map];
-  const bool any = emit_row(words, nxt, w, chunks, false, s, out + row * w);
-  if (has_site != nullptr && any && lane == 0) has_site[map] = 1;
-  if (kLabels) {
-    const long long other = samples * classes * rows_per_map + row;
-    const float s1 =
-        scale == nullptr ? 1.f : scale[samples * classes + map];
-    emit_row(words, nxt, w, chunks, true, s1, out + other * w);
+    if (any && lane == 0) has_site[m] = 1;
   }
 }
 
@@ -190,29 +336,22 @@ constexpr int kUInt8 = 0;
 constexpr int kInt32 = 1;
 constexpr int kInt64 = 2;
 
-template <typename L>
+template <typename L, bool kLabels>
 cudaError_t launch_scan(const void* src, const void* scale, void* out,
                         void* has_site, long long rows, int w,
                         int rows_per_map, int classes, long long samples,
-                        bool labels, cudaStream_t stream) {
-  const int chunks = (w + 31) / 32;
-  const size_t shared = static_cast<size_t>(kScanWarps) * 2 * chunks * sizeof(int);
+                        cudaStream_t stream) {
   const long long blocks = (rows + kScanWarps - 1) / kScanWarps;
-  if (shared > 48 * 1024 || blocks > 2147483647LL) return cudaErrorInvalidValue;
+  if (w > kMaxW || blocks > 2147483647LL) return cudaErrorInvalidValue;
+  const bool vec = w % kV == 0 && (reinterpret_cast<uintptr_t>(src) |
+                                   reinterpret_cast<uintptr_t>(out)) % 16 == 0;
   const dim3 block(32, kScanWarps);
-  if (labels) {
-    row_scan_kernel<L, true><<<static_cast<unsigned>(blocks), block, shared,
-                               stream>>>(
-        static_cast<const L*>(src), static_cast<const float*>(scale),
-        static_cast<float*>(out), static_cast<int*>(has_site), rows, w, chunks,
-        rows_per_map, classes, samples);
-  } else {
-    row_scan_kernel<L, false><<<static_cast<unsigned>(blocks), block, shared,
-                                stream>>>(
-        static_cast<const L*>(src), static_cast<const float*>(scale),
-        static_cast<float*>(out), static_cast<int*>(has_site), rows, w, chunks,
-        rows_per_map, classes, samples);
-  }
+  auto* kernel = vec ? row_scan_kernel<L, kLabels, true>
+                     : row_scan_kernel<L, kLabels, false>;
+  kernel<<<static_cast<unsigned>(blocks), block, 0, stream>>>(
+      static_cast<const L*>(src), static_cast<const float*>(scale),
+      static_cast<float*>(out), static_cast<int*>(has_site), rows, w,
+      rows_per_map, classes, samples);
   return cudaGetLastError();
 }
 
@@ -246,12 +385,12 @@ cudaError_t launch_signed(const void* d2, const void* labels,
 }  // namespace
 
 // Row scan. `labels` == 0: src is a mask (rows, w) of bytes whose zeros are
-// the sites, out is (rows, w) float32, one scale per map of rows_per_map
-// rows (or null: 1), has_site (rows / rows_per_map,) int32 or null. `labels`
-// != 0: src is a label map (samples, rows_per_map, w) of the type `ltype`
-// names, out is (2, samples, classes, rows_per_map, w), scale (2 * samples *
-// classes,) or null, has_site (samples * classes,) int32, zeroed by the
-// caller. w <= 24576 (48 KB of shared memory for 8 warps' words).
+// the sites (ltype must name uint8; `classes` is 1), out is (rows, w)
+// float32, one scale per map of rows_per_map rows (or null: 1), has_site
+// (rows / rows_per_map,) int32 or null. `labels` != 0: src is a label map
+// (samples, rows_per_map, w) of the type `ltype` names, out is (2, samples,
+// classes, rows_per_map, w), scale (2 * samples * classes,) or null,
+// has_site (samples * classes,) int32, zeroed by the caller. w <= 24576.
 extern "C" int ctseg_edt_row_scan(const void* src, const void* scale,
                                   void* out, void* has_site, long long samples,
                                   int rows_per_map, int w, int classes,
@@ -263,20 +402,25 @@ extern "C" int ctseg_edt_row_scan(const void* src, const void* scale,
     return cudaErrorInvalidValue;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // Source rows: one per (sample, class, row) of a label map, one per row of
-  // a mask (`samples` counts its maps, `classes` is 1).
-  const long long rows = samples * classes * rows_per_map;
-  const bool lab = labels != 0;
+  // Source rows, one warp each: every class of a label map comes from one
+  // read of its row.
+  const long long rows = samples * rows_per_map;
+  if (labels == 0) {
+    if (ltype != kUInt8 || classes != 1) return cudaErrorInvalidValue;
+    return launch_scan<unsigned char, false>(src, scale, out, has_site, rows,
+                                             w, rows_per_map, 1, samples, st);
+  }
   switch (ltype) {
     case kUInt8:
-      return launch_scan<unsigned char>(src, scale, out, has_site, rows, w,
-                                        rows_per_map, classes, samples, lab, st);
+      return launch_scan<unsigned char, true>(src, scale, out, has_site, rows,
+                                              w, rows_per_map, classes,
+                                              samples, st);
     case kInt32:
-      return launch_scan<int>(src, scale, out, has_site, rows, w, rows_per_map,
-                              classes, samples, lab, st);
+      return launch_scan<int, true>(src, scale, out, has_site, rows, w,
+                                    rows_per_map, classes, samples, st);
     case kInt64:
-      return launch_scan<long long>(src, scale, out, has_site, rows, w,
-                                    rows_per_map, classes, samples, lab, st);
+      return launch_scan<long long, true>(src, scale, out, has_site, rows, w,
+                                          rows_per_map, classes, samples, st);
     default:
       return cudaErrorInvalidValue;
   }

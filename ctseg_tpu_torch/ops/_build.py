@@ -95,8 +95,8 @@ class KernelLibrary:
             raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
-def sources():
-    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+def sources(csrc: Path = CSRC):
+    return sorted(p for p in csrc.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
 def build_key() -> str:
@@ -122,19 +122,20 @@ def find_nvcc() -> str:
     )
 
 
-def build(out_dir: Path) -> KernelLibrary:
+def build(out_dir: Path, csrc: Path = CSRC) -> KernelLibrary:
     """Compile csrc/*.cu, one nvcc per source in parallel, link the objects
-    into out_dir/LIB_NAME (atomically) and load it."""
+    into out_dir/LIB_NAME (atomically) and load it. `csrc` may name another
+    directory of sources, such as an edited copy that a tool times."""
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
     jobs = []
-    for src in sources():
+    for src in sources(csrc):
         if src.suffix != ".cu":
             continue
         obj = out_dir / f".{src.stem}.{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", "-o", str(obj),
                str(src)]
         jobs.append((obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -181,3 +182,11 @@ def library() -> KernelLibrary:
             else:
                 _library = build(out_dir)
         return _library
+
+
+def use(lib: Optional[KernelLibrary]) -> None:
+    """Make `lib` the library every wrapper launches from; None goes back to
+    this tree's, loaded or built at the next use."""
+    global _library
+    with _lock:
+        _library = lib

@@ -23,7 +23,10 @@ takes:
     the division by 255.
 The `*_plain` compositions are the whole functions in torch operations
 (over `min_plus`, so on the card only K5 is a kernel in them); chip_smoke.py
-holds the kernel paths bit-equal to them there.
+holds the kernel paths bit-equal to them there. `row_scan_lanes_model` and
+`label_scan_lanes_model` are the scan kernel's own arithmetic (segments of
+32 lanes x LANE_ELEMS elements, two warp scans, carries between segments)
+in plain PyTorch, for the CPU tests.
 """
 
 from typing import Optional, Tuple
@@ -34,7 +37,11 @@ from ctseg_tpu_torch.constants import NUM_CLASSES
 from ctseg_tpu_torch.ops import _build
 from ctseg_tpu_torch.ops.min_plus import BIG, min_plus
 
-MAX_W = 24576  # the longest row the scan kernel keeps as words in shared memory
+MAX_W = 24576  # the longest row the scan kernel takes (its kMaxW)
+LANE_ELEMS = 8  # consecutive elements a lane of the scan kernel holds (kV)
+SEGMENT = 32 * LANE_ELEMS  # elements a warp takes at once (kSeg)
+_FAR = 1 << 30  # a site index beyond every row: no site on that side
+_NO_SITE = 1 << 29  # a distance this long: the row has no site
 _LABEL_CODES = {torch.uint8: 0, torch.int32: 1, torch.int64: 2}
 
 
@@ -62,6 +69,75 @@ def row_scan_plain(mask: torch.Tensor,
     if scale is not None:
         g = g * scale[:, None, None]
     return torch.clamp_max(g * g, BIG)
+
+
+def row_scan_lanes_model(sites: torch.Tensor,
+                         scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """d2 of `row_scan` from the sites (rows, W) bool (one scale per row, or
+    None), as csrc/edt.cu's warp computes it: the row cut into segments of
+    32 lanes x LANE_ELEMS elements; per lane its last and first site (clz
+    and ffs of its bit word); the 5-step inclusive scans across the lanes
+    (a running max up, a running min down), shifted by one lane for the
+    exclusive sites; the carries between segments (the last site so far,
+    and the first site after the segment from the right-to-left pass);
+    running selects over the lane's own elements; d as a float from the
+    mantissa of 2^23 + d; int32 throughout, as the kernel's."""
+    rows, w = sites.shape
+    segs = -(-w // SEGMENT)
+    lanes = torch.zeros((rows, segs * SEGMENT), dtype=torch.bool)
+    lanes[:, :w] = sites  # past the row's end: no site (the valid bits)
+    lanes = lanes.reshape(rows, segs, 32, LANE_ELEMS)
+    j = torch.arange(segs * SEGMENT, dtype=torch.int32).reshape(
+        segs, 32, LANE_ELEMS)
+    far = torch.tensor(_FAR, dtype=torch.int32)
+    last = torch.where(lanes, j, -far).amax(-1)  # (rows, segs, 32)
+    first = torch.where(lanes, j, far).amin(-1)
+    for o in (1, 2, 4, 8, 16):  # __shfl_up_sync / __shfl_down_sync by o
+        up, down = last.clone(), first.clone()
+        up[..., o:] = torch.maximum(last[..., o:], last[..., :-o])
+        down[..., :-o] = torch.minimum(first[..., :-o], first[..., o:])
+        last, first = up, down
+    # Carries: the last site before each segment (left to right), the first
+    # after it (right to left: the segment's minimum, __reduce_min_sync).
+    seg_last = last[..., 31].cummax(dim=1).values
+    last_in = torch.cat([-far.expand(rows, 1), seg_last[:, :-1]], dim=1)
+    seg_first = first[..., 0].flip(1).cummin(dim=1).values.flip(1)
+    next_in = torch.cat([seg_first[:, 1:], far.expand(rows, 1)], dim=1)
+    before = torch.cat([last_in[..., None], last[..., :31]], dim=-1)
+    after = torch.cat([first[..., 1:], next_in[..., None]], dim=-1)
+    before = torch.maximum(before, last_in[..., None])
+    after = torch.minimum(after, next_in[..., None])
+    # Within the lane: the running selects over its elements.
+    before = torch.maximum(torch.where(lanes, j, -far).cummax(-1).values,
+                           before[..., None])
+    after = torch.minimum(
+        torch.where(lanes, j, far).flip(-1).cummin(-1).values.flip(-1),
+        after[..., None])
+    d = torch.minimum(j - before, after - j)
+    g = (d | 0x4B000000).view(torch.float32) - 8388608.0
+    g = torch.where(d >= _NO_SITE, torch.tensor(BIG, dtype=torch.float32), g)
+    if scale is not None:
+        g = g * scale[:, None, None, None]
+    return torch.clamp_max(g * g, BIG).reshape(rows, -1)[:, :w]
+
+
+def label_scan_lanes_model(labels: torch.Tensor, n_classes: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`label_scan` as the kernel orders it: each source row read once, and
+    for every class c its sites (label == c + 1) and the complement's
+    within the row, each through `row_scan_lanes_model`; nonempty from the
+    rows of the first kind that hold a site."""
+    n, r, w = labels.shape
+    c = n_classes - 1
+    d2 = torch.empty((2, n, c, r, w), dtype=torch.float32)
+    nonempty = torch.zeros((n, c), dtype=torch.bool)
+    rows = labels.reshape(n * r, w)
+    for k in range(c):
+        pos = rows == k + 1
+        d2[0, :, k] = row_scan_lanes_model(pos).reshape(n, r, w)
+        d2[1, :, k] = row_scan_lanes_model(~pos).reshape(n, r, w)
+        nonempty[:, k] = pos.reshape(n, -1).any(dim=1)
+    return d2, nonempty
 
 
 def _check_scan(t: torch.Tensor, scale: Optional[torch.Tensor], maps: int):

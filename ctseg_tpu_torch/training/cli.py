@@ -33,8 +33,10 @@ from ctseg_tpu_torch.training.trainer import Preempted, Trainer
 
 def _add_args(parser: ArgumentParser) -> None:
     parser.add_argument("--batch_size", type=int, default=128)
-    parser.add_argument("--transform_degree", type=int, default=2,
-                        help="Augmentation degree; the port trains degree 2.")
+    parser.add_argument(
+        "--transform_degree", type=int, default=2,
+        help="Augmentation degree. The port trains degree 2 only, so its "
+             "default is 2 where the reference's is 0.")
     parser.add_argument("--filters", nargs="+", type=int,
                         default=[64, 128, 256, 512, 1024])
     parser.add_argument("--use_res_units", action="store_true", default=False)

@@ -78,8 +78,8 @@ def get_transform(degree: int, train: bool,
         if degree != 2:
             raise NotImplementedError(
                 f"the degree-{degree} train transform waits for its slice "
-                "(ROADMAP.md, modules to port: Model M, with the train "
-                "transforms of degrees 0, 1, 3 and 4)"
+                "(ROADMAP.md, modules to port, item 3: the train transforms "
+                "of degrees 0, 1, 3 and 4)"
             )
         return functools.partial(_degree_2, size=tuple(size))
     return functools.partial(
