@@ -84,6 +84,45 @@ Phases (any failure raises and the script exits non-zero):
      last one padded): the row scan and K5 once per batch; the device HD95
      of 4 slices held to the scipy host path at 1e-4 relative; slices/s with
      and without HD95; HD95's device time by part on one batch.
+ 16. K1 and K1b at the 17 IN+PReLU sites of the 3D UNet at the bench
+     configuration (batch 128, patches 128x128x16: six shapes from
+     128x64x64x8x64 to 128x8x8x1x1024 and 128x128x128x16x10), float32 and
+     bfloat16, against their plain versions as in phase 6; per site the
+     training forward's and K1b's time beside their bytes' bound and the
+     plain version's, and F.instance_norm alone (a yardstick).
+ 17. Train 3D, bench.py's second line: the 3D UNet (filters 64..1024, 2
+     residual units, 1 -> 10 channels), CrossEntropy+Dice, patch mode
+     (soft-tissue window, H and W flips) on 4 synthetic volumes of
+     120x280x280 (HU ~ N(40, 300)), PatchPipeline3D at batch 128 x
+     (128, 128, 16): Trainer.fit for one epoch (2 steps and a validation
+     batch), then 5 timed steps on fresh sampled batches, in float32 (at
+     the largest batch up to 128 that fits) and bfloat16. Each step must
+     launch K1 and K1b 17 times and no other kernel. Patch sampling alone,
+     peak memory, the float32 step by part and by group of kernels.
+ 18. Gradient parity of the 3D step, as phase 11, at a reduced width
+     (filters 16..256, 2 patches of 64x64x16).
+ 19. The model_3d preset (resize mode, batch 1, volumes resized to
+     256x256x96, raw HU, CrossEntropy): Trainer.fit for one epoch of 2
+     volumes, then 3 timed steps; the same launches per step. K1's training
+     forward and K1b held to their plain versions, as in phase 16, at each
+     shape the step gave K1 (recorded at the call in a warm-up step: batch
+     1 x 128x128x48x64 down to 16x16x6x1024, and 256x256x96x10).
+ 20. Evaluate 3D: phase 17's checkpoint through evaluate_3d_sliding_window
+     with HD95 on 3 volumes of 280x280 and depths 120, 100 and 40 (box
+     structures, per-volume spacings), patch (128, 128, 48), overlap 0.5,
+     batch 4: K1 17 times per window batch, the row scan once and K5 twice
+     per volume; vols/min with and without HD95 and with the volumes on
+     the device; K1 held to its plain version at each shape the evaluation
+     gave it (recorded in a warm-up run: window batches of 4 x
+     64x64x24x64 down to 8x8x3x1024, and 128x128x48x10); HD95 of one
+     volume by part, its row scan and K5 passes bit-equal to their plain
+     versions on that volume's maps, and its value against scipy; the
+     evaluation held to a CPU copy of the model (plain path) on one
+     40x80x64 volume.
+ 21. Predict and serve 3D: predict_scan of one synthetic 120x512x512 scan
+     by phase 17's checkpoint (timed after a warm-up run that records K1's
+     shapes), one request to the HTTP server, and K1 held to its plain
+     version at each shape predict gave it.
 
 No main path (serve, Model L, Model M, evaluation) may launch K2's FP32-pipe
 route: its count is asserted to be 0 after each.
@@ -636,11 +675,96 @@ def check_dalpha(name, kernel, plain, bound_terms) -> float:
     return err
 
 
+def _stat(t, x):
+    """(N, C) statistics shaped to broadcast against x (N, *spatial, C)."""
+    return t.reshape((t.shape[0],) + (1,) * (x.ndim - 2) + (t.shape[-1],))
+
+
+def _k1b_site(label, x32, g32, sites, what="sites/step", plain_reps=20,
+              dtypes=("float32", "bfloat16")):
+    """K1b and K1's training forward against their plain versions on one
+    site's x and cotangent, in each of `dtypes`; returns per type (worst
+    dx error, kernel ms, plain ms) of the backward."""
+    import torch
+    from ctseg_tpu_torch.ops import instance_norm as k1
+
+    shape = tuple(x32.shape)
+    n, c = shape[0], shape[-1]
+    s = x32.numel() // (n * c)
+    out = {}
+    for dname in dtypes:
+        dtype = getattr(torch, dname)
+        x, g = x32.to(dtype), g32.to(dtype)
+        atol, rtol = BWD_TOL[dname]
+        tag = f"K1b {shape} {dname}"
+        alpha = torch.full((1,), 0.25, device=DEVICE)
+        # The training forward's statistics: one-pass, like the plain's.
+        y, mean, var = k1._forward(x, alpha, train=True)
+        _, pmean, pvar = k1._fwd_plain(x, alpha)
+        check_close(f"{tag} mean", mean, pmean, 1e-5, 1e-5)
+        check_close(f"{tag} var", var[:, 1:], pvar[:, 1:], 1e-5, 1e-4)
+        # Channel 0's variance is the rounding noise of E[x^2] - E[x]^2
+        # with E[x^2] about 9: bounded relative to E[x^2].
+        check_close(f"{tag} var (channel 0)", var[:, 0], pvar[:, 0],
+                    1e-5 + 1e-4 * (pvar[:, 0] + pmean[:, 0] ** 2), 0.0)
+        check_close(f"{tag} y", y[..., 1:],
+                    k1.instance_norm_prelu_plain(x, alpha)[..., 1:],
+                    *TOL[("k1", dname)])
+        # Channel 0's y scales that noise by rsqrt(var + eps): held to
+        # the plain formula on the kernel's own statistics.
+        xh0 = (x[..., 0].float() - _stat(mean, x)[..., 0]) * torch.rsqrt(
+            _stat(var, x)[..., 0] + k1.EPS)
+        check_close(f"{tag} y (channel 0)", y[..., 0],
+                    torch.where(xh0 >= 0, xh0, 0.25 * xh0).to(dtype),
+                    *TOL[("k1", dname)])
+        del y, xh0
+        # dx = rsqrt(var + eps) * (terms of the order of g), so its
+        # absolute error scales with rsqrt(var + eps): about 316 on the
+        # near-constant channel, which keeps its branch (sign(x - mean)
+        # is one subtraction on both sides).
+        dx_atol = atol * _stat(torch.clamp_min(torch.rsqrt(pvar + k1.EPS),
+                                               1.0), x)
+        worst = 0.0
+        for a in ALPHAS:
+            alpha = torch.full((1,), a, device=DEVICE)
+            dx, da = k1.instance_norm_prelu_bwd(x, g, pmean, pvar, alpha)
+            pdx, pda = k1.instance_norm_prelu_bwd_plain(
+                x, g, pmean, pvar, alpha)
+            worst = max(worst, check_close(f"{tag} alpha={a} dx", dx, pdx,
+                                           dx_atol, rtol))
+            del pdx
+            xhat = (x.float() - _stat(pmean, x)) * torch.rsqrt(
+                _stat(pvar, x) + k1.EPS)
+            terms = (g.float() * torch.clamp_max(xhat, 0.0)).abs().sum()
+            del xhat
+            check_dalpha(f"{tag} alpha={a}", da, pda, terms)
+        # Fixed-order sums, no atomics: a second call repeats both.
+        dx2, da2 = k1.instance_norm_prelu_bwd(x, g, pmean, pvar, alpha)
+        if not (torch.equal(da, da2) and torch.equal(dx, dx2)):
+            raise AssertionError(f"{tag}: two calls on one input differ")
+        del dx, dx2
+        plan = k1.bwd_cluster_plan(n, s, c, x.element_size())
+        form = "two-phase" if plan is None else \
+            f"read-once in clusters of {plan['size']}"
+        plan = plan or k1.bwd_plan(n, s, c, x.element_size())
+        t_k = time_ms(lambda: k1.instance_norm_prelu_bwd(
+            x, g, pmean, pvar, alpha), 20)
+        t_p = time_ms(lambda: k1.instance_norm_prelu_bwd_plain(
+            x, g, pmean, pvar, alpha), plain_reps)
+        site_bound = 3 * x.numel() * x.element_size() / PEAK_BYTES * 1e3
+        print(f"[{label}] K1b {shape} {dname}: kernel "
+              f"{t_k:.4f} ms, plain {t_p:.4f} ms, its bytes' bound "
+              f"{site_bound:.4f} ms ({site_bound / t_k:.2f} of the "
+              f"kernel's time), {form}, grid {plan['grid']}, "
+              f"{plan['vec']} elements a lane, {what} {sites}")
+        out[dname] = (worst, t_k, t_p)
+    return out
+
+
 def phase_k1b(label, gen):
     """K1b and K1's training forward at the train step's shapes (batch
     TRAIN_BATCH), where phase 9 launches them."""
     import torch
-    from ctseg_tpu_torch.ops import instance_norm as k1
 
     n = TRAIN_BATCH
     worst = {"float32": 0.0, "bfloat16": 0.0}
@@ -649,67 +773,9 @@ def phase_k1b(label, gen):
     for (h, w, c), sites in K1_SITES.items():
         x32 = _k1_input(gen, (n, h, w, c))
         g32 = torch.randn((n, h, w, c), generator=gen, device=DEVICE)
-        for dtype in (torch.float32, torch.bfloat16):
-            x, g = x32.to(dtype), g32.to(dtype)
-            dname = str(dtype).split(".")[-1]
-            atol, rtol = BWD_TOL[dname]
-            tag = f"K1b {(n, h, w, c)} {dname}"
-            alpha = torch.full((1,), 0.25, device=DEVICE)
-            # The training forward's statistics: one-pass, like the plain's.
-            y, mean, var = k1._forward(x, alpha, train=True)
-            _, pmean, pvar = k1._fwd_plain(x, alpha)
-            check_close(f"{tag} mean", mean, pmean, 1e-5, 1e-5)
-            check_close(f"{tag} var", var[:, 1:], pvar[:, 1:], 1e-5, 1e-4)
-            # Channel 0's variance is the rounding noise of E[x^2] - E[x]^2
-            # with E[x^2] about 9: bounded relative to E[x^2].
-            check_close(f"{tag} var (channel 0)", var[:, 0], pvar[:, 0],
-                        1e-5 + 1e-4 * (pvar[:, 0] + pmean[:, 0] ** 2), 0.0)
-            check_close(f"{tag} y", y[..., 1:],
-                        k1.instance_norm_prelu_plain(x, alpha)[..., 1:],
-                        *TOL[("k1", dname)])
-            # Channel 0's y scales that noise by rsqrt(var + eps): held to
-            # the plain formula on the kernel's own statistics.
-            xh0 = (x[..., 0].float() - mean[:, None, None, 0]) * torch.rsqrt(
-                var[:, None, None, 0] + k1.EPS)
-            check_close(f"{tag} y (channel 0)", y[..., 0],
-                        torch.where(xh0 >= 0, xh0, 0.25 * xh0).to(dtype),
-                        *TOL[("k1", dname)])
-            # dx = rsqrt(var + eps) * (terms of the order of g), so its
-            # absolute error scales with rsqrt(var + eps): about 316 on the
-            # near-constant channel, which keeps its branch (sign(x - mean)
-            # is one subtraction on both sides).
-            dx_atol = atol * torch.clamp_min(
-                torch.rsqrt(pvar + k1.EPS), 1.0)[:, None, None, :]
-            for a in ALPHAS:
-                alpha = torch.full((1,), a, device=DEVICE)
-                dx, da = k1.instance_norm_prelu_bwd(x, g, pmean, pvar, alpha)
-                pdx, pda = k1.instance_norm_prelu_bwd_plain(
-                    x, g, pmean, pvar, alpha)
-                err = check_close(f"{tag} alpha={a} dx", dx, pdx, dx_atol, rtol)
-                xhat = (x.float() - pmean[:, None, None]) * torch.rsqrt(
-                    pvar[:, None, None] + k1.EPS)
-                terms = (g.float() * torch.clamp_max(xhat, 0.0)).abs().sum()
-                check_dalpha(f"{tag} alpha={a}", da, pda, terms)
-                worst[dname] = max(worst[dname], err)
-            # Fixed-order sums, no atomics: a second call repeats both.
-            dx2, da2 = k1.instance_norm_prelu_bwd(x, g, pmean, pvar, alpha)
-            if not (torch.equal(da, da2) and torch.equal(dx, dx2)):
-                raise AssertionError(f"{tag}: two calls on one input differ")
-            del dx2
-            plan = k1.bwd_cluster_plan(n, h * w, c, x.element_size())
-            form = "two-phase" if plan is None else \
-                f"read-once in clusters of {plan['size']}"
-            plan = plan or k1.bwd_plan(n, h * w, c, x.element_size())
-            t_k = time_ms(lambda: k1.instance_norm_prelu_bwd(
-                x, g, pmean, pvar, alpha), 20)
-            t_p = time_ms(lambda: k1.instance_norm_prelu_bwd_plain(
-                x, g, pmean, pvar, alpha), 20)
-            site_bound = 3 * x.numel() * x.element_size() / PEAK_BYTES * 1e3
-            print(f"[{label}] K1b {(n, h, w, c)} {dname}: kernel "
-                  f"{t_k:.4f} ms, plain {t_p:.4f} ms, its bytes' bound "
-                  f"{site_bound:.4f} ms ({site_bound / t_k:.2f} of the "
-                  f"kernel's time), {form}, grid {plan['grid']}, "
-                  f"{plan['vec']} elements a lane, sites/step {sites}")
+        for dname, (err, t_k, t_p) in _k1b_site(label, x32, g32,
+                                                 sites).items():
+            worst[dname] = max(worst[dname], err)
             ms[dname] += sites * t_k
             plain_ms[dname] += sites * t_p
     print(f"K1b max |kernel - plain| (dx): float32 {worst['float32']:.3e}, "
@@ -1190,26 +1256,28 @@ def _grads_and_slope_terms(trainer, model, batch, draws):
     return grads, slopes
 
 
-def phase_grad_parity(label, trainer, state, batch, draws):
+def phase_grad_parity(label, trainer, state, batch, draws,
+                      what="float32 Model L on 2 slices"):
     import copy
     import dataclasses
 
     import torch
     from ctseg_tpu_torch.training.trainer import Trainer
-    from ctseg_tpu_torch.transforms.augment import Degree2Draws
 
     two = tuple(t[:2] for t in batch)
-    draws2 = Degree2Draws(*(t[:2] for t in draws))
+    draws2 = type(draws)(*(t[:2] for t in draws))
     cpu_two = tuple(t.cpu() for t in two)
-    cpu_draws = Degree2Draws(*(t.cpu() for t in draws2))
+    cpu_draws = type(draws)(*(t.cpu() for t in draws2))
     g_cuda = _grads(trainer, state.model, two, draws2)
-    g_cpu = _grads(Trainer(trainer.config, "cpu"),
+    g_cpu = _grads(Trainer(trainer.config, "cpu", trainer.train_transform,
+                           trainer.test_transform),
                    copy.deepcopy(state.model).to("cpu"), cpu_two, cpu_draws)
     cfg64 = dataclasses.replace(trainer.config, compute_dtype="float64")
     model64 = copy.deepcopy(state.model).to("cpu", torch.float64)
     model64.compute_dtype = torch.float64
-    g64, slope_terms = _grads_and_slope_terms(Trainer(cfg64, "cpu"), model64,
-                                              cpu_two, cpu_draws)
+    g64, slope_terms = _grads_and_slope_terms(
+        Trainer(cfg64, "cpu", trainer.train_transform, trainer.test_transform),
+        model64, cpu_two, cpu_draws)
 
     # Many of this model's float32 gradients are sums that nearly cancel
     # (cuDNN also picks FFT and Winograd convs, which round otherwise than
@@ -1257,7 +1325,7 @@ def phase_grad_parity(label, trainer, state, batch, draws):
     total = (num / den) ** 0.5
     if not total <= GRAD_RTOL:
         failures.append(f"whole gradient: {total:.3e} > {GRAD_RTOL:.0e}")
-    print(f"[{label}] gradient parity, float32 Model L on 2 slices, CUDA "
+    print(f"[{label}] gradient parity, {what}, CUDA "
           f"kernels vs CPU plain path from the same weights and draws: whole "
           f"gradient ||g_cuda - g_cpu|| / ||g_cpu|| {total:.3e} (bound "
           f"{GRAD_RTOL:.0e}); against float64, worst PReLU slope "
@@ -1815,6 +1883,704 @@ def _hd95_parts(label, trainer, model, dataset):
           f"{whole - sum(ms.values()):.3f}")
 
 
+# ------------------------------------------------------------------- 3D
+# bench.py's second line (bench_3d, bench.py:261-374): random patches of
+# (H, W, D) = PATCH_3D at batch TRAIN_BATCH from 4 volumes of VOLUME_3D
+# (HU ~ N(40, 300), labels 0..9, every structure annotated), the 3D UNet
+# with filters 64..1024, 2 residual units and one input channel,
+# CrossEntropy+Dice, the patch transform (soft-tissue window, H and W
+# flips).
+PATCH_3D = (128, 128, 16)
+VOLUME_3D = (120, 280, 280)  # (D, H, W)
+# Its IN+PReLU sites, per sample (H, W, D, C) -> sites per forward; every
+# site is a library conv (strided, transposed or stride-1) then K1.
+K1_SITES_3D = {
+    (64, 64, 8, 64): 4,     # down0 units 0-1, up1 transposed conv + unit
+    (32, 32, 4, 128): 4,    # down1 units 0-1, up2 transposed conv + unit
+    (16, 16, 2, 256): 4,    # down2 units 0-1, up3 transposed conv + unit
+    (8, 8, 1, 512): 2,      # down3 units 0-1
+    (8, 8, 1, 1024): 2,     # bottom units 0-1
+    (128, 128, 16, 10): 1,  # up0 transposed conv
+}
+PER_STEP_3D = {"k4": 0, "k1": 17, "k1b": 17, "k2": 0, "k2b": 0, "k5": 0,
+               "scan": 0, "signed": 0}
+GRAD_FILTERS_3D = (16, 32, 64, 128, 256)  # phase 18's reduced width
+GRAD_PATCH_3D = (64, 64, 16)
+RESIZE_STEPS = 3        # phase 19's timed steps of the model_3d preset
+EVAL_PATCH_3D = (128, 128, 48)
+EVAL_DEPTHS_3D = (120, 100, 40)   # phase 20's volumes, EVAL_HW_3D in-plane
+EVAL_HW_3D = (280, 280)
+EVAL_BATCH_3D = 4
+HELD_VOLUME_3D = (40, 80, 64)     # phase 20's CPU-held volume (D, H, W)
+HELD_PATCH_3D = (64, 64, 32)
+DICE_TOL_3D = 1e-3      # the CPU copy's Dice (cuDNN vs CPU convs: near-ties)
+
+
+def _volumes_3d(seed, n, shape=VOLUME_3D, boxes=False, spacings=False):
+    """bench_3d's synthetic volumes (float32 HU, uniform random labels), or
+    with `boxes` int16 volumes with box structures and z-first spacings
+    (so the surfaces and their distances are those of compact shapes)."""
+    from ctseg_tpu_torch.data.datasets import PackedDataset3D
+
+    rng = np.random.default_rng(seed)
+    if not boxes:
+        return PackedDataset3D(
+            images=[rng.normal(40, 300, size=shape).astype(np.float32)
+                    for _ in range(n)],
+            labels=[rng.integers(0, 10, size=shape).astype(np.uint8)
+                    for _ in range(n)],
+            indicators=[np.ones(9, np.float32)] * n)
+    images, labels = [], []
+    depths = shape if isinstance(shape[0], tuple) else [shape] * n
+    for d, h, w in depths:
+        lab = np.zeros((d, h, w), np.uint8)
+        for c in range(1, 10):
+            ez = rng.integers(d // 8 + 1, d // 3 + 2)
+            ey, ex = rng.integers(h // 16 + 1, h // 4 + 2), \
+                rng.integers(w // 16 + 1, w // 4 + 2)
+            z = rng.integers(0, d - ez + 1)
+            y, x = rng.integers(1, h - ey), rng.integers(1, w - ex)
+            lab[z:z + ez, y:y + ey, x:x + ex] = c
+        images.append((rng.normal(40, 120, (d, h, w)) + 60.0 * lab)
+                      .astype(np.int16))
+        labels.append(lab)
+    return PackedDataset3D(
+        images, labels, [np.ones(9, np.float32)] * len(images),
+        spacings=[rng.uniform(0.8, 3.0, 3).astype(np.float32)
+                  for _ in images] if spacings else None)
+
+
+def _config_3d(dtype="float32", batch=TRAIN_BATCH, filters=FILTERS,
+               patch=PATCH_3D):
+    from ctseg_tpu_torch.training.config import TrainConfig
+
+    return TrainConfig(filters=filters, num_res_units=2, transform_degree=0,
+                       batch_size=batch, loss_fx=("CrossEntropy", "Dice"),
+                       spatial_dims=3, input_shape=patch, in_channels=1,
+                       epochs=1, compute_dtype=dtype,
+                       volumetric_mode="patch")
+
+
+def site_bounds_3d(n=TRAIN_BATCH):
+    """K1's and K1b's bounds over the 3D step's 17 sites (as site_bounds)."""
+    out = {}
+    for key, ops_per, io in (("k1", 8, 2), ("k1b", 14, 3)):
+        e = sum(n * h * w * d * c * sites
+                for (h, w, d, c), sites in K1_SITES_3D.items())
+        out[key] = bound_ms(ops_per * e, 4 * io * e)
+        out[key + "_bf16"] = bound_ms(ops_per * e, 2 * io * e)
+    return out
+
+
+def phase_k1_3d(label, gen):
+    """K1f (the training forward) and K1b at the 3D step's 17 sites, batch
+    TRAIN_BATCH, against their plain versions; per site the time, the
+    bytes' bound and the share, and F.instance_norm alone beside K1f."""
+    import torch
+    import torch.nn.functional as F
+    from ctseg_tpu_torch.ops import instance_norm as k1
+
+    n = TRAIN_BATCH
+    names = ("float32", "bfloat16")
+    tot = {k: dict.fromkeys(names, 0.0) for k in (
+        "fwd", "fwd_plain", "fwd_lib", "bwd", "bwd_plain")}
+    worst = {"fwd": dict.fromkeys(names, 0.0), "bwd": dict.fromkeys(names, 0.0)}
+    rows = []
+    for (h, w, d, c), sites in K1_SITES_3D.items():
+        shape = (n, h, w, d, c)
+        x32 = _k1_input(gen, shape)
+        g32 = torch.randn(shape, generator=gen, device=DEVICE)
+        bwd = _k1b_site(label, x32, g32, sites, "sites/step", plain_reps=3)
+        del g32
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            dname = names[dtype == torch.bfloat16]
+            alpha = torch.full((1,), 0.25, device=DEVICE)
+            y = k1.instance_norm_prelu(x, alpha)
+            err = check_close(f"K1 {shape} {dname}", y[..., 1:],
+                              k1.instance_norm_prelu_plain(x, alpha)[..., 1:],
+                              *TOL[("k1", dname)])
+            if not torch.equal(y, k1.instance_norm_prelu(x, alpha)):
+                raise AssertionError(f"K1 {shape} {dname}: two runs differ")
+            del y
+            worst["fwd"][dname] = max(worst["fwd"][dname], err)
+            t_k = time_ms(lambda: k1._forward(x, alpha, train=True), 10)
+            t_p = time_ms(lambda: k1._fwd_plain(x, alpha), 3)
+            xc = x.permute(0, 4, 1, 2, 3)  # NCDHW view of the same memory
+            t_l = time_ms(lambda: F.instance_norm(xc), 10)
+            plan = k1.fwd_cluster_plan(n, h * w * d, c, x.element_size())
+            form = "two-phase" if plan is None else (
+                f"read-once in clusters of {plan['size']}")
+            b_f = 2 * x.numel() * x.element_size() / PEAK_BYTES * 1e3
+            b_b = 1.5 * b_f
+            bw_err, bt_k, bt_p = bwd[dname]
+            worst["bwd"][dname] = max(worst["bwd"][dname], bw_err)
+            print(f"[{label}] K1 3D site {shape} {dname}: training forward "
+                  f"{t_k:.4f} ms (bound {b_f:.4f}, share {b_f / t_k:.2f}, "
+                  f"{form}), plain {t_p:.4f}, F.instance_norm alone "
+                  f"{t_l:.4f}; K1b {bt_k:.4f} ms (bound {b_b:.4f}, share "
+                  f"{b_b / bt_k:.2f}), plain {bt_p:.4f}; sites/step {sites}")
+            rows.append({"site": [h, w, d, c], "sites": sites, "dtype": dname,
+                         "k1_ms": t_k, "k1_bound_ms": b_f,
+                         "k1_plain_ms": t_p, "k1_library_ms": t_l,
+                         "k1b_ms": bt_k, "k1b_bound_ms": b_b,
+                         "k1b_plain_ms": bt_p})
+            for k, v in (("fwd", t_k), ("fwd_plain", t_p), ("fwd_lib", t_l),
+                         ("bwd", bt_k), ("bwd_plain", bt_p)):
+                tot[k][dname] += sites * v
+        del x, x32
+        torch.cuda.empty_cache()
+    b = site_bounds_3d()
+    print(f"[{label}] K1 at the 17 3D sites, batch {n}, per step: float32 "
+          f"forward {tot['fwd']['float32']:.3f} ms (bound {b['k1'][0]:.3f}, "
+          f"plain {tot['fwd_plain']['float32']:.3f}, F.instance_norm alone "
+          f"{tot['fwd_lib']['float32']:.3f}), K1b "
+          f"{tot['bwd']['float32']:.3f} ms (bound {b['k1b'][0]:.3f}, plain "
+          f"{tot['bwd_plain']['float32']:.3f}); bfloat16 forward "
+          f"{tot['fwd']['bfloat16']:.3f} (bound {b['k1_bf16'][0]:.3f}), K1b "
+          f"{tot['bwd']['bfloat16']:.3f} (bound {b['k1b_bf16'][0]:.3f}); "
+          f"max |kernel - plain| forward {worst['fwd']['float32']:.3e}, dx "
+          f"{worst['bwd']['float32']:.3e}")
+    print("K1_SITES_3D " + json.dumps(rows))
+    return tot, worst
+
+
+def _train_3d(label, trainer, state, pipe, steps):
+    """Timed train steps on fresh patch batches (sampling included); returns
+    (state, ms/step, launches, losses)."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    for _ in range(2):  # warm-up
+        state, _ = trainer.train_step(state, pipe.gather(pipe.draw(gen)),
+                                      generator=gen)
+    torch.cuda.synchronize()
+    reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, metrics = trainer.train_step(
+            state, pipe.gather(pipe.draw(gen)), generator=gen)
+        losses.append(metrics["loss/total"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    launches = read_launches()
+    want = {k: v * steps for k, v in PER_STEP_3D.items()}
+    if launches != want:
+        raise AssertionError(f"3D launches {launches} over {steps} steps; "
+                             f"want {want}")
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"3D losses {losses}")
+    return state, step_s, launches, losses
+
+
+def phase_train_3d(label, workdir: Path):
+    """The 3D patch step at the bench configuration: Trainer.fit for one
+    epoch through PatchPipeline3D, then timed steps, in float32 (at batch
+    128, or the largest batch that fits) and bfloat16; patch sampling alone;
+    peak memory; the step by group of kernels."""
+    import torch
+    from ctseg_tpu_torch.volumetric.pipeline3d import PatchPipeline3D
+    from ctseg_tpu_torch.volumetric.trainer3d import make_trainer_3d
+
+    data = _volumes_3d(0, 4)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        batch = TRAIN_BATCH
+        while True:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                trainer = make_trainer_3d(_config_3d(dtype, batch), "patch",
+                                          PATCH_3D, DEVICE)
+                state = trainer.init_state(torch.Generator().manual_seed(0))
+                pipe = PatchPipeline3D(data, batch, PATCH_3D, 2, DEVICE)
+                val = PatchPipeline3D(data, batch, PATCH_3D, 1, DEVICE)
+                t0 = time.perf_counter()
+                state = trainer.fit(state, pipe, val, epochs=1)
+                torch.cuda.synchronize()
+                fit_s = time.perf_counter() - t0
+                state, step_s, launches, losses = _train_3d(
+                    label, trainer, state, pipe, TIMED_STEPS)
+                break
+            except torch.cuda.OutOfMemoryError:
+                trainer = state = pipe = val = None
+                if batch == 1:
+                    raise
+                print(f"[{label}] 3D {dtype} at batch {batch}: out of "
+                      "device memory; halving the batch")
+                batch //= 2
+        peak = torch.cuda.max_memory_allocated()
+        gen = torch.Generator(device=DEVICE).manual_seed(6)
+        t_sample = time_ms(lambda: pipe.gather(pipe.draw(gen)), 10)
+        print(f"[{label}] 3D patch train step, {dtype}, batch {batch} x "
+              f"{PATCH_3D}: {step_s * 1e3:.3f} ms/step, "
+              f"{batch / step_s:.2f} patches/s (host clock over "
+              f"{TIMED_STEPS} steps after 2 warm-ups, each on a fresh "
+              f"sampled batch); patch sampling alone {t_sample:.3f} ms; peak "
+              f"device memory {peak / 2**30:.3f} GiB; Trainer.fit, 1 epoch "
+              f"(2 steps + 1 validation batch) {fit_s:.3f} s; losses "
+              f"{[round(v, 5) for v in losses]}; launches {launches}")
+        out[dtype] = {"batch": batch, "ms": step_s * 1e3,
+                      "patches_per_s": batch / step_s, "peak_gib": peak / 2**30,
+                      "sample_ms": t_sample, "launches": launches}
+        if dtype == "float32":
+            if batch != TRAIN_BATCH:
+                print(f"[{label}] float32 does not fit at batch "
+                      f"{TRAIN_BATCH}; the largest batch that fits is {batch}")
+            b = pipe.gather(pipe.draw(gen))
+            images, labels = trainer.train_transform(
+                b[0], b[1], trainer.draw(gen, b[0]))
+            with torch.no_grad():
+                logits = trainer._logits(state.model.train(), images)
+            timed = {
+                "sampling": lambda: pipe.gather(pipe.draw(gen)),
+                "transform": lambda: trainer.train_transform(
+                    b[0], b[1], trainer.draw(gen, b[0])),
+                "forward alone, no_grad": lambda: _no_grad(
+                    trainer._logits, state.model, images),
+                "Dice": lambda: trainer.dice(
+                    trainer._predictions(logits, b[2]), labels),
+            }
+            parts = {k: time_ms(fn, 3) for k, fn in timed.items()}
+            print(f"[{label}] 3D float32 step by part, ms: " + "; ".join(
+                f"{k} {v:.3f}" for k, v in parts.items()))
+            del logits, images, labels
+            profile_step(label, "3D patch train step (float32)",
+                         lambda: trainer.train_step(state, b, generator=gen))
+            ckpt = workdir / "patch3d.ckpt"
+            trainer.save(ckpt, state)
+            out["ckpt"] = ckpt
+        trainer = state = pipe = val = None
+        torch.cuda.empty_cache()
+    return out
+
+
+def _no_grad(fn, *args):
+    import torch
+
+    with torch.no_grad():
+        return fn(*args)
+
+
+def phase_grad_parity_3d(label):
+    """phase_grad_parity on the 3D step at a reduced width (filters
+    GRAD_FILTERS_3D, 2 patches of GRAD_PATCH_3D)."""
+    import torch
+    from ctseg_tpu_torch.volumetric.pipeline3d import PatchPipeline3D
+    from ctseg_tpu_torch.volumetric.trainer3d import make_trainer_3d
+
+    cfg = _config_3d(batch=2, filters=GRAD_FILTERS_3D, patch=GRAD_PATCH_3D)
+    trainer = make_trainer_3d(cfg, "patch", GRAD_PATCH_3D, DEVICE)
+    state = trainer.init_state(torch.Generator().manual_seed(1))
+    pipe = PatchPipeline3D(_volumes_3d(2, 2, (40, 96, 96)), 2, GRAD_PATCH_3D,
+                           device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    batch = pipe.gather(pipe.draw(gen))
+    return phase_grad_parity(
+        label, trainer, state, batch, trainer.draw(gen, batch[0]),
+        f"float32 3D UNet {GRAD_FILTERS_3D} on 2 patches of {GRAD_PATCH_3D}")
+
+
+def _k1_shapes(fn):
+    """Run fn() and return the (shape, dtype name) -> calls of K1 that the
+    model's units made in it (recorded at the call in models/layers.py)."""
+    from ctseg_tpu_torch.models import layers
+
+    seen = {}
+    k1 = layers.instance_norm_prelu
+
+    def record(x, alpha):
+        key = (tuple(x.shape), str(x.dtype).split(".")[-1])
+        seen[key] = seen.get(key, 0) + 1
+        return k1(x, alpha)
+
+    layers.instance_norm_prelu = record
+    try:
+        fn()
+    finally:
+        layers.instance_norm_prelu = k1
+    return seen
+
+
+def _hold_k1_at(label, what, shapes, gen, backward):
+    """K1 (and with `backward` K1b and K1's training forward, as phase 16)
+    against their plain versions at each shape a main path gave it (from
+    _k1_shapes), at phase 16's tolerances: the plans pick their geometry
+    from the shape, so each shape is held where the path launched it. Per
+    shape the forward's time (the training form with `backward`), its
+    bytes' bound and share, and the plain version's; the totals over the
+    path's calls. Returns the rows."""
+    import torch
+    from ctseg_tpu_torch.ops import instance_norm as k1
+
+    rows = []
+    for (shape, dname), calls in sorted(shapes.items()):
+        x32 = _k1_input(gen, shape)
+        row = {"shape": list(shape), "dtype": dname, "calls": calls}
+        if backward:
+            g32 = torch.randn(shape, generator=gen, device=DEVICE)
+            err, t_b, t_bp = _k1b_site(label, x32, g32, calls,
+                                       f"calls in {what}", 3, (dname,))[dname]
+            row.update(k1b_ms=t_b, k1b_plain_ms=t_bp, k1b_err=err,
+                       k1b_bound_ms=3 * x32.numel()
+                       * getattr(torch, dname).itemsize / PEAK_BYTES * 1e3)
+            del g32
+        x = x32.to(getattr(torch, dname))
+        alpha = torch.full((1,), 0.25, device=DEVICE)
+        y = k1.instance_norm_prelu(x, alpha)
+        err = check_close(f"K1 {shape} {dname} ({what})", y[..., 1:],
+                          k1.instance_norm_prelu_plain(x, alpha)[..., 1:],
+                          *TOL[("k1", dname)])
+        if not torch.equal(y, k1.instance_norm_prelu(x, alpha)):
+            raise AssertionError(f"K1 {shape} {dname}: two runs differ")
+        n, c = shape[0], shape[-1]
+        plan = k1.fwd_cluster_plan(n, x.numel() // (n * c), c,
+                                   x.element_size())
+        form = "two-phase" if plan is None else (
+            f"read-once in clusters of {plan['size']}")
+        t_k = time_ms(lambda: k1._forward(x, alpha, train=backward), 10)
+        t_p = time_ms(lambda: k1._fwd_plain(x, alpha), 3)
+        bound = 2 * x.numel() * x.element_size() / PEAK_BYTES * 1e3
+        print(f"[{label}] K1 {shape} {dname}, as {what} launches it "
+              f"({calls} calls): max |kernel - plain| {err:.3e}, {form}; "
+              f"{'training ' if backward else ''}forward {t_k:.4f} ms (bound "
+              f"{bound:.4f}, share {bound / t_k:.2f}), plain {t_p:.4f}")
+        row.update(k1_ms=t_k, k1_plain_ms=t_p, k1_bound_ms=bound, k1_err=err)
+        rows.append(row)
+        del x, x32, y
+    torch.cuda.empty_cache()
+    tot = {k: sum(r["calls"] * r[k] for r in rows)
+           for k in rows[0] if k.endswith("_ms")}
+    print(f"[{label}] K1 over {what}'s calls, ms: " + "; ".join(
+        f"{k[:-3]} {v:.3f}" for k, v in tot.items()))
+    print(f"K1_SITES_OF {what}: " + json.dumps(rows))
+    return rows
+
+
+def phase_train_resize_3d(label):
+    """The model_3d preset (resize mode, batch 1 at 256x256x96, raw HU,
+    CrossEntropy): Trainer.fit for one epoch on 2 resized volumes, then
+    RESIZE_STEPS timed steps."""
+    import dataclasses
+
+    import torch
+    from ctseg_tpu_torch.models.presets import PRESETS
+    from ctseg_tpu_torch.volumetric.pipeline3d import DevicePipeline3D
+    from ctseg_tpu_torch.volumetric.trainer3d import make_trainer_3d
+
+    cfg = dataclasses.replace(PRESETS["model_3d"], epochs=1)
+    trainer = make_trainer_3d(cfg, "resize", device=DEVICE)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    data = _volumes_3d(3, 2)
+    pipe = DevicePipeline3D(data, 1, tuple(cfg.input_shape), DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.fit(state, pipe, pipe, epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    batch = next(pipe.epoch())
+    shapes = _k1_shapes(lambda: trainer.train_step(state, batch))
+    state, _ = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(RESIZE_STEPS):
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(metrics["loss/total"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / RESIZE_STEPS
+    launches = read_launches()
+    want = {k: v * RESIZE_STEPS for k, v in PER_STEP_3D.items()}
+    if launches != want:
+        raise AssertionError(f"model_3d launches {launches}; want {want}")
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"model_3d losses on one batch: {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{label}] model_3d preset (resize mode, float32, batch 1 at "
+          f"{tuple(cfg.input_shape)}, CrossEntropy): {step_s * 1e3:.3f} "
+          f"ms/step over {RESIZE_STEPS} steps on one batch; Trainer.fit, 1 "
+          f"epoch of 2 volumes with validation {fit_s:.3f} s; peak "
+          f"{peak / 2**30:.3f} GiB; losses {[round(v, 5) for v in losses]}; "
+          f"launches {launches}")
+    trainer = state = pipe = batch = None
+    torch.cuda.empty_cache()
+    _hold_k1_at(label, "the model_3d step", shapes,
+                torch.Generator(device=DEVICE).manual_seed(8), backward=True)
+    return {"ms": step_s * 1e3, "peak_gib": peak / 2**30}
+
+
+def phase_evaluate_3d(label, ckpt: Path):
+    """evaluate_3d_sliding_window with HD95 on 3 volumes of mixed depths
+    with spacings, by the patch-mode checkpoint of phase 17: launches,
+    vols/min with and without HD95, HD95's parts on one volume; the device
+    HD95 of one volume against scipy; the whole evaluation held to the plain
+    path on a CPU copy of one small volume."""
+    import torch
+    from ctseg_tpu_torch.inference.evaluate import (
+        evaluate_3d_sliding_window, format_table, sliding_window_throughput,
+    )
+    from ctseg_tpu_torch.inference.sliding_window import (
+        compute_window_grid, padded_shape,
+    )
+    from ctseg_tpu_torch.training.config import load_checkpoint
+
+    cfg, model = load_checkpoint(ckpt, DEVICE)
+    data = _volumes_3d(4, 3, tuple((d,) + EVAL_HW_3D for d in EVAL_DEPTHS_3D),
+                       boxes=True, spacings=True)
+    kw = dict(patch_size=EVAL_PATCH_3D, overlap=0.5,
+              batch_size=EVAL_BATCH_3D, device=DEVICE)
+    shapes = _k1_shapes(lambda: evaluate_3d_sliding_window(
+        model, cfg, data, with_hd95=True, **kw))
+    reset_launches()
+    result = evaluate_3d_sliding_window(model, cfg, data, with_hd95=True,
+                                        **kw)
+    launches = read_launches()
+    batches = sum(-(-len(compute_window_grid(
+        padded_shape((h, w, d), EVAL_PATCH_3D), EVAL_PATCH_3D, 0.5))
+        // EVAL_BATCH_3D) for d, h, w in (v.shape for v in data.images))
+    n = len(data.images)
+    want = {"k4": 0, "k1": 17 * batches, "k1b": 0, "k2": 0, "k2b": 0,
+            "k5": 2 * n, "scan": n, "signed": 0}
+    if launches != want:
+        raise AssertionError(f"3D evaluation launched {launches} over {n} "
+                             f"volumes, {batches} window batches; want {want}")
+    hd = [v for v in result["per_structure_hd95"].values() if v is not None]
+    if result["hd95_unit"] != "mm" or not hd or not all(np.isfinite(hd)):
+        raise AssertionError(f"3D evaluation: {result}")
+    print(format_table(result))
+    no_hd95 = evaluate_3d_sliding_window(model, cfg, data, **kw)
+    share = 1.0 - result["vols_per_min"] / no_hd95["vols_per_min"]
+    steady = sliding_window_throughput(model, cfg, data, EVAL_PATCH_3D, 0.5,
+                                       EVAL_BATCH_3D, reps=1, device=DEVICE)
+    print(f"[{label}] 3D evaluation, patch-mode checkpoint float32, volumes "
+          f"{EVAL_HW_3D} x {EVAL_DEPTHS_3D}, patch {EVAL_PATCH_3D}, overlap 0.5, "
+          f"batch {EVAL_BATCH_3D}: {result['vols_per_min']:.2f} vols/min "
+          f"with HD95 (mm), {no_hd95['vols_per_min']:.2f} without: HD95 is "
+          f"{share:.3f} of the time; steady state without metrics "
+          f"{steady['vols_per_min']:.2f} vols/min; {batches} window batches, "
+          f"{result['compiled_programs']} window grids; launches {launches}")
+    _hold_k1_at(label, "the 3D evaluation", shapes,
+                torch.Generator(device=DEVICE).manual_seed(9), backward=False)
+    parts = _hd95_parts_3d(label, model, cfg, data)
+    _evaluate_3d_held(label, cfg, model)
+    return launches, parts
+
+
+def _hd95_parts_3d(label, model, cfg, data):
+    """HD95's device time by part on the first (deepest) volume, and its
+    value on the last against the scipy host path."""
+    import torch
+    from ctseg_tpu_torch.inference.predict import predict_labels_3d
+    from ctseg_tpu_torch.metrics import hd95
+    from ctseg_tpu_torch.ops import edt
+    from ctseg_tpu_torch.ops.min_plus import min_plus, min_plus_plain
+
+    def labels_of(i):
+        """(predicted, annotated) (H, W, D) label maps of volume i."""
+        preds = predict_labels_3d(model, cfg, data.images[i], DEVICE,
+                                  EVAL_PATCH_3D, 0.5, EVAL_BATCH_3D)
+        return tuple(torch.from_numpy(a).to(DEVICE).movedim(0, -1)
+                     for a in (preds, data.labels[i]))
+
+    preds, target = labels_of(0)
+    spc = data.spacings[0][[1, 2, 0]]
+    spacing = torch.from_numpy(spc).to(DEVICE)
+    h, w, d = preds.shape
+    classes = torch.arange(1, 10, device=DEVICE).reshape(9, 1, 1, 1)
+
+    def surfaces():
+        return (hd95._surface_device(preds.unsqueeze(0) == classes, 3),
+                hd95._surface_device(target.unsqueeze(0) == classes, 3))
+
+    ps, ts = surfaces()
+    masks = torch.logical_not(torch.stack([ts, ps])).reshape(-1, h * w, d)
+    col = spacing[2].repeat(18).contiguous()
+    d2 = edt.row_scan(masks, col)
+    d2a = min_plus(d2.reshape(18, h, w * d), spacing[0].repeat(18))
+    d2b = d2a.reshape(18 * h, w, d)
+    done = min_plus(d2b, spacing[1].repeat(18 * h))
+    # The row scan and both K5 passes at the shapes the evaluation gives
+    # them, on this volume's own maps, bit-equal to their plain versions.
+    for name, out, plain in (
+            ("row scan", d2, lambda: edt.row_scan_plain(masks, col)),
+            ("K5 along H", d2a, lambda: min_plus_plain(
+                d2.reshape(18, h, w * d), spacing[0].repeat(18))),
+            ("K5 along W", done, lambda: min_plus_plain(
+                d2b, spacing[1].repeat(18 * h)))):
+        if not torch.equal(out, plain()):
+            raise AssertionError(f"3D HD95's {name} {tuple(out.shape)} "
+                                 "differs from its plain version")
+    print(f"[{label}] 3D HD95's row scan {tuple(masks.shape)} and K5 "
+          f"passes {(18, h, w * d)} and {tuple(d2b.shape)}: bit-equal to "
+          "their plain versions on one volume's maps")
+    done = done.reshape(2, 9, -1)
+    flat_p, flat_t = ps.reshape(9, -1), ts.reshape(9, -1)
+    parts = {
+        "surfaces": surfaces,
+        "row scan (along D)": lambda: edt.row_scan(masks, col),
+        "K5 along H": lambda: min_plus(d2.reshape(18, h, w * d),
+                                       spacing[0].repeat(18)),
+        "K5 along W": lambda: min_plus(d2b, spacing[1].repeat(18 * h)),
+        "percentiles (sort)": lambda: (
+            hd95._masked_percentile_sqrt(done[0], flat_p, 95.0),
+            hd95._masked_percentile_sqrt(done[1], flat_t, 95.0)),
+    }
+    ms = {k: time_ms(fn, 3) for k, fn in parts.items()}
+    whole = time_ms(lambda: hd95.hd95_per_structure_device(
+        preds, target, spacing=spacing), 3)
+    # Bytes' bounds: the scan reads 18 boolean maps and writes them as
+    # float32; a K5 pass reads and writes 18 float32 maps.
+    voxels = 18 * h * w * d
+    bounds = {"scan": bound_ms(0, 5 * voxels), "k5": bound_ms(0, 8 * voxels)}
+    print(f"[{label}] HD95 of one {(h, w, d)} volume by part, ms: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f"; the whole function {whole:.3f}; the rest "
+          f"{whole - sum(ms.values()):.3f}; the row scan's rows have "
+          f"{d} elements (its segment loop starts above 256); bytes' bounds: "
+          f"the scan {bounds['scan'][0]:.4f} ms "
+          f"({bounds['scan'][0] / ms['row scan (along D)']:.2f} of its time),"
+          f" a K5 pass {bounds['k5'][0]:.4f} ms "
+          f"({bounds['k5'][0] / ms['K5 along H']:.2f} and "
+          f"{bounds['k5'][0] / ms['K5 along W']:.2f})")
+    # against scipy on the shallowest volume (scipy's EDT takes seconds a
+    # map at this size)
+    preds, target = labels_of(len(data.images) - 1)
+    spc = data.spacings[-1][[1, 2, 0]]
+    value, valid = hd95.hd95_per_structure_device(
+        preds, target, spacing=torch.from_numpy(spc).to(DEVICE))
+    host = hd95.hd95_per_structure(preds.cpu().numpy(), target.cpu().numpy(),
+                                   spacing=spc)
+    value, valid = value.cpu().numpy(), valid.cpu().numpy()
+    if not np.array_equal(valid, ~np.isnan(host)) or not valid.any():
+        raise AssertionError(f"3D HD95 valid {valid} vs scipy {host}")
+    rel = float((np.abs(value - host)[valid] / host[valid]).max())
+    if not rel <= HD95_RTOL:
+        raise AssertionError(f"3D device HD95 vs scipy: {rel:.3e}")
+    print(f"[{label}] 3D device HD95 vs scipy on one {tuple(preds.shape)} "
+          "volume: "
+          f"{int(valid.sum())} structures, worst relative difference "
+          f"{rel:.3e} (bound {HD95_RTOL:.0e})")
+    return {"scan": (ms["row scan (along D)"], bounds["scan"][0]),
+            "k5": (ms["K5 along H"] + ms["K5 along W"], 2 * bounds["k5"][0])}
+
+
+def _evaluate_3d_held(label, cfg, model):
+    """The 3D evaluation with the kernels against the plain path, a CPU copy
+    of the model, on one small volume: the blended logits, HD95 of the same
+    label maps, and the whole evaluation's Dice."""
+    import copy
+
+    import torch
+    from ctseg_tpu_torch.inference.evaluate import evaluate_3d_sliding_window
+    from ctseg_tpu_torch.inference.sliding_window import (
+        AIR_HU, pad_volume_dhw, padded_shape, volume_logits,
+    )
+    from ctseg_tpu_torch.metrics.hd95 import hd95_per_structure_device
+
+    data = _volumes_3d(5, 1, HELD_VOLUME_3D, boxes=True, spacings=True)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    d, h, w = HELD_VOLUME_3D
+    shape = padded_shape((h, w, d), HELD_PATCH_3D)
+    img = torch.from_numpy(
+        pad_volume_dhw(data.images[0], shape, AIR_HU)).movedim(0, -1)
+    t0 = time.perf_counter()
+    plain = volume_logits(cpu_model, img, HELD_PATCH_3D, 0.5, 2, True)
+    cpu_s = time.perf_counter() - t0
+    card = volume_logits(model, img.to(DEVICE), HELD_PATCH_3D, 0.5, 2,
+                         True).cpu()
+    logit_err = float(((card - plain).abs() / (1 + plain.abs())).max())
+    agree = float((card.argmax(-1) == plain.argmax(-1)).float().mean())
+    if not logit_err <= LOGIT_TOL or not agree >= MIN_AGREEMENT:
+        raise AssertionError(f"3D blended logits, card vs CPU: {logit_err:.3e}"
+                             f", argmax agreement {agree:.5f}")
+    preds = card.argmax(-1)[:h, :w, :d]
+    target = torch.from_numpy(data.labels[0]).movedim(0, -1)
+    spacing = torch.from_numpy(data.spacings[0][[1, 2, 0]])
+    v_card, ok_card = hd95_per_structure_device(
+        preds.to(DEVICE), target.to(DEVICE), spacing=spacing.to(DEVICE))
+    v_cpu, ok_cpu = hd95_per_structure_device(preds, target, spacing=spacing)
+    ok = ok_cpu.numpy()
+    if not np.array_equal(ok_card.cpu().numpy(), ok) or not ok.any():
+        raise AssertionError(f"3D HD95 valid: {ok_card} vs {ok_cpu}")
+    hd_rel = float(((v_card.cpu() - v_cpu).abs() / v_cpu)[ok_cpu].max())
+    if not hd_rel <= HD95_RTOL:
+        raise AssertionError(f"3D HD95, card vs CPU on one map: {hd_rel:.3e}")
+    kw = dict(patch_size=HELD_PATCH_3D, overlap=0.5, batch_size=2,
+              with_hd95=True)
+    on_card = evaluate_3d_sliding_window(model, cfg, data, device=DEVICE,
+                                         **kw)
+    on_cpu = evaluate_3d_sliding_window(cpu_model, cfg, data, device="cpu",
+                                        **kw)
+    dice = max(abs(on_card["per_structure_dice"][s] - v)
+               for s, v in on_cpu["per_structure_dice"].items())
+    if dice > DICE_TOL_3D:
+        raise AssertionError(f"3D evaluation Dice, card vs CPU: {dice:.3e}")
+    print(f"[{label}] 3D evaluation of one {HELD_VOLUME_3D} volume, the "
+          f"card's kernels against a CPU copy's plain path: blended logits "
+          f"within {logit_err:.3e} of (1 + |plain|) (bound {LOGIT_TOL:.0e}), "
+          f"argmax agreement {agree:.5f}; HD95 of the same map within "
+          f"{hd_rel:.3e} relative on {int(ok.sum())} structures (bound "
+          f"{HD95_RTOL:.0e}); the whole evaluation's Dice within {dice:.3e} "
+          f"(bound {DICE_TOL_3D:.0e}); the CPU's logits took {cpu_s:.1f} s")
+
+
+def phase_serve_3d(label, workdir: Path, ckpt: Path):
+    """predict_scan and one served request of the patch-mode checkpoint."""
+    import torch
+    from ctseg_tpu_torch.inference.predict import predict_scan
+    from ctseg_tpu_torch.inference.serve import SegmentationService, serve
+    from ctseg_tpu_torch.testing.synth import make_patient
+    from ctseg_tpu_torch.utils import nrrd_io
+    from ctseg_tpu_torch.utils.miccai import Volume
+
+    scan = make_patient(workdir / "0522c0100", shape=SCAN, seed=9,
+                        with_landmarks=False)
+    service = SegmentationService(str(ckpt), DEVICE, patch_size=EVAL_PATCH_3D)
+    volume = Volume.from_nrrd(scan / "img.nrrd")
+    shapes = _k1_shapes(lambda: predict_scan(
+        service.model, service.config, volume, DEVICE,
+        patch_size=EVAL_PATCH_3D))
+    t0 = time.perf_counter()
+    labels = predict_scan(service.model, service.config, volume, DEVICE,
+                          patch_size=EVAL_PATCH_3D)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    if labels.shape != SCAN or labels.dtype != np.uint8 or labels.max() > 9:
+        raise AssertionError(f"3D predict_scan gave {labels.shape} "
+                             f"{labels.dtype}")
+    httpd = serve(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        t0 = time.perf_counter()
+        status, payload = _request(httpd.server_address[1], "POST",
+                                   "/segment", (scan / "img.nrrd").read_bytes())
+        lat = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    if status != 200:
+        raise AssertionError(f"/segment answered {status}: {payload[:300]!r}")
+    out = workdir / "seg3d.nrrd"
+    out.write_bytes(payload)
+    served, _ = nrrd_io.read(out)
+    moved = int((np.transpose(served, (2, 0, 1)) != labels).sum())
+    if moved > 1e-3 * labels.size:
+        raise AssertionError(f"served map differs from predict_scan's in "
+                             f"{moved} voxels")
+    print(f"[{label}] 3D checkpoint: predict_scan of one {SCAN} scan "
+          f"(cropped to the anatomical box) {predict_s:.3f} s; one served "
+          f"request {lat:.3f} s, {moved} voxels from predict_scan's map")
+    _hold_k1_at(label, "3D predict", shapes,
+                torch.Generator(device=DEVICE).manual_seed(10),
+                backward=False)
+
+
 def main() -> int:
     import torch
 
@@ -1864,6 +2630,16 @@ def main() -> int:
         ckpt_m, launches_m, _ = phase_train_model_m(label, Path(tmp))
         torch.cuda.empty_cache()
         launches_eval, _ = phase_evaluate(label, ckpt_m)
+        torch.cuda.empty_cache()
+        k1_3d, _ = phase_k1_3d(label, gen)
+        train_3d = phase_train_3d(label, Path(tmp))
+        phase_grad_parity_3d(label)
+        torch.cuda.empty_cache()
+        phase_train_resize_3d(label)
+        torch.cuda.empty_cache()
+        launches_eval_3d, hd95_3d = phase_evaluate_3d(label,
+                                                      train_3d["ckpt"])
+        phase_serve_3d(label, Path(tmp), train_3d["ckpt"])
 
     bounds = site_bounds()
     bounds["k5"] = k5_times["step maps"][2:4]
@@ -1962,6 +2738,23 @@ def main() -> int:
     kernels += [scan, signed]
     kernels[0]["launches_serve"] = serve_launches["k1"]
     kernels[2]["launches_serve"] = serve_launches["k2"]
+    # The 3D paths: launches over phase 17's timed float32 steps and phase
+    # 20's evaluation; K1f's and K1b's float32 totals over the 17 3D sites.
+    bounds_3d = site_bounds_3d()
+    keys = ("k1", "k1b", "k2", "k2b", "k4", "k5", "scan", "signed")
+    for k, key in zip(kernels, keys, strict=True):
+        k["launches_3d"] = train_3d["float32"]["launches"][key]
+        k["launches_3d_eval"] = launches_eval_3d[key]
+    for i, key, fwd in ((0, "k1", "fwd"), (1, "k1b", "bwd")):
+        kernels[i].update(
+            ms_3d=k1_3d[fwd]["float32"],
+            plain_ms_3d=k1_3d[fwd + "_plain"]["float32"],
+            bound_ms_3d=bounds_3d[key][0], bound_by_3d=bounds_3d[key][1],
+            ms_3d_bf16=k1_3d[fwd]["bfloat16"],
+            bound_ms_3d_bf16=bounds_3d[key + "_bf16"][0])
+    kernels[0]["library_ms_norm_3d"] = k1_3d["fwd_lib"]["float32"]
+    for k, key in ((k5, "k5"), (scan, "scan")):
+        k.update(ms_3d_eval=hd95_3d[key][0], bound_ms_3d_eval=hd95_3d[key][1])
     print(f"(launches: phase 9's {TIMED_STEPS} timed Model L train steps, for "
           f"K5 and the EDT kernels phase 14's {TIMED_STEPS} Model M steps; "
           "launches_model_m: phase 14's; launches_serve: phase 4's requests; "
@@ -1986,7 +2779,11 @@ def main() -> int:
           "batch's surfaces; K4's ms_k_0_2 and ms_k_1_3: every draw at k "
           "in {0, 2} and at k in {1, 3}, bound_ms: the crop read once and "
           "the output written once; the scan's *_long_rows: 8 label maps of "
-          "32 rows of 8192)")
+          "32 rows of 8192; launches_3d: phase 17's timed float32 3D steps, "
+          "launches_3d_eval: phase 20's 3D evaluation; K1's and K1b's "
+          "*_3d: one 3D step's 17 sites at batch 128 (K1: the training "
+          "forward); K5's and the scan's *_3d_eval: the HD95 of one "
+          "280x280x120 volume (K5: both passes))")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

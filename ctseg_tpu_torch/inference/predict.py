@@ -1,4 +1,4 @@
-"""Single-scan segmentation (port of ctseg_tpu/inference/predict.py, 2D).
+"""Single-scan segmentation (port of ctseg_tpu/inference/predict.py).
 
 A checkpoint's slice model segments one scan, a patient directory or a
 whole split, and writes, per patient:
@@ -7,11 +7,13 @@ whole split, and writes, per patient:
                                          the input header's space carried over)
   <out>/<patient>/structures/<name>.nrrd binary mask per structure
 
-Slices run through the checkpoint's test transform (windowing + resize +
-normalize), the model, argmax, and a nearest resize back to the native
-in-plane size. With crop (the default) prediction happens inside the
-anatomical head-and-neck box and is pasted into a background volume. 3D
-checkpoints wait for the port's 3D slice.
+A 2D checkpoint's slices run through its test transform (windowing +
+resize + normalize), the model, argmax, and a nearest resize back to the
+native in-plane size. A 3D checkpoint (its config's `spatial_dims`) runs
+native-resolution sliding-window inference with Gaussian blending
+(inference/sliding_window.py). With crop (the default) prediction happens
+inside the anatomical head-and-neck box and is pasted into a background
+volume.
 
 Usage:
   python -m ctseg_tpu_torch.inference.predict --checkpoint model.ckpt \\
@@ -20,13 +22,18 @@ Usage:
 
 from argparse import ArgumentParser
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ctseg_tpu_torch.constants import NUM_CLASSES, STRUCTURES
+from ctseg_tpu_torch.inference.sliding_window import (
+    AIR_HU,
+    volume_labels,
+    volume_to_device,
+)
 from ctseg_tpu_torch.ops.masks import squash_predictions
 from ctseg_tpu_torch.training.config import (
     TrainConfig,
@@ -71,6 +78,29 @@ def predict_labels_2d(
     return out
 
 
+def predict_labels_3d(
+    model: torch.nn.Module,
+    config: TrainConfig,
+    volume: np.ndarray,
+    device="cuda",
+    patch_size: Tuple[int, int, int] = (128, 128, 48),
+    overlap: float = 0.5,
+    batch_size: int = 4,
+) -> np.ndarray:
+    """(D, H, W) raw HU -> (D, H, W) uint8 via sliding-window blending.
+
+    An axis shorter than the patch is padded with air (-1024 HU) up to it;
+    the volume stays in its own dtype until it is on the device. Patch-mode
+    checkpoints see the soft-tissue window they trained on, resize-mode
+    ones raw HU, as in the reference.
+    """
+    d, h, w = volume.shape
+    image = volume_to_device(volume, patch_size, AIR_HU, device)
+    labels = volume_labels(model, image, patch_size, overlap, batch_size,
+                           window=config.volumetric_mode == "patch")
+    return labels[:h, :w, :d].movedim(-1, 0).to(torch.uint8).cpu().numpy()
+
+
 def predict_scan(
     model: torch.nn.Module,
     config: TrainConfig,
@@ -78,22 +108,26 @@ def predict_scan(
     device,
     crop: bool = True,
     batch_size: int = 32,
+    patch_size: Tuple[int, int, int] = (128, 128, 48),
+    overlap: float = 0.5,
 ) -> np.ndarray:
-    """Segment one scan -> (D, H, W) uint8 label map at native resolution."""
-    if config.spatial_dims != 2:
-        raise NotImplementedError(
-            "3D checkpoints wait for the port's 3D slice (ROADMAP.md, "
-            "modules to port: 3D)"
-        )
+    """Segment one scan -> (D, H, W) uint8 label map at native resolution.
+    `batch_size` counts a 2D model's slices; a 3D model takes windows of
+    `patch_size` with `overlap`, 4 at a time."""
     data = volume.as_numpy()[0]  # (D, H, W)
     box = CropBox.anatomical(data.shape[0]) if crop else None
     region = box.apply(data[None])[0] if box else data
 
-    transform = get_transform(
-        config.transform_degree, train=False, size=(config.input_size,) * 2
-    )
-    labels = predict_labels_2d(model, transform, region, device, batch_size,
-                               dtype=model_dtype(config))
+    if config.spatial_dims == 3:
+        labels = predict_labels_3d(model, config, region, device,
+                                   patch_size=patch_size, overlap=overlap)
+    else:
+        transform = get_transform(
+            config.transform_degree, train=False,
+            size=(config.input_size,) * 2
+        )
+        labels = predict_labels_2d(model, transform, region, device,
+                                   batch_size, dtype=model_dtype(config))
     if box is None:
         return labels
     full = np.zeros(data.shape, np.uint8)
@@ -166,6 +200,10 @@ def main():
         "--no_crop", action="store_true",
         help="segment the full volume instead of the anatomical box",
     )
+    parser.add_argument("--patch_size", type=int, nargs=3,
+                        default=(128, 128, 48), help="3D checkpoints only")
+    parser.add_argument("--overlap", type=float, default=0.5,
+                        help="3D checkpoints only")
     parser.add_argument("--no_structures", action="store_true",
                         help="write only the label map")
     args = parser.parse_args()
@@ -174,7 +212,8 @@ def main():
     for name, img_path in _scan_paths(Path(args.input)):
         volume = Volume.from_nrrd(img_path)
         labels = predict_scan(
-            model, config, volume, args.device, crop=not args.no_crop
+            model, config, volume, args.device, crop=not args.no_crop,
+            patch_size=tuple(args.patch_size), overlap=args.overlap,
         )
         write_artifacts(
             Path(args.out) / name, labels, volume.header,

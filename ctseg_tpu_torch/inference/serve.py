@@ -1,4 +1,4 @@
-"""Warm segmentation server (port of ctseg_tpu/inference/serve.py, 2D).
+"""Warm segmentation server (port of ctseg_tpu/inference/serve.py).
 
 One process loads the checkpoint once, builds the CUDA kernels before the
 first request, and serves concurrent clients with a threading HTTP server;
@@ -14,6 +14,9 @@ Endpoints:
        ?counts=1           -> JSON per-structure voxel counts instead.
        ?crop=0             -> segment the full volume instead of the
                               anatomical head-and-neck box.
+
+A 3D checkpoint segments by sliding windows of --patch_size with
+--overlap (inference/predict.py::predict_labels_3d).
 
 Usage:
   python -m ctseg_tpu_torch.inference.serve --checkpoint model.ckpt \\
@@ -44,8 +47,12 @@ from ctseg_tpu_torch.utils.miccai import Volume
 class SegmentationService:
     """Checkpoint loaded once on `device`; thread-safe `segment`."""
 
-    def __init__(self, checkpoint: str, device="cuda", crop: bool = True):
+    def __init__(self, checkpoint: str, device="cuda", crop: bool = True,
+                 patch_size: Tuple[int, int, int] = (128, 128, 48),
+                 overlap: float = 0.5):
         self.device = torch.device(device)
+        self.patch_size = tuple(patch_size)
+        self.overlap = overlap
         self.config, self.model = load_checkpoint(checkpoint, self.device)
         if self.device.type == "cuda":
             _build.library()  # compile the kernels before the first request
@@ -80,6 +87,7 @@ class SegmentationService:
             labels = predict_scan(
                 self.model, self.config, volume, self.device,
                 crop=self.crop if crop is None else crop,
+                patch_size=self.patch_size, overlap=self.overlap,
             )
             with self._stats_lock:
                 self.served += 1
@@ -189,10 +197,15 @@ def main():
         "--warmup", type=int, nargs=3, default=None, metavar=("D", "H", "W"),
         help="run one blank scan of this shape before accepting traffic",
     )
+    parser.add_argument("--patch_size", type=int, nargs=3,
+                        default=(128, 128, 48), help="3D checkpoints only")
+    parser.add_argument("--overlap", type=float, default=0.5,
+                        help="3D checkpoints only")
     args = parser.parse_args()
 
     service = SegmentationService(
-        args.checkpoint, device=args.device, crop=not args.no_crop
+        args.checkpoint, device=args.device, crop=not args.no_crop,
+        patch_size=tuple(args.patch_size), overlap=args.overlap,
     )
     if args.warmup:
         secs = service.warmup(tuple(args.warmup))

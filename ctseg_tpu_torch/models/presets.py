@@ -4,8 +4,9 @@ ctseg_tpu/models/presets.py).
 Model L: 26M params, Focal+Dice, 2 residual units, exclude-missing masking.
 Model M: weighted mixup, Focal+Dice+Boundary, 1 residual unit.
 Both: filters 64..1024, batch 128, lr 1e-3, 200 epochs, trained on
-train+valid for the final numbers. The 3D configuration is listed for the
-record; the port's trainer refuses it until its 3D slice.
+train+valid for the final numbers. Model 3D: the reference's volumetric
+parity configuration (whole volumes resized to 256x256x96, CrossEntropy,
+batch 1), trained by the `train_3d` subcommand.
 """
 
 from ctseg_tpu_torch.training.config import TrainConfig

@@ -1,4 +1,4 @@
-"""Residual UNet with MONAI's module tree (port of ctseg_tpu/models/unet.py, 2D).
+"""Residual UNet with MONAI's module tree (port of ctseg_tpu/models/unet.py).
 
 The reference trains `monai.networks.nets.UNet` (capstone/models/__init__.py:3,
 configured at capstone/training/base_trainer.py:64-79). This builds the same
@@ -17,8 +17,10 @@ loads with `load_state_dict`:
     the transposed conv, conv-only at the top level.
   - Skip connections concatenate [skip, upsampled] along channels.
 
-Inputs and outputs are NCHW tensors; keep them channels_last (see
-models/layers.py).
+Inputs and outputs are (N, C, *spatial) tensors, 2D (N, C, H, W) or 3D
+(N, C, H, W, D) as `spatial_dims` says; keep them channels_last (see
+models/layers.py). The reference's TPU layout switches (`_constrain_depth`,
+`packed_depth`, `packed_up_fwd`, `polyphase_up`) have no counterpart.
 """
 
 from typing import Optional, Sequence
@@ -30,7 +32,7 @@ from ctseg_tpu_torch.models.layers import (
     ConvTransposeUnit,
     ConvUnit,
     ResidualUnit,
-    conv2d,
+    conv,
     reset_parameters,
 )
 
@@ -56,10 +58,12 @@ class UNet(nn.Module):
         num_res_units: int = 0,
         kernel_size: int = 3,
         up_kernel_size: int = 3,
+        spatial_dims: int = 2,
     ):
         super().__init__()
         if len(channels) != len(strides) + 1:
             raise ValueError("need one more channel spec than strides")
+        self.spatial_dims = spatial_dims
         self.num_res_units = num_res_units
         self.kernel_size = kernel_size
         self.up_kernel_size = up_kernel_size
@@ -85,18 +89,22 @@ class UNet(nn.Module):
     def _down(self, inc: int, outc: int, stride: int) -> nn.Module:
         if self.num_res_units > 0:
             return ResidualUnit(inc, outc, self.kernel_size, stride,
-                                subunits=self.num_res_units)
-        return ConvUnit(inc, outc, self.kernel_size, stride)
+                                subunits=self.num_res_units,
+                                spatial_dims=self.spatial_dims)
+        return ConvUnit(inc, outc, self.kernel_size, stride,
+                        spatial_dims=self.spatial_dims)
 
     def _up(self, inc: int, outc: int, stride: int, is_top: bool) -> nn.Module:
         conv = ConvTransposeUnit(
             inc, outc, self.up_kernel_size, stride,
             conv_only=is_top and self.num_res_units == 0,
+            spatial_dims=self.spatial_dims,
         )
         if self.num_res_units == 0:
             return conv
         ru = ResidualUnit(outc, outc, self.kernel_size, 1, subunits=1,
-                          last_conv_only=is_top)
+                          last_conv_only=is_top,
+                          spatial_dims=self.spatial_dims)
         return nn.Sequential(conv, ru)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -123,6 +131,7 @@ class SegmentationModel(nn.Module):
         strides: Optional[Sequence[int]] = None,
         num_res_units: int = 0,
         downsample: bool = False,
+        spatial_dims: int = 2,
         device=None,
         dtype: Optional[torch.dtype] = None,
         generator: Optional[torch.Generator] = None,
@@ -130,10 +139,12 @@ class SegmentationModel(nn.Module):
         super().__init__()
         channels = tuple(channels)
         strides = tuple(strides or (2,) * (len(channels) - 1))
-        self.conv1x1 = nn.Conv2d(in_channels, 1, 1) if downsample else None
+        conv1x1 = {2: nn.Conv2d, 3: nn.Conv3d}[spatial_dims]
+        self.conv1x1 = conv1x1(in_channels, 1, 1) if downsample else None
+        self.spatial_dims = spatial_dims
         self.unet = UNet(
             1 if downsample else in_channels, out_channels, channels, strides,
-            num_res_units,
+            num_res_units, spatial_dims=spatial_dims,
         )
         if generator is not None:
             reset_parameters(self, generator)
@@ -143,9 +154,9 @@ class SegmentationModel(nn.Module):
         self.to(device=device, dtype=param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, C, H, W) images -> (N, out_channels, H, W) logits in the
-        compute dtype."""
+        """(N, C, *spatial) images -> (N, out_channels, *spatial) logits in
+        the compute dtype."""
         x = x.to(self.compute_dtype)
         if self.conv1x1 is not None:
-            x = conv2d(self.conv1x1, x)
+            x = conv(self.conv1x1, x)
         return self.unet(x)

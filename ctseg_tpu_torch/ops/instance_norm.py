@@ -44,6 +44,11 @@ EPS = 1e-5
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 BWD_THREADS = 256  # threads per block of K1b (kBwdThreads)
 BWD_TARGET_BLOCKS = 132 * 16  # blocks K1b aims for: 16 on each of 132 SMs
+# Chunks a sample at most in the two-phase forms: the statistics between
+# their phases add a sample's chunks one after another, one thread a channel,
+# so at batch 1 and 4 more chunks cost more than they spread
+# (csrc/tools/sweep_k1_chunks.py).
+MAX_CHUNKS = 128
 CLUSTER_THREADS = 512  # threads per block of K1b's read-once form
 CLUSTER_TILE_BYTES = 128 * 1024  # x and g rows a block holds in shared memory
 FWD_CLUSTER_THREADS = 256  # threads per block of K1's read-once form
@@ -105,9 +110,10 @@ def _split_plan(n: int, s: int, c: int, itemsize: int, aligned: bool,
     rr = BWD_THREADS // wc
     coltiles = -(-q // wc)
     rows_total = s // (vec // g)
-    # Enough chunks to fill the card, each at least 4 iterations long.
+    # Enough chunks to fill the card, each at least 4 iterations long, at
+    # most MAX_CHUNKS.
     wanted = -(-BWD_TARGET_BLOCKS // (n * coltiles))
-    chunks = max(1, min(wanted, rows_total // (4 * rr), 65535))
+    chunks = max(1, min(wanted, rows_total // (4 * rr), MAX_CHUNKS))
     rows_per_chunk = -(-rows_total // chunks)
     chunks = -(-rows_total // rows_per_chunk)
     return {

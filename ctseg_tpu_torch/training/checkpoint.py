@@ -42,7 +42,7 @@ def save(path: Union[str, Path], config: TrainConfig,
     os.replace(tmp, path)
 
 
-def load(path: Union[str, Path], device="cpu"
+def load(path: Union[str, Path], device="cuda"
          ) -> Tuple[TrainConfig, "TrainState"]:
     """(config, TrainState on `device`). The file is unpickled: load only
     checkpoints you trust."""

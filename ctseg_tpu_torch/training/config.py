@@ -93,15 +93,13 @@ def use_float32_convs() -> None:
 
 def build_model(config: TrainConfig, device="cuda",
                 generator: torch.Generator = None) -> SegmentationModel:
-    """The 2D SegmentationModel a config describes: float32 parameters
-    (float64 for "float64"), computing in the config's dtype. Every model
-    of the port is built here, so this is where TF32 is turned off
+    """The 2D or 3D SegmentationModel a config describes: float32
+    parameters (float64 for "float64"), computing in the config's dtype;
+    `in_channels` from the config, else from its transform degree. Every
+    model of the port is built here, so this is where TF32 is turned off
     (`use_float32_convs`)."""
-    if config.spatial_dims != 2:
-        raise NotImplementedError(
-            f"{config.spatial_dims}D checkpoints wait for the port's 3D slice "
-            "(ROADMAP.md, modules to port: 3D)"
-        )
+    if config.spatial_dims not in (2, 3):
+        raise ValueError(f"spatial_dims {config.spatial_dims}: 2 or 3")
     use_float32_convs()
     return SegmentationModel(
         in_channels=config.in_channels
@@ -110,10 +108,18 @@ def build_model(config: TrainConfig, device="cuda",
         channels=tuple(config.filters),
         num_res_units=config.num_res_units,
         downsample=config.downsample,
+        spatial_dims=config.spatial_dims,
         device=device,
         dtype=model_dtype(config),
         generator=generator,
     )
+
+
+def input_shape(config: TrainConfig) -> Tuple[int, ...]:
+    """The model's spatial input shape: `input_shape`, else `input_size`
+    on every axis (the JAX Trainer.init_state's rule)."""
+    return tuple(config.input_shape
+                 or (config.input_size,) * config.spatial_dims)
 
 
 def save_checkpoint(path: Union[str, Path], config: TrainConfig,

@@ -1,12 +1,23 @@
-"""The 2D trainer: train and eval steps, plateau LR, checkpoints (port of
-ctseg_tpu/training/trainer.py).
+"""The trainer: train and eval steps, plateau LR, checkpoints (port of
+ctseg_tpu/training/trainer.py), 2D and 3D.
 
   TrainState = (step, model, optimizer, plateau)
-  train_step: degree-2 transform (K4) -> [weighted mixup] -> forward (K1,
-              K2) -> multi-loss [signed distance maps on K5 for Boundary;
-              under mixup both target sets, mixed by lambda] -> backward
-              (K1b, K2b, cuDNN) -> Adam(lr from plateau) -> Dice
+  train_step: train transform (2D: degree 2 on K4; 3D: the volumetric
+              transform of the config's mode) -> [weighted mixup] ->
+              forward (K1, K2 in 2D; K1 and cuDNN convs in 3D) -> multi-loss
+              [signed distance maps on K5 for Boundary; under mixup both
+              target sets, mixed by lambda] -> backward (K1b, K2b, cuDNN) ->
+              Adam(lr from plateau) -> Dice
   eval_step:  test transform -> forward -> losses and per-structure Dice
+
+A train transform maps (images, labels, draws) to (images (N, *spatial, C),
+labels); its random parameters, the draws, come from a generator unless the
+caller feeds them. A transform that has a `draw(generator, shape, device)`
+attribute makes its own; a 2D one without it takes degree 2's
+(`draw_degree2`). A test transform maps (images, labels) -> (images,
+labels), or, with a `draw` attribute, also takes draws: the reference's
+eval step draws them from the fixed key 0, and this one from a generator
+seeded 0 (the same distribution; RNG streams are not compared).
 
 Eager PyTorch on one device. A step never waits for the device: metrics
 stay device tensors until the one stacked fetch at the end of an epoch.
@@ -30,11 +41,17 @@ from ctseg_tpu_torch.metrics.dice import (
     dice_per_sample_class,
     masked_mean_batch,
 )
+from ctseg_tpu_torch.models.layers import channels_last
 from ctseg_tpu_torch.models.unet import SegmentationModel
 from ctseg_tpu_torch.ops.edt import signed_distance_maps_from_labels
 from ctseg_tpu_torch.ops.masks import squash_predictions
 from ctseg_tpu_torch.training import checkpoint as ckpt
-from ctseg_tpu_torch.training.config import TrainConfig, build_model, model_dtype
+from ctseg_tpu_torch.training.config import (
+    TrainConfig,
+    build_model,
+    input_shape,
+    model_dtype,
+)
 from ctseg_tpu_torch.training.logging import MetricLogger
 from ctseg_tpu_torch.training.mixup import (
     draw_mixup,
@@ -47,8 +64,9 @@ from ctseg_tpu_torch.training.schedule import (
     plateau_init,
     reduce_on_plateau,
 )
-from ctseg_tpu_torch.transforms.augment import Degree2Draws, draw_degree2
+from ctseg_tpu_torch.transforms.augment import draw_degree2
 from ctseg_tpu_torch.transforms.pipelines import get_transform
+from ctseg_tpu_torch.transforms.volumetric import volumetric_transform
 
 
 @dataclasses.dataclass
@@ -78,12 +96,8 @@ def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
 
 
 class Trainer:
-    def __init__(self, config: TrainConfig, device="cuda"):
-        if config.spatial_dims != 2:
-            raise NotImplementedError(
-                "3D training waits for the port's 3D slice (ROADMAP.md, "
-                "modules to port: 3D)"
-            )
+    def __init__(self, config: TrainConfig, device="cuda",
+                 train_transform=None, test_transform=None):
         self.config = config
         self.device = torch.device(device)
         self._metric_dtype = (torch.float64 if model_dtype(config) == torch.float64
@@ -92,15 +106,31 @@ class Trainer:
                               exclude_missing=config.exclude_missing)
         self.needs_dist_maps = "Boundary" in config.loss_fx
         self.dice = DiceMetric()
+        # Each side falls back on its own: a 3D trainer given only a train
+        # transform must not evaluate through the 2D resize pipeline.
+        if config.spatial_dims == 3:
+            vt = volumetric_transform(config.volumetric_mode)
+            train_transform = train_transform or vt
+            test_transform = test_transform or vt
         size = (config.input_size,) * 2
-        self.train_transform = get_transform(config.transform_degree, True, size)
-        self.test_transform = get_transform(config.transform_degree, False, size)
+        self.train_transform = train_transform or get_transform(
+            config.transform_degree, True, size)
+        self.test_transform = test_transform or get_transform(
+            config.transform_degree, False, size)
 
     # ------------------------------------------------------------------ state
     def init_state(self, generator: Optional[torch.Generator] = None
                    ) -> TrainState:
         """Fresh weights (drawn from `generator`, default seeded by
-        config.seed), Adam, and the plateau at the config's LR."""
+        config.seed), Adam, and the plateau at the config's LR. The
+        weights' shapes follow the config's rank and `in_channels`; its
+        input shape must be one the UNet maps onto itself."""
+        levels = len(self.config.filters) - 1
+        shape = input_shape(self.config)
+        if any(s % 2 ** levels for s in shape):
+            raise ValueError(
+                f"input shape {shape}: each axis must divide by 2**{levels} "
+                "for the skip connections to line up")
         gen = generator or torch.Generator().manual_seed(self.config.seed)
         model = build_model(self.config, self.device, generator=gen).train()
         return TrainState(
@@ -111,7 +141,8 @@ class Trainer:
 
     # ------------------------------------------------------------------ steps
     def _logits(self, model, images):
-        x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        """images (N, *spatial, C) -> logits (N, classes, *spatial)."""
+        x = channels_last(images.movedim(-1, 1))
         return model(x).to(self._metric_dtype)
 
     def _dist_maps(self, labels):
@@ -134,25 +165,48 @@ class Trainer:
         logits become 0, not -inf)."""
         if not self.config.exclude_missing:
             return squash_predictions(logits, dim=1)
-        ind = indicators.to(logits.dtype)[:, :, None, None]
+        ind = indicators.to(logits.dtype).reshape(
+            indicators.shape + (1,) * (logits.ndim - 2))
         return squash_predictions(
             torch.cat([logits[:, :1], logits[:, 1:] * ind], dim=1), dim=1
         )
 
+    def draw(self, generator: Optional[torch.Generator], images_raw):
+        """The train transform's draws for a raw batch."""
+        draw = getattr(self.train_transform, "draw", None)
+        if draw is not None:
+            return draw(generator, tuple(images_raw.shape), self.device)
+        if self.config.spatial_dims != 2:
+            return None
+        n, h, w = images_raw.shape
+        return draw_degree2(generator, n, h, w, self.config.input_size,
+                            device=self.device)
+
+    def test_inputs(self, images_raw, labels_raw, draws=None):
+        """The test transform of a raw batch, with fixed draws where it
+        takes draws (see the module's docstring)."""
+        draw = getattr(self.test_transform, "draw", None)
+        if draw is None:
+            return self.test_transform(images_raw, labels_raw)
+        if draws is None:
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            draws = draw(gen, tuple(images_raw.shape), self.device)
+        return self.test_transform(images_raw, labels_raw, draws)
+
     def train_step(self, state: TrainState, batch,
-                   draws: Optional[Degree2Draws] = None,
+                   draws=None,
                    generator: Optional[torch.Generator] = None,
                    mixup_draws: Optional[Tuple[torch.Tensor, torch.Tensor]]
                    = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One step on a raw batch (images (N, H, W) HU, labels (N, H, W),
-        indicators (N, 9)); the augmentation `draws` and, under mixup, the
-        partner index and lambda `mixup_draws` are drawn from `generator`
-        unless given. Updates `state` in place and returns it."""
+        """One step on a raw batch (images (N, *spatial) HU, labels
+        (N, *spatial), indicators (N, 9)); the augmentation `draws` (degree
+        2's `Degree2Draws` in 2D, the volumetric transform's in 3D) and,
+        under mixup, the partner index and lambda `mixup_draws` are drawn
+        from `generator` unless given. Updates `state` in place and returns
+        it."""
         images_raw, labels_raw, indicators = batch
-        n, h, w = images_raw.shape
         if draws is None:
-            draws = draw_degree2(generator, n, h, w, self.config.input_size,
-                                 device=self.device)
+            draws = self.draw(generator, images_raw)
         images, labels = self.train_transform(images_raw, labels_raw, draws)
 
         model = state.model.train()
@@ -205,13 +259,13 @@ class Trainer:
         return state, metrics
 
     @torch.no_grad()
-    def eval_step(self, model: SegmentationModel, batch
+    def eval_step(self, model: SegmentationModel, batch, draws=None
                   ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """One evaluation step over a possibly padded batch (images,
         labels, indicators, row_valid): padded rows count for nothing in
         the losses and the Dice. Returns (metrics, number of real rows)."""
         images_raw, labels_raw, indicators, row_valid = batch
-        images, labels = self.test_transform(images_raw, labels_raw)
+        images, labels = self.test_inputs(images_raw, labels_raw, draws)
         values, logits = self._losses_and_logits(
             model.eval(), images, labels, indicators, sample_mask=row_valid
         )

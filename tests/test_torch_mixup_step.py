@@ -42,7 +42,7 @@ from ctseg_tpu.training.optimizer import adam_init
 from ctseg_tpu.training.trainer import TrainConfig as JaxTrainConfig
 from ctseg_tpu.training.trainer import Trainer as JaxTrainer
 from ctseg_tpu.training.trainer import TrainState as JaxTrainState
-from ctseg_tpu_torch.data.datasets import PackedDataset2D
+from ctseg_tpu_torch.data.datasets import PackedDataset2D, PackedDataset3D
 from ctseg_tpu_torch.data.pipeline import DevicePipeline2D
 from ctseg_tpu_torch.inference import evaluate
 from ctseg_tpu_torch.inference.serve import SegmentationService
@@ -53,6 +53,13 @@ from ctseg_tpu_torch.training import checkpoint, cli, config, mixup
 from ctseg_tpu_torch.training.config import TrainConfig
 from ctseg_tpu_torch.training.trainer import Trainer
 from ctseg_tpu_torch.transforms.augment import Degree2Draws
+from ctseg_tpu_torch.inference.evaluate import evaluate_3d_sliding_window
+from ctseg_tpu_torch.inference.predict import predict_labels_3d
+from ctseg_tpu_torch.volumetric.pipeline3d import (
+    DevicePipeline3D,
+    PatchPipeline3D,
+)
+from ctseg_tpu_torch.volumetric.trainer3d import make_trainer_3d
 
 FILTERS = (4, 8, 16, 32, 64)
 RAW, SIZE, BATCH, STEPS = 72, 64, 4, 3
@@ -281,6 +288,8 @@ def test_presets_equal_the_jax_package():
     Trainer.__init__, Trainer.restore.__func__, config.build_model,
     config.model_from_checkpoint, config.load_checkpoint,
     DevicePipeline2D.__init__, SegmentationService.__init__,
+    checkpoint.load, make_trainer_3d, DevicePipeline3D.__init__,
+    PatchPipeline3D.__init__, predict_labels_3d, evaluate_3d_sliding_window,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -413,7 +422,7 @@ def test_train_mixup_and_evaluate_clis_run_on_the_cpu(tmp_path, capsys):
               "--exclude_missing", "--loss_fx", "Boundary", "Dice", "Focal",
               "--input_size", "32", "--batch_size", "4", "--max_epochs", "2",
               "--checkpoint_dir", str(ck)])
-    cfg, state = checkpoint.load(ck / "model.ckpt")
+    cfg, state = checkpoint.load(ck / "model.ckpt", "cpu")
     assert state.step == 2 and cfg.mixup and cfg.num_res_units == 1
     log = (ck / "metrics.jsonl").read_text()
     assert "train/loss/Boundary" in log and "val/loss/Boundary" in log
@@ -429,10 +438,21 @@ def test_train_mixup_and_evaluate_clis_run_on_the_cpu(tmp_path, capsys):
     assert report["num_slices"] == 6 and report["hd95_unit"] == "mm"
     assert set(report["per_structure_hd95"]) == set(report["per_structure_dice"])
 
-    # a 3D checkpoint names the ROADMAP's 3D item
-    cfg3d = TrainConfig(filters=FILTERS, spatial_dims=3, in_channels=1)
-    torch.save({"hyper_parameters": cfg3d.as_dict(), "state_dict": {}},
-               str(tmp_path / "m3d.ckpt"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evaluate.main(["--checkpoint", str(tmp_path / "m3d.ckpt"),
-                       "--device", "cpu"])
+    # a 3D checkpoint goes to the whole-volume evaluation of a 3D split
+    # (tests/test_torch_3d_infer.py holds it to the JAX one)
+    cfg3d = TrainConfig(filters=FILTERS[:3], num_res_units=2, spatial_dims=3,
+                        in_channels=1, input_shape=(16, 16, 8),
+                        volumetric_mode="patch")
+    config.save_checkpoint(tmp_path / "m3d.ckpt", cfg3d,
+                           config.build_model(cfg3d, "cpu"))
+    rng = np.random.default_rng(13)
+    PackedDataset3D(
+        [rng.normal(40, 100, (8, 16, 16)).astype(np.int16) for _ in range(2)],
+        [rng.integers(0, 10, (8, 16, 16)).astype(np.uint8) for _ in range(2)],
+        [np.ones(9, np.float32)] * 2).save(tmp_path / "vol_packed.npz")
+    capsys.readouterr()
+    evaluate.main(["--checkpoint", str(tmp_path / "m3d.ckpt"), "--data_dir",
+                   str(tmp_path), "--split", "vol", "--device", "cpu",
+                   "--patch_size", "16", "16", "8", "--out", str(out)])
+    assert "vols/min" in capsys.readouterr().out
+    assert json.loads(out.read_text())["num_volumes"] == 2

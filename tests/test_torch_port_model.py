@@ -162,12 +162,15 @@ def test_reference_style_checkpoint_loads(tmp_path):
     np.testing.assert_array_equal(_port_forward(model, x), _port_forward(src, x))
 
 
-def test_3d_checkpoint_names_the_roadmap_item(tmp_path):
-    cfg = TrainConfig(filters=FILTERS, spatial_dims=3)
-    torch.save({"hyper_parameters": cfg.as_dict(), "state_dict": {}},
-               tmp_path / "m3d.ckpt")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_checkpoint(tmp_path / "m3d.ckpt", "cpu")
+def test_3d_checkpoint_loads_as_a_3d_model(tmp_path):
+    """The ROADMAP's 3D item is done: a 3D checkpoint loads as a 3D model
+    (tests/test_torch_3d_model.py holds the model to the JAX one)."""
+    cfg = TrainConfig(filters=FILTERS[:3], num_res_units=2, spatial_dims=3,
+                      in_channels=1)
+    save_checkpoint(tmp_path / "m3d.ckpt", cfg, build_model(cfg, "cpu"))
+    loaded, model = load_checkpoint(tmp_path / "m3d.ckpt", "cpu")
+    assert loaded == cfg and model.spatial_dims == 3
+    assert model.unet.model[0].conv.unit0.conv.weight.ndim == 5
 
 
 def test_train_config_fields_match_the_jax_package():

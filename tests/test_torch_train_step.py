@@ -288,7 +288,7 @@ def test_fit_reduces_lr_on_plateau_and_saves_on_sigterm(tmp_path):
         tr2.fit(tr2.init_state(), DevicePipeline2D(ds, 4, "cpu"), epochs=3,
                 checkpoint_path=tmp_path / "p.ckpt")
     assert exc.value.epoch == 0 and exc.value.state.step == 2
-    _, saved = checkpoint.load(tmp_path / "p.ckpt")
+    _, saved = checkpoint.load(tmp_path / "p.ckpt", "cpu")
     assert saved.step == 2
     assert signal.getsignal(signal.SIGTERM) is not None
 
@@ -302,23 +302,24 @@ def test_train_cli_trains_resumes_and_names_what_waits(tmp_path):
               "--input_size", str(SIZE), "--batch_size", "4",
               "--checkpoint_dir", str(ck)]
     cli.main(["train", *common, "--max_epochs", "1"])
-    _, state = checkpoint.load(ck / "model.ckpt")
+    _, state = checkpoint.load(ck / "model.ckpt", "cpu")
     assert state.step == 1
     cli.main(["train", *common, "--max_epochs", "2", "--resume",
               str(ck / "model.ckpt")])
-    cfg, state = checkpoint.load(ck / "model.ckpt")
+    cfg, state = checkpoint.load(ck / "model.ckpt", "cpu")
     assert state.step == 2 and cfg.exclude_missing and cfg.num_res_units == 2
     assert (ck / "metrics.jsonl").read_text().count("val/dice/mean") == 2
     # train_mixup trains (1 residual unit, weighted mixup, the Boundary loss
-    # with its distance maps); train_3d still names its ROADMAP item
+    # with its distance maps); train_3d reads 3D splits
+    # (tests/test_torch_3d_train.py trains it), not this 2D one
     mk = tmp_path / "run_mixup"
     cli.main(["train_mixup", *common[:-1], str(mk), "--max_epochs", "1",
               "--loss_fx", "Boundary", "Dice", "Focal"])
-    cfg, state = checkpoint.load(mk / "model.ckpt")
+    cfg, state = checkpoint.load(mk / "model.ckpt", "cpu")
     assert state.step == 1 and cfg.mixup and cfg.num_res_units == 1
     assert cfg.loss_fx == ("Boundary", "Dice", "Focal")
     assert "train/loss/Boundary" in (mk / "metrics.jsonl").read_text()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(KeyError, match="image_0"):
         cli.main(["train_3d", *common])
     with pytest.raises(SystemExit, match="3D configuration"):
         cli.main(["train", *common, "--preset", "model_3d"])
