@@ -124,6 +124,32 @@ Phases (any failure raises and the script exits non-zero):
      shapes), one request to the HTTP server, and K1 held to its plain
      version at each shape predict gave it.
 
+ 22. Data preparation: 48 synthetic PDDCA patients (testing.synth, 512x512
+     slices, depth cut to 28; made by 8 processes), then the CLIs `data.
+     download miccai --no_download` (the 25/8/15 split), `data.process_
+     miccai convert_2d` (the anatomical crop to 280x280) and `pack_2d`, and
+     `data.stats`, each timed (host seconds).
+ 23. The reference's default workflow: the `train` CLI with its defaults
+     (degree 0: one soft-tissue channel, crop, OneOf(elastic, grid)) at
+     Model L's width (filters 64..1024, 2 residual units, exclude_missing),
+     batch 128, on phase 22's packed splits, 2 epochs with an async save
+     and 8 example panels each, under --profile: finite losses, the
+     checkpoint (step, degree, one input channel), the panels and the
+     trace's kernel events; no K4 launch.
+ 24. Model L at degree 0 timed as phase 9 times degree 2 (2 warm-ups, 5
+     steps; K1 and K1b 8, K2 and K2b 9 launches a step, K4 none; no host
+     sync in the timed steps, by torch's sync debug mode); an async save
+     while 2 more steps run, the file equal to the state at the save; the
+     step by group of kernels; then 2 Model M steps at degree 0 (the row
+     scan, K5 and the signed map once a step).
+ 25. One model trained 2 steps at each of degrees 1, 3 and 4 (the same
+     launches a step); each degree's train transform timed on a batch of
+     128 (CUDA events).
+ 26. Each degree's train transform on the card against the same function
+     on the CPU with the same draws: images within IMAGE_TOL_CPU, labels
+     equal except where a warp's source coordinate lies within HALF_EPS of
+     a half-integer (counted and printed).
+
 No main path (serve, Model L, Model M, evaluation) may launch K2's FP32-pipe
 route: its count is asserted to be 0 after each.
 
@@ -2581,6 +2607,425 @@ def phase_serve_3d(label, workdir: Path, ckpt: Path):
                 backward=False)
 
 
+# ----------------------------------------------- the default 2D workflow
+PATIENT_DEPTH = 28      # phase 22: slices a patient (PDDCA: 100-200)
+PATIENT_HW = (512, 512)
+PATIENT_IDS = list(range(1, 34)) + list(range(555, 570))  # the 48 of PDDCA
+WORKFLOW_EPOCHS = 2     # phase 23's CLI run
+# Degree 0 (and 1, 3, 4) run K1, K1b, K2 and K2b as degree 2 does; their
+# transforms are plain torch (no TPU kernel is replaced there), so no K4.
+PER_STEP_D0 = dict(PER_STEP, k4=0)
+DEGREE_STEPS = 2        # phase 25's steps at each of degrees 1, 3 and 4
+IMAGE_TOL_CPU = 1e-5    # phase 26: |card - CPU| of a transform's images
+HALF_EPS = 1e-4         # phase 26: a label may differ within this of a half
+
+
+def _run_module(args, storage: Path):
+    """`python -m <args>` from the checkout with CTSEG_DATA_STORAGE set;
+    its seconds (host clock). Its output goes to ours."""
+    import os
+
+    env = dict(os.environ, CTSEG_DATA_STORAGE=str(storage))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m"] + args,
+                         cwd=Path(__file__).resolve().parent, env=env,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"{' '.join(args)} exited {out.returncode}: "
+                             f"{out.stderr[-3000:]}")
+    seconds = time.perf_counter() - t0
+    return seconds, out.stdout
+
+
+def phase_data_prep(label, workdir: Path):
+    """48 synthetic PDDCA patients of 512x512 slices, then the reference's
+    preparation CLIs: the split, conversion with the anatomical crop,
+    packing and the dataset statistics."""
+    import multiprocessing
+
+    from ctseg_tpu_torch.data.datasets import PackedDataset2D
+    from ctseg_tpu_torch.testing.synth import make_patient
+
+    storage = workdir / "storage"
+    raw = storage / "miccai"
+    jobs = [(raw / f"0522c{pid:04d}", (PATIENT_DEPTH,) + PATIENT_HW, None, i,
+             pid < 480) for i, pid in enumerate(PATIENT_IDS)]
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(8) as pool:
+        pool.starmap(make_patient, jobs)
+    made = time.perf_counter() - t0
+    times = {}
+    times["download miccai --no_download"], _ = _run_module(
+        ["ctseg_tpu_torch.data.download", "miccai", "--no_download"], storage)
+    split = {s: len(list((raw / s).iterdir())) for s in ("train", "valid",
+                                                         "test")}
+    if split != {"train": 25, "valid": 8, "test": 15}:
+        raise AssertionError(f"split {split}")
+    times["process_miccai convert_2d"], _ = _run_module(
+        ["ctseg_tpu_torch.data.process_miccai", "convert_2d"], storage)
+    times["process_miccai pack_2d"], packed = _run_module(
+        ["ctseg_tpu_torch.data.process_miccai", "pack_2d"], storage)
+    times["stats"], report = _run_module(["ctseg_tpu_torch.data.stats"],
+                                         storage)
+    report = json.loads(report)
+    weights = report["class_weights"]["derived"]
+    if not all(np.isfinite(list(weights.values()))):
+        raise AssertionError(f"class weights {weights}")
+    data_dir = storage / "miccai_2d"
+    sizes = {s: len(PackedDataset2D.load(data_dir / f"{s}_packed.npz"))
+             for s in ("train", "valid", "test")}
+    train = PackedDataset2D.load(data_dir / "train_packed.npz")
+    if train.images.shape[1:] != (280, 280) or sizes["train"] < TRAIN_BATCH:
+        raise AssertionError(f"packed train split {train.images.shape}")
+    print(f"[{label}] data preparation: 48 synthetic patients of "
+          f"{PATIENT_DEPTH}x{PATIENT_HW[0]}x{PATIENT_HW[1]} (depth cut from "
+          f"PDDCA's 100-200 slices to fit the time limit; made in "
+          f"{made:.3f} s by 8 processes), split 25/8/15; host seconds: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f"; packed slices {sizes} of {train.images.shape[1:]} (the "
+          f"anatomical crop); {packed.strip().splitlines()[0]}; derived "
+          f"stacked-window mean "
+          f"{report['stacked_window_stats']['derived']['mean']}")
+    return data_dir, sizes
+
+
+def phase_default_workflow(label, workdir: Path, data_dir: Path, sizes):
+    """The reference's default workflow through the port's train CLI:
+    degree 0 (one soft-tissue channel, crop, OneOf(elastic, grid)), Model
+    L's width, batch 128, 256 crops, 2 epochs, a save and example panels
+    every epoch, a profile of the fit."""
+    import torch
+    from ctseg_tpu_torch.training import checkpoint, cli
+
+    ck = workdir / "default_run"
+    steps = sizes["train"] // TRAIN_BATCH
+    reset_launches()
+    t0 = time.perf_counter()
+    cli.main(["train", "--data_dir", str(data_dir), "--device", DEVICE,
+              "--use_res_units", "--exclude_missing", "--max_epochs",
+              str(WORKFLOW_EPOCHS), "--checkpoint_dir", str(ck),
+              "--checkpoint_every", "1", "--profile"])
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    for key in ("k1", "k1b", "k2", "k2b"):
+        if launches[key] < PER_STEP_D0[key] * steps * WORKFLOW_EPOCHS:
+            raise AssertionError(f"the CLI run launched {launches}")
+    if launches["k4"] != 0:
+        raise AssertionError(f"degree 0 launched K4: {launches}")
+    logs = [json.loads(line) for line in
+            (ck / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train/loss/total"] for r in logs if "train/loss/total" in r]
+    val = [r["val/dice/mean"] for r in logs if "val/dice/mean" in r]
+    if len(losses) != WORKFLOW_EPOCHS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"train losses {losses}")
+    cfg, state = checkpoint.load(ck / "model.ckpt", "cpu")
+    stem = state.model.state_dict()["unet.model.0.conv.unit0.conv.weight"]
+    if (cfg.transform_degree, stem.shape[1], cfg.filters, cfg.batch_size,
+            cfg.num_res_units, state.step) != (
+            0, 1, FILTERS, TRAIN_BATCH, 2, steps * WORKFLOW_EPOCHS):
+        raise AssertionError(f"the run's checkpoint: {cfg}, step {state.step}")
+    panels = {e: len(list((ck / "examples" / f"epoch_{e:04d}").glob("*.npy")))
+              for e in range(1, WORKFLOW_EPOCHS + 1)}
+    if panels != {e: 8 for e in panels}:
+        raise AssertionError(f"example panels {panels}")
+    trace = ck / "profile" / "trace.json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    if kernels == 0:
+        raise AssertionError("the profile holds no kernel")
+    print(f"[{label}] train CLI, its defaults (degree 0, 1 channel in) at "
+          f"Model L's width, batch {TRAIN_BATCH}, {WORKFLOW_EPOCHS} epochs "
+          f"of {steps} steps with validation of {sizes['valid']} slices, an "
+          f"async save and 8 example panels every epoch, --profile: "
+          f"{seconds:.3f} s (host clock, the first steps and the trace's "
+          f"export included); train losses {[round(v, 5) for v in losses]}, "
+          f"val Dice {[round(v, 5) for v in val]}; launches {launches}; "
+          f"checkpoint step {state.step}; trace {trace.stat().st_size} "
+          f"bytes, {kernels} kernel events")
+    del state
+    torch.cuda.empty_cache()
+
+
+def _sync_warnings(fn):
+    """fn() under torch's sync debug mode: the warnings of the operations
+    that made the host wait for the card, as (file:line, message)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [(f"{Path(w.filename).name}:{w.lineno}", str(w.message)[:80])
+            for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def _model_l_degree(degree):
+    import dataclasses
+
+    return dataclasses.replace(_model_l_config(), transform_degree=degree)
+
+
+def phase_train_degree0(label, workdir: Path):
+    """Model L at degree 0 as phase 9 times degree 2: 2 warm-up and 5 timed
+    steps on one fixed batch with fixed draws, the launches asserted, no
+    host sync in a step; an async save while the loop goes on; the step by
+    group of kernels; then Model M at degree 0 (K5 in its step)."""
+    import torch
+    from ctseg_tpu_torch.data.pipeline import DevicePipeline2D
+    from ctseg_tpu_torch.training import checkpoint
+    from ctseg_tpu_torch.training.trainer import Trainer
+
+    trainer = Trainer(_model_l_degree(0), DEVICE)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    train = DevicePipeline2D(_synthetic_split(0, 2 * TRAIN_BATCH),
+                             TRAIN_BATCH, DEVICE)
+    batch = next(train.epoch(torch.Generator(device=DEVICE).manual_seed(2)))
+    draws = trainer.draw(torch.Generator(device=DEVICE).manual_seed(3),
+                         batch[0])
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):  # warm-up
+        state, metrics = trainer.train_step(state, batch, draws)
+    torch.cuda.synchronize()
+    reset_launches()
+    losses = []
+
+    def timed():
+        nonlocal state
+        for _ in range(TIMED_STEPS):
+            state, metrics = trainer.train_step(state, batch, draws)
+            losses.append(metrics["loss/total"])
+
+    t0 = time.perf_counter()
+    syncs = _sync_warnings(timed)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * TIMED_STEPS for k, v in PER_STEP_D0.items()}
+    if launches != want:
+        raise AssertionError(f"degree 0 launches {launches} over "
+                             f"{TIMED_STEPS} steps; want {want}")
+    if syncs:
+        raise AssertionError(f"{len(syncs)} host syncs in {TIMED_STEPS} "
+                             f"degree-0 steps: {sorted(set(syncs))}")
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"degree-0 losses {losses}")
+    print(f"[{label}] train step, Model L degree 0 float32 batch "
+          f"{TRAIN_BATCH}: {step_s * 1e3:.3f} ms/step, "
+          f"{TRAIN_BATCH / step_s:.2f} slices/s (host clock over "
+          f"{TIMED_STEPS} steps after 2 warm-ups; branch choices "
+          f"{torch.bincount(draws.choice.long()).tolist()}); peak device "
+          f"memory {peak / 2**30:.3f} GiB; host syncs 0 (sync debug mode); "
+          f"losses {[round(v, 5) for v in losses]}; launches {launches}")
+
+    # The async save: the file holds the state at the save while the loop
+    # takes 2 more steps. Beside it, the synchronous save and 2 steps
+    # without a save (host clock).
+    def two_steps():
+        nonlocal state
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state, _ = trainer.train_step(state, batch, draws)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    t0 = time.perf_counter()
+    trainer.save(workdir / "sync.ckpt", state)
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    bare_ms = two_steps()
+    saver = checkpoint.AsyncCheckpointer()
+    path = workdir / "async.ckpt"
+    save_ms, loop_ms = [], []
+    for _ in range(2):  # the second save finds the allocator's blocks
+        saver.wait()
+        want_sd = {k: v.cpu().clone()
+                   for k, v in state.model.state_dict().items()}
+        want_step = state.step
+        t0 = time.perf_counter()
+        saver.save(path, trainer.config, state)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        loop_ms.append((time.perf_counter() - t0) * 1e3 + two_steps())
+    saver.wait()
+    _, saved = checkpoint.load(path, "cpu")
+    if saved.step != want_step or not all(
+            torch.equal(v, want_sd[k])
+            for k, v in saved.model.state_dict().items()):
+        raise AssertionError("the async checkpoint is not the state at the "
+                             "save")
+    if all(torch.equal(v.cpu(), want_sd[k])
+           for k, v in state.model.state_dict().items()):
+        raise AssertionError("the loop did not go on")
+    print(f"[{label}] checkpoint of {path.stat().st_size} bytes, host "
+          f"clock: the synchronous save {sync_ms:.3f} ms; 2 steps alone "
+          f"{bare_ms:.3f} ms; the async save() returned in "
+          f"{save_ms[0]:.3f} and {save_ms[1]:.3f} ms, with 2 steps behind "
+          f"each {loop_ms[0]:.3f} and {loop_ms[1]:.3f} ms; the file equals "
+          f"the state at step {want_step} (the loop reached {state.step})")
+    del saved
+    profile_step(label, "Model L degree-0 train step",
+                 lambda: trainer.train_step(state, batch, draws))
+
+    # Model M at degree 0: the Boundary loss's maps on the row scan, K5 and
+    # the signed-map kernel.
+    import dataclasses
+
+    del trainer, state
+    torch.cuda.empty_cache()
+    trainer_m = Trainer(dataclasses.replace(_model_m_config(),
+                                            transform_degree=0), DEVICE)
+    state_m = trainer_m.init_state(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    reset_launches()
+    losses_m = []
+    for _ in range(2):
+        state_m, metrics = trainer_m.train_step(state_m, batch, generator=gen)
+        losses_m.append(float(metrics["loss/total"]))
+    launches_m = read_launches()
+    want_m = {k: 2 * v for k, v in dict(PER_STEP_M, k4=0).items()}
+    if launches_m != want_m or not all(np.isfinite(losses_m)):
+        raise AssertionError(f"Model M degree 0: launches {launches_m}, "
+                             f"want {want_m}; losses {losses_m}")
+    print(f"[{label}] Model M at degree 0: 2 steps, losses "
+          f"{[round(v, 5) for v in losses_m]}, launches {launches_m}")
+    del trainer_m, state_m
+    torch.cuda.empty_cache()
+    return launches, launches_m, step_s
+
+
+def phase_other_degrees(label):
+    """One 3-channel model trained 2 steps at each of degrees 1, 3 and 4
+    (the same weights throughout), each degree's transform on the card
+    timed on a batch of 128 (degrees 0 and 2 too), CUDA events."""
+    import torch
+    from ctseg_tpu_torch.data.pipeline import DevicePipeline2D
+    from ctseg_tpu_torch.training.trainer import Trainer
+
+    train = DevicePipeline2D(_synthetic_split(0, 2 * TRAIN_BATCH),
+                             TRAIN_BATCH, DEVICE)
+    batch = next(train.epoch(torch.Generator(device=DEVICE).manual_seed(5)))
+    state = None
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    per_degree = {}
+    for degree in (1, 3, 4):
+        trainer = Trainer(_model_l_degree(degree), DEVICE)
+        if state is None:
+            state = trainer.init_state(torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(DEGREE_STEPS):
+            state, metrics = trainer.train_step(state, batch, generator=gen)
+            losses.append(float(metrics["loss/total"]))
+        seconds = (time.perf_counter() - t0) / DEGREE_STEPS
+        launches = read_launches()
+        if launches != {k: DEGREE_STEPS * v for k, v in PER_STEP_D0.items()} \
+                or not all(np.isfinite(losses)):
+            raise AssertionError(f"degree {degree}: launches {launches}, "
+                                 f"losses {losses}")
+        per_degree[degree] = (seconds * 1e3, losses)
+    print(f"[{label}] degrees 1, 3 and 4 on one model, {DEGREE_STEPS} steps "
+          "each (host clock, ms/step, the first steps included; losses): "
+          + "; ".join(f"degree {d} {ms:.3f} {[round(v, 5) for v in ls]}"
+                      for d, (ms, ls) in per_degree.items())
+          + f"; launches per step {PER_STEP_D0}")
+
+    from ctseg_tpu_torch.transforms.pipelines import get_transform
+
+    transform_ms = {}
+    for degree in range(5):
+        transform = get_transform(degree, True)
+        draws = transform.draw(torch.Generator(device=DEVICE).manual_seed(7),
+                               tuple(batch[0].shape), DEVICE)
+        transform_ms[degree] = time_ms(
+            lambda: transform(batch[0], batch[1], draws), 20)
+    print(f"[{label}] train transform of a batch of {TRAIN_BATCH} raw "
+          f"{RAW}x{RAW} slices to {SIZE}x{SIZE}, ms (CUDA events, 20 calls): "
+          + "; ".join(f"degree {d} {ms:.4f}" for d, ms in transform_ms.items())
+          + " (degree 2: K4 and the labels' moves; 1: the test transform; "
+          "0, 3, 4: crop, windows, both warps' coordinates, one pair of "
+          "gathers)")
+    del state
+    torch.cuda.empty_cache()
+    return transform_ms
+
+
+def _warp_coords(degree, draws):
+    """The two passes' coordinates a degree-0/3/4 transform used."""
+    import torch
+    from ctseg_tpu_torch.transforms import augment
+
+    size = SIZE
+    cy, cx = augment.elastic_coords(draws.elastic, size, size)
+    if degree == 3:
+        return cy, cx
+    gy, gx = augment.grid_coords(draws.grid, size, size)
+    pick = (draws.choice == 1)[:, None, None]
+    return torch.where(pick, gy, cy), torch.where(pick, gx, cx)
+
+
+def _label_risk(cy, cx, eps):
+    """Output pixels whose label may round either way (torch, (N, H, W)):
+    the horizontal coordinate within eps of a half, or one of the two
+    mid-pass pixels it reads has its vertical coordinate there."""
+    import torch
+
+    def near(c):
+        return torch.abs(c - torch.floor(c) - 0.5) < eps
+
+    risk_v = near(cy)
+    w = cx.shape[2]
+    lo = torch.clamp(torch.floor(cx).long(), 0, w - 1)
+    hi = torch.clamp(lo + 1, 0, w - 1)
+    return (near(cx) | torch.gather(risk_v, 2, lo)
+            | torch.gather(risk_v, 2, hi))
+
+
+def phase_transforms_vs_cpu(label):
+    """Each degree's train transform on the card against the same function
+    on the CPU, with the same draws moved across: images within
+    IMAGE_TOL_CPU, labels equal except where a warp's source coordinate
+    lies within HALF_EPS of a half-integer (counted)."""
+    import torch
+    from ctseg_tpu_torch.transforms.augment import move_draws
+    from ctseg_tpu_torch.transforms.pipelines import get_transform
+
+    split = _synthetic_split(8, TRAIN_BATCH)
+    images = torch.as_tensor(split.images)
+    labels = torch.as_tensor(split.labels)
+    rows = []
+    for degree in range(5):
+        transform = get_transform(degree, True)
+        draws = transform.draw(torch.Generator(device=DEVICE).manual_seed(9),
+                               tuple(images.shape), DEVICE)
+        img, lab = transform(images.to(DEVICE), labels.to(DEVICE), draws)
+        cpu_draws = move_draws(draws, "cpu")
+        want_img, want_lab = transform(images, labels, cpu_draws)
+        err = float((img.cpu() - want_img).abs().max())
+        if not err <= IMAGE_TOL_CPU or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"degree {degree}: images differ by {err}")
+        differ = lab.cpu() != want_lab
+        risk = torch.zeros_like(differ)
+        if degree in (0, 3, 4):
+            risk = _label_risk(*_warp_coords(degree, cpu_draws), HALF_EPS)
+        if bool((differ & ~risk).any()):
+            raise AssertionError(
+                f"degree {degree}: {int((differ & ~risk).sum())} labels "
+                "differ away from a half")
+        rows.append(f"degree {degree}: images {err:.3e}, labels differing "
+                    f"{int(differ.sum())} of {differ.numel()} (within "
+                    f"{HALF_EPS} of a half: {int(risk.sum())})")
+    print(f"[{label}] train transforms on the card vs the CPU, {TRAIN_BATCH} "
+          f"slices, the same draws: " + "; ".join(rows))
+
+
 def main() -> int:
     import torch
 
@@ -2637,9 +3082,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_train_resize_3d(label)
         torch.cuda.empty_cache()
+        train_3d_launches = train_3d["float32"]["launches"]
         launches_eval_3d, hd95_3d = phase_evaluate_3d(label,
                                                       train_3d["ckpt"])
         phase_serve_3d(label, Path(tmp), train_3d["ckpt"])
+        del train_3d
+        torch.cuda.empty_cache()
+        data_dir, sizes = phase_data_prep(label, Path(tmp))
+        phase_default_workflow(label, Path(tmp), data_dir, sizes)
+        launches_d0, launches_d0_m, _ = phase_train_degree0(label, Path(tmp))
+        transform_ms = phase_other_degrees(label)
+        phase_transforms_vs_cpu(label)
 
     bounds = site_bounds()
     bounds["k5"] = k5_times["step maps"][2:4]
@@ -2743,8 +3196,10 @@ def main() -> int:
     bounds_3d = site_bounds_3d()
     keys = ("k1", "k1b", "k2", "k2b", "k4", "k5", "scan", "signed")
     for k, key in zip(kernels, keys, strict=True):
-        k["launches_3d"] = train_3d["float32"]["launches"][key]
+        k["launches_3d"] = train_3d_launches[key]
         k["launches_3d_eval"] = launches_eval_3d[key]
+        k["launches_degree0"] = launches_d0[key]
+        k["launches_degree0_model_m"] = launches_d0_m[key]
     for i, key, fwd in ((0, "k1", "fwd"), (1, "k1b", "bwd")):
         kernels[i].update(
             ms_3d=k1_3d[fwd]["float32"],
@@ -2783,7 +3238,14 @@ def main() -> int:
           "launches_3d_eval: phase 20's 3D evaluation; K1's and K1b's "
           "*_3d: one 3D step's 17 sites at batch 128 (K1: the training "
           "forward); K5's and the scan's *_3d_eval: the HD95 of one "
-          "280x280x120 volume (K5: both passes))")
+          "280x280x120 volume (K5: both passes); launches_degree0: phase "
+          f"24's {TIMED_STEPS} timed Model L steps at degree 0, "
+          "launches_degree0_model_m: its 2 Model M steps at degree 0)")
+    # The train transforms of degrees 0, 1, 3 and 4 replace no TPU kernel
+    # (the reference's warps are jnp, outside any Pallas call); their times
+    # stand on a line of their own.
+    print(json.dumps({"train_transform_ms": {
+        f"degree_{d}": ms for d, ms in transform_ms.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

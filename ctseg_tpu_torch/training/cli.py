@@ -1,7 +1,9 @@
 """Training CLI of the port (port of ctseg_tpu/training/cli.py).
 
     python -m ctseg_tpu_torch.training.cli train --data_dir <dir> \\
-        [--device cuda --transform_degree 2 --use_res_units --exclude_missing]
+        [--device cuda --transform_degree 0 --use_res_units \\
+         --exclude_missing --checkpoint_dir <dir> --checkpoint_every 25 \\
+         --profile]
     python -m ctseg_tpu_torch.training.cli train_mixup --preset model_m \\
         --data_dir <dir>
     python -m ctseg_tpu_torch.training.cli train_3d --data_dir <dir> \\
@@ -12,15 +14,22 @@ reads `train_packed.npz` and `valid_packed.npz` (data/datasets.py) from
 plateau LR on val/dice/mean, logs to <checkpoint_dir or logs>/metrics.jsonl
 and saves <checkpoint_dir>/model.ckpt, a training checkpoint that --resume,
 predict and serve all read. Flags follow the reference's trainer
-(capstone/training/base_trainer.py:150-209). `train_mixup` trains with
+(capstone/training/base_trainer.py:150-209); the default transform degree
+is the reference's 0 (one soft-tissue channel, crop and OneOf(elastic,
+grid distortion)). With --checkpoint_dir, a run saves asynchronously every
+--checkpoint_every epochs, and a 2D run writes example panels of the
+validation split as often (training/callbacks.py, under
+<checkpoint_dir>/examples); --profile writes a torch.profiler trace of the
+fit to <checkpoint_dir or logs>/profile. `train_mixup` trains with
 weighted mixup (1 residual unit under --use_res_units; with the full data
-it publishes `model_mixup.ckpt`). The 2D train transform is degree 2's.
+it publishes `model_mixup.ckpt`).
 `train_3d` (`run_3d`, volumetric/trainer3d.py) reads `PackedDataset3D` splits
 (default $CTSEG_DATA_STORAGE/miccai_3d) and trains whole resized volumes
 (`--volumetric_mode resize`, the reference's parity mode; `--preset
 model_3d`) or random native-resolution patches (`patch`).
 """
 
+import contextlib
 import dataclasses
 import warnings
 from argparse import ArgumentParser
@@ -31,9 +40,11 @@ from ctseg_tpu_torch.data.datasets import PackedDataset2D, PackedDataset3D
 from ctseg_tpu_torch.data.pipeline import DevicePipeline2D
 from ctseg_tpu_torch.models.presets import PRESETS
 from ctseg_tpu_torch.paths import DEFAULT_DATA_STORAGE
+from ctseg_tpu_torch.training.callbacks import ExamplesLoggingCallback
 from ctseg_tpu_torch.training.config import TrainConfig
 from ctseg_tpu_torch.training.logging import MetricLogger
 from ctseg_tpu_torch.training.trainer import Preempted, Trainer
+from ctseg_tpu_torch.utils.profiling import trace
 from ctseg_tpu_torch.volumetric.pipeline3d import (
     RESIZE_SHAPE,
     DevicePipeline3D,
@@ -45,9 +56,9 @@ from ctseg_tpu_torch.volumetric.trainer3d import DEFAULT_PATCH, make_trainer_3d
 def _add_args(parser: ArgumentParser) -> None:
     parser.add_argument("--batch_size", type=int, default=128)
     parser.add_argument(
-        "--transform_degree", type=int, default=2,
-        help="Augmentation degree. The port trains degree 2 only, so its "
-             "default is 2 where the reference's is 0.")
+        "--transform_degree", type=int, default=0,
+        help="Augmentation pipeline degree, 0-4 (see "
+             "transforms/pipelines.py).")
     parser.add_argument("--filters", nargs="+", type=int,
                         default=[64, 128, 256, 512, 1024])
     parser.add_argument("--use_res_units", action="store_true", default=False)
@@ -65,6 +76,12 @@ def _add_args(parser: ArgumentParser) -> None:
     parser.add_argument("--bf16", action="store_true", default=False)
     parser.add_argument("--data_dir", type=str, default=None)
     parser.add_argument("--checkpoint_dir", type=str, default=None)
+    parser.add_argument(
+        "--checkpoint_every", type=int, default=25,
+        help="Epochs between the periodic checkpoints and, in 2D, the "
+             "example panels (the reference's 25).")
+    parser.add_argument("--profile", action="store_true", default=False,
+                        help="Write a torch.profiler trace of the fit.")
     parser.add_argument("--use_wandb", action="store_true", default=False)
     parser.add_argument("--experiment_name", type=str, default="UNet 2D")
     parser.add_argument("--preset", type=str, default=None,
@@ -126,19 +143,25 @@ def _config_from_args(args, mixup: bool) -> TrainConfig:
     )
 
 
-def fit_and_finalize(trainer, state, train_pipe, val_pipe, args, logger):
-    """Trainer.fit to --max_epochs with a save every 25 epochs, then the
+def fit_and_finalize(trainer, state, train_pipe, val_pipe, args, logger,
+                     callbacks=None):
+    """Trainer.fit to --max_epochs with an asynchronous save every
+    --checkpoint_every epochs (under --profile inside a trace), then the
     final save to <checkpoint_dir>/model.ckpt. On SIGTERM: say how to
     resume, close the logger and return None, so that the caller skips its
     publishing tail."""
     ckpt_path = (Path(args.checkpoint_dir) / "model.ckpt"
                  if args.checkpoint_dir else None)
+    profile = (trace(str(Path(args.checkpoint_dir or "logs") / "profile"))
+               if args.profile else contextlib.nullcontext())
     try:
-        state = trainer.fit(
-            state, train_pipe, val_pipe, epochs=args.max_epochs,
-            logger=logger, checkpoint_path=ckpt_path,
-            checkpoint_every=25 if ckpt_path else 0,
-        )
+        with profile:
+            state = trainer.fit(
+                state, train_pipe, val_pipe, epochs=args.max_epochs,
+                logger=logger, checkpoint_path=ckpt_path,
+                checkpoint_every=args.checkpoint_every if ckpt_path else 0,
+                callbacks=callbacks,
+            )
     except Preempted as p:
         where = (f"resume with --resume {ckpt_path}" if ckpt_path
                  else "NO checkpoint was saved (no --checkpoint_dir)")
@@ -173,8 +196,13 @@ def run_2d(args, mixup: bool) -> None:
     val_pipe = None if args.use_full_data else DevicePipeline2D(
         valid, min(config.batch_size, len(valid)), args.device
     )
+    callbacks = []
+    if args.checkpoint_dir:
+        callbacks.append(ExamplesLoggingCallback(
+            valid, Path(args.checkpoint_dir) / "examples",
+            every_n_epochs=args.checkpoint_every))
     state = fit_and_finalize(trainer, state, train_pipe, val_pipe, args,
-                             logger)
+                             logger, callbacks)
     if state is None:  # preempted; the logger is closed
         return
     if args.use_full_data:

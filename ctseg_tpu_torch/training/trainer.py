@@ -2,7 +2,8 @@
 ctseg_tpu/training/trainer.py), 2D and 3D.
 
   TrainState = (step, model, optimizer, plateau)
-  train_step: train transform (2D: degree 2 on K4; 3D: the volumetric
+  train_step: train transform (2D: the config's degree, on K4 at degree
+              2, warps in plain torch at 0, 3 and 4; 3D: the volumetric
               transform of the config's mode) -> [weighted mixup] ->
               forward (K1, K2 in 2D; K1 and cuDNN convs in 3D) -> multi-loss
               [signed distance maps on K5 for Boundary; under mixup both
@@ -12,9 +13,9 @@ ctseg_tpu/training/trainer.py), 2D and 3D.
 
 A train transform maps (images, labels, draws) to (images (N, *spatial, C),
 labels); its random parameters, the draws, come from a generator unless the
-caller feeds them. A transform that has a `draw(generator, shape, device)`
-attribute makes its own; a 2D one without it takes degree 2's
-(`draw_degree2`). A test transform maps (images, labels) -> (images,
+caller feeds them: every train transform of the port carries a
+`draw(generator, shape, device)` attribute that makes them (a transform
+without one gets None). A test transform maps (images, labels) -> (images,
 labels), or, with a `draw` attribute, also takes draws: the reference's
 eval step draws them from the fixed key 0, and this one from a generator
 seeded 0 (the same distribution; RNG streams are not compared).
@@ -64,7 +65,6 @@ from ctseg_tpu_torch.training.schedule import (
     plateau_init,
     reduce_on_plateau,
 )
-from ctseg_tpu_torch.transforms.augment import draw_degree2
 from ctseg_tpu_torch.transforms.pipelines import get_transform
 from ctseg_tpu_torch.transforms.volumetric import volumetric_transform
 
@@ -172,15 +172,12 @@ class Trainer:
         )
 
     def draw(self, generator: Optional[torch.Generator], images_raw):
-        """The train transform's draws for a raw batch."""
+        """The train transform's draws for a raw batch (None for a
+        transform without a `draw` attribute)."""
         draw = getattr(self.train_transform, "draw", None)
-        if draw is not None:
-            return draw(generator, tuple(images_raw.shape), self.device)
-        if self.config.spatial_dims != 2:
+        if draw is None:
             return None
-        n, h, w = images_raw.shape
-        return draw_degree2(generator, n, h, w, self.config.input_size,
-                            device=self.device)
+        return draw(generator, tuple(images_raw.shape), self.device)
 
     def test_inputs(self, images_raw, labels_raw, draws=None):
         """The test transform of a raw batch, with fixed draws where it
@@ -199,8 +196,8 @@ class Trainer:
                    mixup_draws: Optional[Tuple[torch.Tensor, torch.Tensor]]
                    = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One step on a raw batch (images (N, *spatial) HU, labels
-        (N, *spatial), indicators (N, 9)); the augmentation `draws` (degree
-        2's `Degree2Draws` in 2D, the volumetric transform's in 3D) and,
+        (N, *spatial), indicators (N, 9)); the augmentation `draws` (the
+        degree's NamedTuple in 2D, the volumetric transform's in 3D) and,
         under mixup, the partner index and lambda `mixup_draws` are drawn
         from `generator` unless given. Updates `state` in place and returns
         it."""
@@ -328,13 +325,20 @@ class Trainer:
     def fit(self, state: TrainState, train_pipeline, val_pipeline=None,
             epochs: Optional[int] = None,
             logger: Optional[MetricLogger] = None,
-            checkpoint_path=None, checkpoint_every: int = 0) -> TrainState:
+            checkpoint_path=None, checkpoint_every: int = 0,
+            callbacks: Optional[list] = None) -> TrainState:
         """Train up to `epochs` in total (a restored state resumes at the
         epoch its step count gives); the plateau follows val/dice/mean.
+        `checkpoint_every` > 0 saves to `checkpoint_path` every that many
+        epochs, asynchronously (checkpoint.AsyncCheckpointer: the loop does
+        not wait for the copy to the host or the file). Each of `callbacks`
+        is called as cb(trainer, state, epoch) after every epoch.
 
-        SIGTERM finishes the current epoch, saves to `checkpoint_path` and
-        raises `Preempted` carrying the state. `checkpoint_every` > 0 saves
-        every that many epochs."""
+        SIGTERM finishes the current epoch, waits for a save in flight
+        (a failure of an earlier async save is reported and passed over:
+        the synchronous save that follows is the last chance to keep the
+        progress), saves to `checkpoint_path` and raises `Preempted`
+        carrying the state."""
         epochs = epochs or self.config.epochs
         pipeline_spe = max(1, train_pipeline.num_batches())
         # Resume derives the start epoch from the checkpoint's schedule, so
@@ -351,6 +355,7 @@ class Trainer:
                 f"{steps_per_epoch}; the start epoch follows the checkpoint"
             )
         start_epoch = min(state.step // steps_per_epoch, epochs)
+        async_ckpt = ckpt.AsyncCheckpointer() if checkpoint_path else None
         preempted = {"flag": False}
 
         def _on_sigterm(signum, frame):
@@ -382,6 +387,11 @@ class Trainer:
                                step=state.step)
                 if preempted["flag"]:
                     if checkpoint_path:
+                        try:
+                            async_ckpt.wait()
+                        except RuntimeError as e:
+                            print(f"ignoring an earlier async save's "
+                                  f"failure: {e!r} from {e.__cause__!r}")
                         self.save(checkpoint_path, state)
                     if logger is not None:
                         logger.log({"preempted_at_epoch": epoch},
@@ -389,11 +399,19 @@ class Trainer:
                     raise Preempted(state, epoch)
                 if checkpoint_path and checkpoint_every \
                         and (epoch + 1) % checkpoint_every == 0:
-                    self.save(checkpoint_path, state)
+                    async_ckpt.save(checkpoint_path, self.config, state)
+                for cb in callbacks or ():
+                    cb(self, state, epoch)
         finally:
-            if installed:
-                signal.signal(signal.SIGTERM, prev_handler
-                              if prev_handler is not None else signal.SIG_DFL)
+            # The handler is restored even if the wait below raises.
+            try:
+                if installed:
+                    signal.signal(signal.SIGTERM, prev_handler
+                                  if prev_handler is not None
+                                  else signal.SIG_DFL)
+            finally:
+                if async_ckpt is not None:
+                    async_ckpt.wait()
         return state
 
     # ------------------------------------------------------------ checkpoints

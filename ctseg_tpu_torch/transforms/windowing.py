@@ -7,7 +7,8 @@ windowed_channels stacks the brain/soft-tissue/bone windows as a trailing
 channel axis. Shape-polymorphic over leading dims.
 """
 
-from typing import Tuple
+import functools
+from typing import Tuple, Union
 
 import torch
 
@@ -17,6 +18,14 @@ from ctseg_tpu_torch.constants import (
     WINDOW_ORDER,
     WINDOWING_CONFIG,
 )
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values: Union[float, Tuple[float, ...]], dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """Kept per device: a copy to the card per call would wait for the
+    stream."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def apply_window(
@@ -30,8 +39,7 @@ def apply_window(
     """
     min_ = window_level - (window_width // 2)
     max_ = window_level + (window_width // 2)
-    den = torch.as_tensor(max_ - min_ + 1e-8, dtype=image.dtype,
-                          device=image.device)
+    den = _constant(max_ - min_ + 1e-8, image.dtype, image.device)
     return (torch.clamp(image, min_, max_) - min_) / den
 
 
@@ -52,8 +60,8 @@ def normalize(
     std: Tuple[float, ...] = STACKED_WINDOW_STD,
 ) -> torch.Tensor:
     """Per-channel standardization over the trailing channel axis."""
-    mean = torch.as_tensor(mean, dtype=image.dtype, device=image.device)
-    std = torch.as_tensor(std, dtype=image.dtype, device=image.device)
+    mean = _constant(tuple(mean), image.dtype, image.device)
+    std = _constant(tuple(std), image.dtype, image.device)
     if mean.shape[0] != image.shape[-1] or std.shape[0] != image.shape[-1]:
         raise ValueError(
             f"mean/std have {mean.shape[0]}/{std.shape[0]} entries for "

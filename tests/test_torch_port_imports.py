@@ -52,7 +52,9 @@ def test_importing_the_port_loads_no_jax():
                    "ops.preprocess", "losses.segmentation", "metrics.dice",
                    "data.pipeline", "data.datasets", "paths", "ops.min_plus",
                    "ops.edt", "metrics.hd95", "training.mixup",
-                   "models.presets", "inference.evaluate"):
+                   "models.presets", "inference.evaluate",
+                   "data.process_miccai", "data.stats", "training.callbacks",
+                   "utils.profiling", "utils.visualize"):
         assert f"ctseg_tpu_torch.{module}" in new
     bad = [
         m for m in new

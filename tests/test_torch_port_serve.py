@@ -63,11 +63,13 @@ def test_test_transform_matches_jax(degree, in_size):
 
 
 def test_train_transforms_wait_for_the_training_slice():
-    """Degree 2 came with the training slice; the others still wait."""
-    assert callable(get_transform(2, train=True))
-    for degree in (0, 1, 3, 4):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_transform(degree, train=True)
+    """Degree 2 came with the training slice, the others with the train
+    transforms' slice: every degree trains, each with its own draws."""
+    for degree in range(5):
+        transform = get_transform(degree, train=True)
+        assert callable(transform) and callable(transform.draw)
+    with pytest.raises(ValueError, match="invalid transform degree"):
+        get_transform(5, train=True)
 
 
 @pytest.fixture(scope="module")

@@ -367,21 +367,29 @@ def test_k4_constants_are_the_kernels():
 # --------------------------------------------------- the repaired faults
 @pytest.mark.parametrize("degree", [0, 1, 3, 4])
 def test_other_train_degrees_name_their_roadmap_item(degree):
-    with pytest.raises(NotImplementedError,
-                       match="item 3: the train transforms of degrees 0, 1, "
-                             "3 and 4"):
-        get_transform(degree, train=True)
-    assert "3. **The train transforms of degrees 0, 1, 3 and 4**" in \
-        ROADMAP.read_text()
+    """The train transforms of degrees 0, 1, 3 and 4 are ported, and the
+    roadmap's item says so."""
+    transform = get_transform(degree, train=True, size=(16, 16))
+    images = torch.zeros((2, 20, 20))
+    draws = transform.draw(torch.Generator().manual_seed(0), images.shape)
+    img, lab = transform(images, torch.zeros((2, 20, 20), dtype=torch.uint8),
+                         draws)
+    assert img.shape == (2, 16, 16, 1 if degree == 0 else 3)
+    assert lab.shape == (2, 16, 16)
+    assert re.search(r"3\. \*\*Done \(PR \d+\): the train transforms of "
+                     r"degrees 0, 1, 3 and 4\*\*", ROADMAP.read_text())
 
 
 def test_train_cli_help_says_its_degree_default_differs(capsys):
+    """It no longer differs: the port's default degree is the reference's
+    0, and the help has lost its note that only degree 2 trains."""
     ours, ref = ArgumentParser(), ArgumentParser()
     cli._add_args(ours)
     jax_cli._add_common_args(ref)
-    assert ours.parse_args([]).transform_degree == 2
+    assert ours.parse_args([]).transform_degree == 0
     assert ref.parse_args([]).transform_degree == 0
     with pytest.raises(SystemExit):
         cli.main(["train", "--help"])
     text = " ".join(capsys.readouterr().out.split())
-    assert "degree 2 only" in text and "the reference's is 0" in text
+    assert "degree 2 only" not in text and "the reference's is 0" not in text
+    assert "--transform_degree" in text
