@@ -150,6 +150,30 @@ Phases (any failure raises and the script exits non-zero):
      equal except where a warp's source coordinate lies within HALF_EPS of
      a half-integer (counted and printed).
 
+ 27. Export: phase 4's Model L checkpoint exported at 280x280 with the
+     kernels (`--platforms cuda`: K1 and K2 as `ctseg::` custom ops), in
+     float32 and bfloat16, and portable (aten ops only); each loaded with
+     load_exported and run on 32 and on 1 cropped slices of phase 4's scan:
+     8 K1 and 9 K2 launches a call for the kernel artifacts, none for the
+     portable one; labels against predict_labels_2d's forward and each
+     other within 0.1%; every K1 and K2 shape of a call at batch 1, in both
+     types, held to its plain version; the portable one also in a process
+     that cannot import the port; ms a batch of 32 beside the eager
+     forward. Phase 17's 3D checkpoint exported as a patch scorer
+     (128x128x48): 17 K1 launches a call of 4 patches, logits against the
+     eager model.
+ 28. GradCAM: run_interpretability with phase 4's checkpoint on phase 22's
+     test split, 16 samples in batches of 8 at feat_down1: K1b and K2b 9
+     times the K1 and K2 sites after the layer (from the model's topology)
+     a batch, finite non-negative maps, the .npy files; every K1 and K2
+     shape of a batch of 8 held to its plain version, those after the layer
+     in their training forms with K1b and K2b; 2 slices' maps against a
+     float64 CPU referee and a CPU copy's plain path; ms a batch.
+ 29. The front door: `python -m ctseg_tpu_torch` lists the commands;
+     evaluate and gradcam `--from_released model_l` from a local
+     reference-layout model_large.ckpt; parity --checkpoint; parity
+     --synthetic --max_epochs 1 (both small models, K5 in Model M's steps).
+
 No main path (serve, Model L, Model M, evaluation) may launch K2's FP32-pipe
 route: its count is asserted to be 0 after each.
 
@@ -812,57 +836,79 @@ def phase_k1b(label, gen):
     return worst, ms, plain_ms
 
 
-def phase_k2b(label, gen):
-    """K2b and K2's training forward at the train step's shapes (batch
-    TRAIN_BATCH), where phase 9 launches them."""
+def _k2_weights(gen, cin, cout):
+    """A 3x3 conv's weight (3, 3, Cin, Cout) and bias at torch's default
+    init scale."""
+    import torch
+
+    bound = 1.0 / (9 * cin) ** 0.5
+    w32 = (torch.rand((3, 3, cin, cout), generator=gen, device=DEVICE)
+           * 2 - 1) * bound
+    b = (torch.rand((cout,), generator=gen, device=DEVICE) * 2 - 1) * bound
+    return w32, b
+
+
+def _k2b_site(label, gen, n, h, w, cin, cout, what="sites/step", sites=None,
+              dtypes=("float32", "bfloat16")):
+    """K2b and K2's training forward against their plain versions at one
+    site (batch n), in each of `dtypes`; returns per type (worst dy error,
+    kernel ms, plain ms) of K2b."""
     import torch
     from ctseg_tpu_torch.ops import conv_block as k2
 
+    out = {}
+    g32 = torch.randn((n, h, w, cout), generator=gen, device=DEVICE)
+    xh32 = torch.randn((n, h, w, cout), generator=gen, device=DEVICE)
+    rsinv = torch.rand((n, cout), generator=gen, device=DEVICE) + 0.5
+    for dname in dtypes:
+        dtype = getattr(torch, dname)
+        g, xhat = g32.to(dtype), xh32.to(dtype)
+        atol, rtol = BWD_TOL[dname]
+        tag = f"K2b {(n, h, w, cin, cout)} {dname}"
+        worst = 0.0
+        for a in ALPHAS:
+            alpha = torch.full((1,), a, device=DEVICE)
+            dy, da = k2.in_prelu_bwd(g, xhat, rsinv, alpha)
+            pdy, pda = k2.in_prelu_bwd_plain(g, xhat, rsinv, alpha)
+            err = check_close(f"{tag} alpha={a} dy", dy, pdy, atol, rtol)
+            terms = (g.float() * torch.clamp_max(xhat.float(), 0.0)).abs().sum()
+            check_dalpha(f"{tag} alpha={a}", da, pda, terms)
+            worst = max(worst, err)
+        t_k = time_ms(lambda: k2.in_prelu_bwd(g, xhat, rsinv, alpha), 20)
+        t_p = time_ms(lambda: k2.in_prelu_bwd_plain(g, xhat, rsinv, alpha), 20)
+        print(f"[{label}] K2b {(n, h, w, cin, cout)} {dname}: kernel "
+              f"{t_k:.4f} ms, plain {t_p:.4f} ms, {what} {sites}")
+        out[dname] = (worst, t_k, t_p)
+    del g32, xh32, g, xhat
+    # K2's training forward: xhat and rsinv beside out, against the plain's.
+    x32 = torch.randn((n, h, w, cin), generator=gen, device=DEVICE)
+    w32, b = _k2_weights(gen, cin, cout)
+    alpha = torch.full((1,), 0.25, device=DEVICE)
+    for dname in dtypes:
+        x, wt = x32.to(getattr(torch, dname)), w32.to(getattr(torch, dname))
+        y, xhat, rsinv = k2._forward(x, wt, b, alpha, train=True)
+        py, pxhat, prsinv = k2._fwd_plain(x, wt, b, alpha)
+        tag = f"K2 train forward {(n, h, w, cin, cout)} {dname}"
+        check_close(f"{tag} out", y, py, *TOL[("k2", dname)])
+        check_close(f"{tag} xhat", xhat, pxhat, *TOL[("k2", dname)])
+        check_close(f"{tag} rsinv", rsinv, prsinv, 1e-5, 1e-4)
+        del y, xhat, py, pxhat
+    return out
+
+
+def phase_k2b(label, gen):
+    """K2b and K2's training forward at the train step's shapes (batch
+    TRAIN_BATCH), where phase 9 launches them."""
     n = TRAIN_BATCH
     worst = {"float32": 0.0, "bfloat16": 0.0}
     ms = {"float32": 0.0, "bfloat16": 0.0}
     plain_ms = {"float32": 0.0, "bfloat16": 0.0}
     for (h, w, cin, cout), sites in K2_SITES.items():
-        g32 = torch.randn((n, h, w, cout), generator=gen, device=DEVICE)
-        xh32 = torch.randn((n, h, w, cout), generator=gen, device=DEVICE)
-        rsinv = torch.rand((n, cout), generator=gen, device=DEVICE) + 0.5
-        for dtype in (torch.float32, torch.bfloat16):
-            g, xhat = g32.to(dtype), xh32.to(dtype)
-            dname = str(dtype).split(".")[-1]
-            atol, rtol = BWD_TOL[dname]
-            tag = f"K2b {(n, h, w, cin, cout)} {dname}"
-            for a in ALPHAS:
-                alpha = torch.full((1,), a, device=DEVICE)
-                dy, da = k2.in_prelu_bwd(g, xhat, rsinv, alpha)
-                pdy, pda = k2.in_prelu_bwd_plain(g, xhat, rsinv, alpha)
-                err = check_close(f"{tag} alpha={a} dy", dy, pdy, atol, rtol)
-                terms = (g.float() * torch.clamp_max(xhat.float(), 0.0)).abs().sum()
-                check_dalpha(f"{tag} alpha={a}", da, pda, terms)
-                worst[dname] = max(worst[dname], err)
-            t_k = time_ms(lambda: k2.in_prelu_bwd(g, xhat, rsinv, alpha), 20)
-            t_p = time_ms(lambda: k2.in_prelu_bwd_plain(g, xhat, rsinv, alpha), 20)
-            print(f"[{label}] K2b {(n, h, w, cin, cout)} {dname}: kernel "
-                  f"{t_k:.4f} ms, plain {t_p:.4f} ms, sites/step {sites}")
+        for dname, (err, t_k, t_p) in _k2b_site(label, gen, n, h, w, cin,
+                                                 cout, sites=sites).items():
+            worst[dname] = max(worst[dname], err)
             ms[dname] += sites * t_k
             plain_ms[dname] += sites * t_p
-    # K2's training forward: xhat and rsinv beside out, against the plain's.
-    for (h, w, cin, cout) in K2_SITES:
-        x32 = torch.randn((n, h, w, cin), generator=gen, device=DEVICE)
-        bound = 1.0 / (9 * cin) ** 0.5
-        w32 = (torch.rand((3, 3, cin, cout), generator=gen, device=DEVICE)
-               * 2 - 1) * bound
-        b = (torch.rand((cout,), generator=gen, device=DEVICE) * 2 - 1) * bound
-        alpha = torch.full((1,), 0.25, device=DEVICE)
-        for dtype in (torch.float32, torch.bfloat16):
-            x, wt = x32.to(dtype), w32.to(dtype)
-            dname = str(dtype).split(".")[-1]
-            out, xhat, rsinv = k2._forward(x, wt, b, alpha, train=True)
-            pout, pxhat, prsinv = k2._fwd_plain(x, wt, b, alpha)
-            tag = f"K2 train forward {(n, h, w, cin, cout)} {dname}"
-            check_close(f"{tag} out", out, pout, *TOL[("k2", dname)])
-            check_close(f"{tag} xhat", xhat, pxhat, *TOL[("k2", dname)])
-            check_close(f"{tag} rsinv", rsinv, prsinv, 1e-5, 1e-4)
-            del out, xhat, pout, pxhat
     print(f"K2b max |kernel - plain| (dy): float32 {worst['float32']:.3e}, "
           f"bfloat16 {worst['bfloat16']:.3e}; per step at batch {n}: float32 "
           f"kernel {ms['float32']:.3f} ms, plain {plain_ms['float32']:.3f} ms; "
@@ -2211,22 +2257,11 @@ def phase_grad_parity_3d(label):
 
 def _k1_shapes(fn):
     """Run fn() and return the (shape, dtype name) -> calls of K1 that the
-    model's units made in it (recorded at the call in models/layers.py)."""
-    from ctseg_tpu_torch.models import layers
-
-    seen = {}
-    k1 = layers.instance_norm_prelu
-
-    def record(x, alpha):
-        key = (tuple(x.shape), str(x.dtype).split(".")[-1])
-        seen[key] = seen.get(key, 0) + 1
-        return k1(x, alpha)
-
-    layers.instance_norm_prelu = record
-    try:
-        fn()
-    finally:
-        layers.instance_norm_prelu = k1
+    model's units made in it, in either form (from _site_shapes)."""
+    sites = _site_shapes(fn)
+    seen = dict(sites[("k1", False)])
+    for key, calls in sites[("k1", True)].items():
+        seen[key] = seen.get(key, 0) + calls
     return seen
 
 
@@ -2283,6 +2318,100 @@ def _hold_k1_at(label, what, shapes, gen, backward):
         f"{k[:-3]} {v:.3f}" for k, v in tot.items()))
     print(f"K1_SITES_OF {what}: " + json.dumps(rows))
     return rows
+
+
+def _site_shapes(fn):
+    """Run fn() and return the K1 and K2 calls that the model's units made
+    in it (recorded at the call in models/layers.py), by kernel and form:
+    {("k1" or "k2", training form?): {key: calls}}, the key (x shape, dtype
+    name) for K1 and (x shape, Cout, dtype name) for K2. A call takes the
+    training form where the wrapper does: grad enabled and an input
+    requiring it."""
+    import torch
+    from ctseg_tpu_torch.models import layers
+
+    seen = {("k1", False): {}, ("k1", True): {}, ("k2", False): {},
+            ("k2", True): {}}
+    k1, k2 = layers.instance_norm_prelu, layers.conv3x3_in_prelu
+
+    def note(kind, key, *args):
+        train = torch.is_grad_enabled() and any(t.requires_grad for t in args)
+        calls = seen[(kind, train)]
+        calls[key] = calls.get(key, 0) + 1
+
+    def record_k1(x, alpha):
+        note("k1", (tuple(x.shape), str(x.dtype).split(".")[-1]), x, alpha)
+        return k1(x, alpha)
+
+    def record_k2(x, w, b, alpha):
+        note("k2", (tuple(x.shape), w.shape[-1], str(x.dtype).split(".")[-1]),
+             x, w, b, alpha)
+        return k2(x, w, b, alpha)
+
+    layers.instance_norm_prelu, layers.conv3x3_in_prelu = record_k1, record_k2
+    try:
+        fn()
+    finally:
+        layers.instance_norm_prelu, layers.conv3x3_in_prelu = k1, k2
+    return seen
+
+
+def _hold_k2_at(label, what, shapes, gen, train):
+    """K2 (and with `train` K2b and K2's training forward, as phase 6)
+    against their plain versions at each shape a main path gave it (from
+    _site_shapes), at phases 3 and 6's tolerances, on the tensor-core route;
+    per shape the inference forward's time and the plain version's."""
+    import torch
+    from ctseg_tpu_torch.ops import conv_block as k2
+
+    rows = []
+    for (shape, cout, dname), calls in sorted(shapes.items()):
+        n, h, w, cin = shape
+        if k2.conv_route(cin, cout, h, w) != "tc":
+            raise AssertionError(f"K2 {shape} -> {cout} ({what}) is not on "
+                                 "the tensor-core route")
+        row = {"shape": [*shape, cout], "dtype": dname, "calls": calls}
+        if train:
+            err, t_b, t_bp = _k2b_site(label, gen, n, h, w, cin, cout,
+                                       f"calls in {what}", calls,
+                                       (dname,))[dname]
+            row.update(k2b_ms=t_b, k2b_plain_ms=t_bp, k2b_err=err)
+        dtype = getattr(torch, dname)
+        x = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+        w32, b = _k2_weights(gen, cin, cout)
+        wt = w32.to(dtype)
+        alpha = torch.full((1,), 0.25, device=DEVICE)
+        y = k2.conv3x3_in_prelu(x, wt, b, alpha)
+        err = check_close(f"K2 {shape} -> {cout} {dname} ({what})", y,
+                          k2.conv3x3_in_prelu_plain(x, wt, b, alpha),
+                          *TOL[("k2", dname)])
+        if not torch.equal(y, k2.conv3x3_in_prelu(x, wt, b, alpha)):
+            raise AssertionError(f"K2 {shape} {dname}: two runs differ")
+        t_k = time_ms(lambda: k2._forward(x, wt, b, alpha, train=False), 10)
+        t_p = time_ms(lambda: k2._fwd_plain(x, wt, b, alpha), 3)
+        print(f"[{label}] K2 {shape} -> {cout} {dname}, as {what} launches "
+              f"it ({calls} calls{', training form' if train else ''}): max "
+              f"|kernel - plain| {err:.3e}; inference forward {t_k:.4f} ms, "
+              f"plain {t_p:.4f}")
+        row.update(k2_ms=t_k, k2_plain_ms=t_p, k2_err=err)
+        rows.append(row)
+        del x, y
+    torch.cuda.empty_cache()
+    print(f"K2_SITES_OF {what}: " + json.dumps(rows))
+    return rows
+
+
+def _hold_sites(label, what, sites, gen):
+    """Every K1 and K2 shape of `sites` (from _site_shapes) held to its
+    plain version, the training forms with their backward kernels."""
+    for (kind, train), shapes in sites.items():
+        if not shapes:
+            continue
+        form = "training" if train else "inference"
+        if kind == "k1":
+            _hold_k1_at(label, f"{what} ({form} form)", shapes, gen, train)
+        else:
+            _hold_k2_at(label, f"{what} ({form} form)", shapes, gen, train)
 
 
 def phase_train_resize_3d(label):
@@ -3026,6 +3155,438 @@ def phase_transforms_vs_cpu(label):
           f"slices, the same draws: " + "; ".join(rows))
 
 
+# ------------------------- export, GradCAM, released names, the front door
+EXPORT_SLICE = (280, 280)  # phase 27: the native slice shape baked in
+EXPORT_TIMED = 5           # phase 27: timed calls per artifact
+LABEL_TOL = 1e-3           # phases 27-28: share of labels that may differ
+                           # (cuDNN near-ties, as phase 4's requests)
+GRADCAM_SAMPLES = 16       # phase 28: 2 batches of 8
+GRADCAM_BATCH = 8
+GRADCAM_LAYER = "feat_down1"
+CAM_REFEREE_FACTOR = 2     # phase 28: the card's median map error against
+                           # a float64 referee, against the CPU float32 one's
+CAM_WORST_RTOL = 1e-2      # phase 28: the card's worst map, of its max
+
+
+def _region(scan: Path, n: int):
+    """The first n cropped 280x280 slices of a synthetic scan, raw HU."""
+    from ctseg_tpu_torch.utils.miccai import CropBox, Volume
+
+    data = Volume.from_nrrd(scan / "img.nrrd").as_numpy()[0]
+    region = CropBox.anatomical(data.shape[0]).apply(data[None])[0]
+    return np.asarray(region[:n], np.float32)
+
+
+def _label_share(a, b) -> float:
+    return float(np.mean(np.asarray(a) != np.asarray(b)))
+
+
+_TORCH_ONLY_LOADER = """
+import sys
+sys.modules["ctseg_tpu_torch"] = None  # any import of the port raises
+import numpy as np, torch
+from torch.export.passes import move_to_device_pass
+torch.backends.cudnn.allow_tf32 = False  # float32 convs, as the port runs them
+ep = move_to_device_pass(torch.export.load(sys.argv[1]), "cuda")
+fn = ep.module()
+with torch.inference_mode():
+    out = fn(torch.from_numpy(np.load(sys.argv[2])).cuda())
+np.save(sys.argv[3], out.cpu().numpy())
+print("torch-only load ok", tuple(out.shape), out.dtype)
+"""
+
+
+def phase_export(label, workdir: Path, ckpt: Path, scan: Path, ckpt_3d: Path):
+    """Phase 27: Model L exported with the kernels (`--platforms cuda`) and
+    portable, in float32 and bfloat16, and a 3D patch scorer."""
+    import torch
+    from ctseg_tpu_torch.inference.export import (
+        export_checkpoint, load_exported,
+    )
+    from ctseg_tpu_torch.inference.predict import slice_labels
+    from ctseg_tpu_torch.inference.sliding_window import model_apply_fn
+    from ctseg_tpu_torch.training.config import load_checkpoint
+    from ctseg_tpu_torch.transforms.pipelines import get_transform
+    from ctseg_tpu_torch.transforms.windowing import apply_window
+
+    out = workdir / "export"
+    t0 = time.perf_counter()
+    paths = {
+        "kernel": export_checkpoint(ckpt, out / "kernel.pt2", EXPORT_SLICE,
+                                    platforms=("cuda",), device=DEVICE),
+        "portable": export_checkpoint(ckpt, out / "portable.pt2",
+                                      EXPORT_SLICE, device=DEVICE),
+        "kernel_bf16": export_checkpoint(
+            ckpt, out / "kernel_bf16.pt2", EXPORT_SLICE, platforms=("cuda",),
+            infer_dtype="bfloat16", device=DEVICE),
+    }
+    export_s = time.perf_counter() - t0
+    metas = {k: json.loads(Path(str(p) + ".json").read_text())
+             for k, p in paths.items()}
+    if metas["portable"]["custom_ops"] or not metas["kernel"]["custom_ops"]:
+        raise AssertionError(f"custom ops: {metas}")
+    fns = {k: load_exported(p, device=DEVICE) for k, p in paths.items()}
+
+    config, model = load_checkpoint(ckpt, DEVICE)
+    transform = get_transform(config.transform_degree, train=False,
+                              size=(config.input_size,) * 2)
+    slices = _region(scan, BATCH)
+    x32 = torch.from_numpy(slices).to(DEVICE)
+    eager = {}  # predict's forward at each batch and compute dtype
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            model.compute_dtype = dtype
+            for n in (BATCH, 1):
+                eager[(dtype, n)] = slice_labels(
+                    model, transform, x32[:n], dtype).cpu().numpy()
+        model.compute_dtype = torch.float32
+    want = {"kernel": (8, 9), "portable": (0, 0), "kernel_bf16": (8, 9)}
+    labels, launches, shares = {}, {}, {}
+    for kind, fn in fns.items():
+        for n in (BATCH, 1):
+            reset_launches()
+            with torch.inference_mode():
+                got = fn(x32[:n]).cpu().numpy()
+            seen = read_launches()
+            if (seen["k1"], seen["k2"]) != want[kind] or got.shape != (
+                    n, *EXPORT_SLICE) or got.dtype != np.uint8:
+                raise AssertionError(
+                    f"{kind} artifact, batch {n}: K1/K2 launches "
+                    f"{seen['k1']}/{seen['k2']} (want {want[kind]}), "
+                    f"{got.shape} {got.dtype}")
+            ref = eager[(torch.bfloat16 if kind == "kernel_bf16"
+                         else torch.float32, n)]
+            shares[f"{kind} batch {n}"] = _label_share(got, ref)
+            if shares[f"{kind} batch {n}"] > LABEL_TOL:
+                raise AssertionError(f"{kind} artifact, batch {n}: "
+                                     f"{shares[f'{kind} batch {n}']:.5f} of "
+                                     "labels differ from predict's")
+            if n == BATCH:
+                launches[kind] = seen
+                labels[kind] = got
+    apart = _label_share(labels["kernel"], labels["portable"])
+    if apart > LABEL_TOL:
+        raise AssertionError(f"kernel and portable artifacts: {apart:.5f}")
+
+    # Every K1 and K2 shape of a kernel artifact's call at batch 1, in both
+    # types, held to its plain version: the artifacts launch the eager
+    # model's shapes, and the kernels' plans depend on the batch.
+    def batch_1():
+        with torch.inference_mode():
+            for dtype in (torch.float32, torch.bfloat16):
+                model.compute_dtype = dtype
+                slice_labels(model, transform, x32[:1], dtype)
+        model.compute_dtype = torch.float32
+
+    _hold_sites(label, "an export call at batch 1", _site_shapes(batch_1),
+                torch.Generator(device=DEVICE).manual_seed(27))
+
+    # The portable artifact in a process that cannot import the port.
+    np.save(out / "slices.npy", slices)
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-c", _TORCH_ONLY_LOADER, str(paths["portable"]),
+         str(out / "slices.npy"), str(out / "torch_only.npy")],
+        cwd=out, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"torch-only loader: {r.stderr[-3000:]}")
+    alone = _label_share(np.load(out / "torch_only.npy"), labels["portable"])
+    if alone > LABEL_TOL:
+        raise AssertionError(f"torch-only run vs in-process: {alone:.5f}")
+    loader_s = time.perf_counter() - t0
+
+    with torch.inference_mode():
+        times = {k: time_ms(lambda f=f: f(x32), EXPORT_TIMED)
+                 for k, f in fns.items()}
+        times["eager"] = time_ms(lambda: slice_labels(model, transform, x32),
+                                 EXPORT_TIMED)
+    del fns, model
+    torch.cuda.empty_cache()
+
+    # 3D: the patch scorer with the kernels, against the eager model.
+    p3 = export_checkpoint(ckpt_3d, out / "patch.pt2",
+                           patch_size=EVAL_PATCH_3D, platforms=("cuda",),
+                           device=DEVICE)
+    fn3 = load_exported(p3, device=DEVICE)
+    _, m3 = load_checkpoint(ckpt_3d, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(27)
+    patches = torch.randn((EVAL_BATCH_3D, *EVAL_PATCH_3D), generator=gen,
+                          device=DEVICE) * 300 + 40
+    reset_launches()
+    with torch.inference_mode():
+        got3 = fn3(patches)
+    seen3 = read_launches()
+    with torch.inference_mode():
+        ref3 = model_apply_fn(m3)(apply_window(patches[..., None], 350, 20))
+    err3 = float(((got3.float() - ref3.float()).abs()
+                  / (1 + ref3.float().abs())).max())
+    if seen3["k1"] != PER_STEP_3D["k1"] or got3.shape != (
+            EVAL_BATCH_3D, *EVAL_PATCH_3D, 10) or not err3 <= LOGIT_TOL:
+        raise AssertionError(f"3D artifact: {seen3['k1']} K1 launches, "
+                             f"{tuple(got3.shape)}, error {err3:.3e}")
+    with torch.inference_mode():
+        ms3 = time_ms(lambda: fn3(patches), 3)
+        eager3 = time_ms(lambda: model_apply_fn(m3)(
+            apply_window(patches[..., None], 350, 20)), 3)
+    del fn3, m3
+    torch.cuda.empty_cache()
+    print(f"[{label}] export of full-width Model L at {EXPORT_SLICE} (3 "
+          f"artifacts, {export_s:.3f} s host; sizes "
+          + ", ".join(f"{k} {p.stat().st_size}" for k, p in paths.items())
+          + f" bytes): launches K1/K2 at batch {BATCH} and 1: kernel 8/9, "
+          "bfloat16 kernel 8/9, portable 0/0 (FP32-pipe route 0); share of "
+          "labels differing from predict_labels_2d's forward: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in shares.items())
+          + f"; kernel vs portable {apart:.6f}; torch-only process (port "
+          f"unimportable) vs in-process portable {alone:.6f} ({loader_s:.3f}"
+          f" s); ms a batch of {BATCH} (CUDA events): kernel "
+          f"{times['kernel']:.3f}, bfloat16 kernel {times['kernel_bf16']:.3f},"
+          f" portable {times['portable']:.3f}, eager predict forward "
+          f"{times['eager']:.3f}; 3D patch scorer at batch {EVAL_BATCH_3D} x "
+          f"{EVAL_PATCH_3D}: {seen3['k1']} K1 launches a call, logits within "
+          f"{err3:.3e} of (1 + |eager|), {ms3:.3f} ms a call (eager "
+          f"{eager3:.3f})")
+    return {"launches": {k: launches[k] for k in ("kernel", "portable")},
+            "launches_3d": seen3, "ms": times, "ms_3d": ms3,
+            "eager_ms_3d": eager3}
+
+
+def _sites_after(model, layer: str):
+    """(K1 sites, K2 sites) that run after `layer` in the forward: the
+    units GradCAM's backward passes go through, from the model's topology
+    (each unit's forward hook records the order on a small input)."""
+    import torch
+    from ctseg_tpu_torch.interpret.gradcam import layers
+    from ctseg_tpu_torch.models.layers import ConvTransposeUnit, ConvUnit
+
+    order, handles = [], []
+    for m in model.modules():
+        if isinstance(m, (ConvUnit, ConvTransposeUnit)) and \
+                m.act is not None:
+            kind = "k2" if getattr(m, "fused", False) else "k1"
+            handles.append(m.register_forward_hook(
+                lambda *_, k=kind: order.append(k)))
+    handles.append(layers(model)[layer].register_forward_hook(
+        lambda *_: order.append("layer")))
+    try:
+        x = torch.zeros((1, 3, 64, 64), device=DEVICE)
+        with torch.inference_mode():
+            model(x.contiguous(memory_format=torch.channels_last))
+    finally:
+        for h in handles:
+            h.remove()
+    after = order[order.index("layer") + 1:]
+    return after.count("k1"), after.count("k2")
+
+
+def phase_gradcam(label, workdir: Path, ckpt: Path, data_dir: Path):
+    """Phase 28: run_interpretability at Model L's width on the packed test
+    split, and its maps against a CPU copy's plain path."""
+    import copy
+
+    import torch
+    from ctseg_tpu_torch.data.datasets import PackedDataset2D
+    from ctseg_tpu_torch.interpret.gradcam import (
+        class_activation_maps, gradcam_all_structures,
+    )
+    from ctseg_tpu_torch.interpret.run import run_interpretability
+    from ctseg_tpu_torch.models.layers import channels_last
+    from ctseg_tpu_torch.training.config import load_checkpoint
+    from ctseg_tpu_torch.transforms.pipelines import get_transform
+
+    config, model = load_checkpoint(ckpt, DEVICE)
+    dataset = PackedDataset2D.load(data_dir / "test_packed.npz")
+    k1_sites, k2_sites = _sites_after(model, GRADCAM_LAYER)
+    # The JAX script's filter is 5 structures; the synthetic slices carry
+    # fewer on some: the largest count that keeps 16 samples.
+    counts = dataset.indicators.sum(axis=1)
+    min_structures = next(m for m in range(5, -1, -1)
+                          if (counts >= m).sum() >= GRADCAM_SAMPLES)
+    out = workdir / "gradcam"
+    run_interpretability(config, model, dataset, out / "warm", 2,
+                         min_structures, GRADCAM_LAYER, 2)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    done = run_interpretability(config, model, dataset, out / "run",
+                                GRADCAM_SAMPLES, min_structures,
+                                GRADCAM_LAYER, GRADCAM_BATCH)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    seen = read_launches()
+    batches = -(-GRADCAM_SAMPLES // GRADCAM_BATCH)
+    want = {"k1": 8, "k2": 9, "k1b": 9 * k1_sites, "k2b": 9 * k2_sites}
+    if done != GRADCAM_SAMPLES or any(seen[k] != v * batches
+                                      for k, v in want.items()):
+        raise AssertionError(f"GradCAM: {done} samples, launches {seen} "
+                             f"over {batches} batches, want {want} a batch")
+    per_batch = {k: seen[k] // batches for k in want}
+    cams = sorted((out / "run").glob("*_gradcam.npy"))
+    if len(cams) != GRADCAM_SAMPLES or len(list(
+            (out / "run").glob("*_pred.npy"))) != GRADCAM_SAMPLES:
+        raise AssertionError(f"GradCAM wrote {len(cams)} maps")
+    for p in cams:
+        m = np.load(p)
+        if m.shape != (9, SIZE, SIZE) or not np.isfinite(m).all() \
+                or m.min() < 0:
+            raise AssertionError(f"{p.name}: {m.shape}, min {m.min()}")
+
+    # The GradCAM alone on one batch (CUDA events): run_interpretability's time above
+    # also holds the transform, the copies and the files.
+    keep = np.flatnonzero(counts >= min_structures)[:GRADCAM_BATCH]
+    transform = get_transform(config.transform_degree, train=False,
+                              size=(config.input_size,) * 2)
+    img, _ = transform(torch.from_numpy(dataset.images[keep].astype(
+        np.float32)).to(DEVICE))
+    x8 = channels_last(img.permute(0, 3, 1, 2))
+    cam_ms = time_ms(lambda: class_activation_maps(
+        model, x8, range(1, 10), GRADCAM_LAYER), 3)
+    # Each K1 and K2 shape of one batch held to its plain version, the
+    # training forms (after the layer) with K1b and K2b.
+    sites = _site_shapes(lambda: class_activation_maps(
+        model, x8, range(1, 10), GRADCAM_LAYER))
+    calls = {k: sum(v.values()) for k, v in sites.items()}
+    if calls != {("k1", False): 8 - k1_sites, ("k1", True): k1_sites,
+                 ("k2", False): 9 - k2_sites, ("k2", True): k2_sites}:
+        raise AssertionError(f"GradCAM's forward made {calls} calls")
+    del img, x8
+    _hold_sites(label, f"a GradCAM batch of {GRADCAM_BATCH}", sites,
+                torch.Generator(device=DEVICE).manual_seed(28))
+
+    # Two slices' maps on the card and on a CPU copy's plain path, both
+    # float32, each held to a float64 CPU copy (the referee). The gradient
+    # at the layer is ill-conditioned in float32 (on either path up to about
+    # 0.1 of its max from the referee, some 0.01 at the median), and a map
+    # is a ReLU of a sum over the channels that cancels: the CPU's float32
+    # maps are up to 2e-3 of their max from the referee. The card's median
+    # map error may be at most CAM_REFEREE_FACTOR times the CPU's, its
+    # worst map at most CAM_WORST_RTOL of the map's max.
+    keep = keep[:2]
+    img, _ = transform(torch.from_numpy(dataset.images[keep].astype(
+        np.float32)))
+    x = channels_last(img.permute(0, 3, 1, 2))
+    cpu_model = copy.deepcopy(model).to("cpu")
+    t0 = time.perf_counter()
+    plain = gradcam_all_structures(cpu_model, x, GRADCAM_LAYER)
+    cpu_s = time.perf_counter() - t0
+    cpu_model.to(torch.float64).compute_dtype = torch.float64
+    referee = gradcam_all_structures(cpu_model, x.double(), GRADCAM_LAYER)
+    card = gradcam_all_structures(model, x.to(DEVICE), GRADCAM_LAYER).cpu()
+    scale = referee.flatten(2).abs().amax(-1)
+
+    def rel(maps):
+        """(worst, median) over the maps of |maps - referee| / its max."""
+        err = (maps.double() - referee).abs().flatten(2).amax(-1)
+        err = err / scale.clamp_min(1e-30)
+        return float(err.max()), float(err.median())
+
+    card_err, plain_err = rel(card), rel(plain)
+    apart = float(((card - plain).abs().flatten(2).amax(-1)
+                   / scale.clamp_min(1e-30)).max())
+    if not card_err[1] <= CAM_REFEREE_FACTOR * plain_err[1] + 1e-7 \
+            or not card_err[0] <= CAM_WORST_RTOL \
+            or not bool((scale > 0).any()):
+        raise AssertionError(
+            f"GradCAM against float64, (worst, median) of each map's max: "
+            f"card {card_err}, CPU float32 {plain_err}")
+    del cpu_model
+    print(f"[{label}] GradCAM of full-width Model L at {GRADCAM_LAYER} "
+          f"({k1_sites} K1 and {k2_sites} K2 sites after it), "
+          f"run_interpretability on {done} test slices (at least "
+          f"{min_structures} structures) in batches of {GRADCAM_BATCH}: "
+          f"{seconds / batches * 1e3:.3f} ms a batch (host clock, .npy and "
+          f"PNG writes included), the GradCAM alone (one forward and 9 "
+          f"backwards) {cam_ms:.3f} ms a batch (CUDA events); launches a batch K1 {per_batch['k1']:g}, "
+          f"K2 {per_batch['k2']:g}, K1b {per_batch['k1b']:g}, K2b "
+          f"{per_batch['k2b']:g}, every K1 and K2 shape of a batch held to its "
+          f"plain version; 2 slices' 18 maps against a float64 CPU "
+          f"copy, worst and median of each map's max: card {card_err[0]:.3e}"
+          f" and {card_err[1]:.3e}, CPU float32 plain path {plain_err[0]:.3e}"
+          f" and {plain_err[1]:.3e} (bounds: the worst {CAM_WORST_RTOL:.0e}, "
+          f"the median {CAM_REFEREE_FACTOR:g} x the CPU's); card vs CPU "
+          f"float32 {apart:.3e} (the CPU's float32 maps took {cpu_s:.1f} s)")
+    return {"launches_per_batch": per_batch,
+            "ms_per_batch": seconds / batches * 1e3, "cam_ms": cam_ms}
+
+
+def phase_front_door(label, workdir: Path, ckpt: Path, data_dir: Path):
+    """Phase 29: `python -m ctseg_tpu_torch`, released names, parity."""
+    import torch
+    from ctseg_tpu_torch import __main__ as front
+    from ctseg_tpu_torch.data.datasets import PackedDataset2D
+
+    r = subprocess.run([sys.executable, "-m", "ctseg_tpu_torch"],
+                       cwd=Path(__file__).resolve().parent,
+                       capture_output=True, text=True, timeout=120)
+    if r.returncode != 2 or not all(c in r.stdout for c in front.COMMANDS):
+        raise AssertionError(f"the front door printed {r.stdout!r}")
+
+    # A reference-layout model_large.ckpt (Lightning keys and hparams).
+    released = workdir / "released"
+    released.mkdir()
+    port = torch.load(str(ckpt), map_location="cpu", weights_only=False)
+    hp = dict(port["hyper_parameters"], use_res_units=True)
+    torch.save({"state_dict": {k.replace(".act.", ".adn.A."): v
+                               for k, v in port["state_dict"].items()},
+                "hyper_parameters": hp}, released / "model_large.ckpt")
+    from_released = ["--from_released", "model_l", "--released_source",
+                     str(released), "--device", DEVICE]
+    test = PackedDataset2D.load(data_dir / "test_packed.npz")
+    times = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    front.main(["evaluate", *from_released, "--data_dir", str(data_dir),
+                "--out", str(workdir / "eval_released.json")])
+    times["evaluate"] = time.perf_counter() - t0
+    seen = read_launches()
+    result = json.loads((workdir / "eval_released.json").read_text())
+    batches = -(-len(test) // 64)
+    if result["num_slices"] != len(test) or (seen["k1"], seen["k2"]) != (
+            8 * batches, 9 * batches):
+        raise AssertionError(f"evaluate --from_released: {result['num_slices']}"
+                             f" slices, launches {seen}")
+    t0 = time.perf_counter()
+    front.main(["gradcam", *from_released, "--data_dir", str(data_dir),
+                "--out_dir", str(workdir / "cams_released"),
+                "--max_samples", "8", "--min_structures", "0"])
+    times["gradcam"] = time.perf_counter() - t0
+    if len(list((workdir / "cams_released").glob("*_gradcam.npy"))) != 8:
+        raise AssertionError("gradcam --from_released did not write 8 maps")
+    t0 = time.perf_counter()
+    front.main(["parity", "--checkpoint", str(ckpt), "--models", "model_l",
+                "--data_dir", str(data_dir), "--out_dir",
+                str(workdir / "parity_ckpt"), "--device", DEVICE])
+    times["parity --checkpoint"] = time.perf_counter() - t0
+    report = json.loads((workdir / "parity_ckpt" /
+                         "parity_report.json").read_text())
+    if report["models"]["model_l"]["result"]["num_slices"] != len(test) or \
+            not (workdir / "parity_ckpt" / "parity_report.md").exists():
+        raise AssertionError(f"parity --checkpoint: {report}")
+    reset_launches()
+    t0 = time.perf_counter()
+    front.main(["parity", "--synthetic", "--max_epochs", "1", "--data_dir",
+                str(data_dir), "--out_dir", str(workdir / "parity_synth"),
+                "--device", DEVICE])
+    times["parity --synthetic"] = time.perf_counter() - t0
+    seen_synth = read_launches()
+    report = json.loads((workdir / "parity_synth" /
+                         "parity_report.json").read_text())
+    if sorted(report["models"]) != ["model_l", "model_m"] or \
+            seen_synth["k5"] < 1 or seen_synth["k4"] < 2:
+        raise AssertionError(f"parity --synthetic: {sorted(report['models'])}"
+                             f", launches {seen_synth}")
+    torch.cuda.empty_cache()
+    print(f"[{label}] front door: `python -m ctseg_tpu_torch` lists "
+          f"{len(front.COMMANDS)} commands; --from_released model_l from a "
+          f"local reference-layout model_large.ckpt: evaluate on "
+          f"{len(test)} test slices (mean Dice {result['mean_dice']:.4f}, "
+          f"K1/K2 launches {seen['k1']}/{seen['k2']}), gradcam of 8; parity "
+          f"--checkpoint and parity --synthetic (both small models, 1 epoch; "
+          f"launches {seen_synth}); host seconds: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    return times
+
+
 def main() -> int:
     import torch
 
@@ -3086,6 +3647,7 @@ def main() -> int:
         launches_eval_3d, hd95_3d = phase_evaluate_3d(label,
                                                       train_3d["ckpt"])
         phase_serve_3d(label, Path(tmp), train_3d["ckpt"])
+        ckpt_3d = train_3d["ckpt"]
         del train_3d
         torch.cuda.empty_cache()
         data_dir, sizes = phase_data_prep(label, Path(tmp))
@@ -3093,6 +3655,15 @@ def main() -> int:
         launches_d0, launches_d0_m, _ = phase_train_degree0(label, Path(tmp))
         transform_ms = phase_other_degrees(label)
         phase_transforms_vs_cpu(label)
+        torch.cuda.empty_cache()
+        seconds = {}  # phases 27-29, host clock
+        t0 = time.perf_counter()
+        exported = phase_export(label, Path(tmp), ckpt, scan, ckpt_3d)
+        seconds["27"] = time.perf_counter() - t0
+        cams = phase_gradcam(label, Path(tmp), ckpt, data_dir)
+        seconds["28"] = time.perf_counter() - t0 - seconds["27"]
+        front_s = phase_front_door(label, Path(tmp), ckpt, data_dir)
+        seconds["29"] = time.perf_counter() - t0 - seconds["27"] - seconds["28"]
 
     bounds = site_bounds()
     bounds["k5"] = k5_times["step maps"][2:4]
@@ -3210,6 +3781,13 @@ def main() -> int:
     kernels[0]["library_ms_norm_3d"] = k1_3d["fwd_lib"]["float32"]
     for k, key in ((k5, "k5"), (scan, "scan")):
         k.update(ms_3d_eval=hd95_3d[key][0], bound_ms_3d_eval=hd95_3d[key][1])
+    # Phases 27-28: a call of the kernel artifact at the serving batch (the
+    # portable one launches none), and a GradCAM batch.
+    for k, key in zip(kernels[:4], ("k1", "k1b", "k2", "k2b")):
+        k["launches_export"] = exported["launches"]["kernel"][key]
+        k["launches_export_portable"] = exported["launches"]["portable"][key]
+        k["launches_gradcam"] = cams["launches_per_batch"][key]
+    kernels[0]["launches_export_3d"] = exported["launches_3d"]["k1"]
     print(f"(launches: phase 9's {TIMED_STEPS} timed Model L train steps, for "
           f"K5 and the EDT kernels phase 14's {TIMED_STEPS} Model M steps; "
           "launches_model_m: phase 14's; launches_serve: phase 4's requests; "
@@ -3240,12 +3818,28 @@ def main() -> int:
           "forward); K5's and the scan's *_3d_eval: the HD95 of one "
           "280x280x120 volume (K5: both passes); launches_degree0: phase "
           f"24's {TIMED_STEPS} timed Model L steps at degree 0, "
-          "launches_degree0_model_m: its 2 Model M steps at degree 0)")
+          "launches_degree0_model_m: its 2 Model M steps at degree 0; "
+          f"launches_export: one call of phase 27's kernel artifact at batch "
+          f"{BATCH} (launches_export_portable: the portable one's, "
+          "launches_export_3d: the 3D patch scorer's at batch "
+          f"{EVAL_BATCH_3D}); launches_gradcam: one batch of "
+          f"{GRADCAM_BATCH} of phase 28's GradCAM)")
     # The train transforms of degrees 0, 1, 3 and 4 replace no TPU kernel
     # (the reference's warps are jnp, outside any Pallas call); their times
     # stand on a line of their own.
     print(json.dumps({"train_transform_ms": {
         f"degree_{d}": ms for d, ms in transform_ms.items()}}))
+    # Phases 27-29: ms a call of batch 32 (CUDA events), ms a GradCAM batch,
+    # the front door's commands' seconds and each phase's (host clock).
+    print(json.dumps({
+        "phase_seconds": seconds,
+        "export_ms_batch_32": exported["ms"],
+        "export_patch_ms": {"kernel": exported["ms_3d"],
+                            "eager": exported["eager_ms_3d"]},
+        "gradcam_ms_per_batch": {
+            "run_interpretability": cams["ms_per_batch"],
+            "gradcam": cams["cam_ms"]},
+        "front_door_s": front_s}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,6 +33,10 @@ from ctseg_tpu_torch.inference.sliding_window import (
 )
 from ctseg_tpu_torch.metrics.dice import dice_per_sample_class, masked_mean_batch
 from ctseg_tpu_torch.metrics.hd95 import hd95_per_structure_device
+from ctseg_tpu_torch.models.released import (
+    add_released_args,
+    resolve_checkpoint_arg,
+)
 from ctseg_tpu_torch.models.unet import SegmentationModel
 from ctseg_tpu_torch.paths import DEFAULT_DATA_STORAGE
 from ctseg_tpu_torch.training.config import TrainConfig
@@ -336,9 +340,11 @@ def main(argv=None):
         "whole-volume sliding-window evaluation (from the checkpoint's "
         "config, like predict)."
     )
-    parser.add_argument("--checkpoint", type=str, required=True,
-                        help="a port checkpoint or a reference Lightning "
-                        ".ckpt file")
+    parser.add_argument(
+        "--checkpoint", default=None,
+        help="a port checkpoint or a reference Lightning .ckpt file",
+    )
+    add_released_args(parser)
     parser.add_argument("--data_dir", type=str, default=None)
     parser.add_argument("--split", type=str, default="test")
     parser.add_argument("--batch_size", type=int, default=64)
@@ -356,7 +362,8 @@ def main(argv=None):
         "volumes on the device (metrics excluded)")
     args = parser.parse_args(argv)
 
-    trainer, state = Trainer.restore(args.checkpoint, args.device)
+    trainer, state = Trainer.restore(resolve_checkpoint_arg(args),
+                                     args.device)
     if trainer.config.spatial_dims == 3:
         data_dir = Path(args.data_dir
                         or (Path(DEFAULT_DATA_STORAGE) / "miccai_3d"))

@@ -34,6 +34,10 @@ from ctseg_tpu_torch.inference.sliding_window import (
     volume_labels,
     volume_to_device,
 )
+from ctseg_tpu_torch.models.released import (
+    add_released_args,
+    resolve_checkpoint_arg,
+)
 from ctseg_tpu_torch.ops.masks import squash_predictions
 from ctseg_tpu_torch.training.config import (
     TrainConfig,
@@ -43,6 +47,29 @@ from ctseg_tpu_torch.training.config import (
 from ctseg_tpu_torch.transforms.pipelines import TransformFn, get_transform
 from ctseg_tpu_torch.utils import nrrd_io
 from ctseg_tpu_torch.utils.miccai import CropBox, Volume
+
+
+def slice_labels(
+    model: torch.nn.Module,
+    transform: TransformFn,
+    slices: torch.Tensor,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """(B, H, W) float32 raw HU on the model's device -> (B, H, W) uint8:
+    the test transform, the model in the compute `dtype` (the config's, not
+    the parameters', which stay float32 under bfloat16 compute), argmax,
+    and a nearest resize back to (H, W). The per-batch computation of
+    `predict_labels_2d` and of the exported slice model
+    (inference/export.py)."""
+    imgs, _ = transform(slices)  # (B, S, S, C)
+    x = imgs.to(dtype).permute(0, 3, 1, 2)
+    x = x.contiguous(memory_format=torch.channels_last)
+    preds = squash_predictions(model(x), dim=1)  # (B, S, S)
+    full = F.interpolate(
+        preds[:, None].to(torch.float32), size=tuple(slices.shape[1:]),
+        mode="nearest-exact",
+    )[:, 0]
+    return full.to(torch.uint8)
 
 
 def predict_labels_2d(
@@ -55,10 +82,9 @@ def predict_labels_2d(
 ) -> np.ndarray:
     """(D, H, W) raw HU -> (D, H, W) uint8 label map via the slice model.
 
-    Slices are cast to float32 before the transform, as the JAX path does;
-    the transformed batch then takes the compute `dtype` (the config's, not
-    the parameters', which stay float32 under bfloat16 compute). The last
-    batch is simply shorter (eager PyTorch keeps no per-shape program cache).
+    Slices are cast to float32 before the transform, as the JAX path does,
+    then `slice_labels` runs per batch. The last batch is simply shorter
+    (eager PyTorch keeps no per-shape program cache).
     """
     d, h, w = volume.shape
     out = np.zeros((d, h, w), np.uint8)
@@ -66,15 +92,8 @@ def predict_labels_2d(
         for lo in range(0, d, batch_size):
             chunk = np.asarray(volume[lo : lo + batch_size], np.float32)
             slices = torch.from_numpy(chunk).to(device)
-            imgs, _ = transform(slices)  # (B, S, S, C)
-            x = imgs.to(dtype).permute(0, 3, 1, 2)
-            x = x.contiguous(memory_format=torch.channels_last)
-            preds = squash_predictions(model(x), dim=1)  # (B, S, S)
-            full = F.interpolate(
-                preds[:, None].to(torch.float32), size=(h, w),
-                mode="nearest-exact",
-            )[:, 0]
-            out[lo : lo + batch_size] = full.to(torch.uint8).cpu().numpy()
+            labels = slice_labels(model, transform, slices, dtype)
+            out[lo : lo + batch_size] = labels.cpu().numpy()
     return out
 
 
@@ -184,12 +203,13 @@ def _scan_paths(input_path: Path):
         )
 
 
-def main():
+def main(argv=None):
     parser = ArgumentParser(description="Segment CT scans with a checkpoint")
     parser.add_argument(
-        "--checkpoint", required=True,
+        "--checkpoint", default=None,
         help="a port checkpoint or a reference Lightning .ckpt file",
     )
+    add_released_args(parser)
     parser.add_argument(
         "--input", required=True,
         help="img.nrrd, a patient dir, or a dir of patient dirs",
@@ -206,9 +226,9 @@ def main():
                         help="3D checkpoints only")
     parser.add_argument("--no_structures", action="store_true",
                         help="write only the label map")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
-    config, model = load_checkpoint(args.checkpoint, args.device)
+    config, model = load_checkpoint(resolve_checkpoint_arg(args), args.device)
     for name, img_path in _scan_paths(Path(args.input)):
         volume = Volume.from_nrrd(img_path)
         labels = predict_scan(

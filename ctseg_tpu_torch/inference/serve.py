@@ -39,6 +39,10 @@ import torch
 
 from ctseg_tpu_torch.constants import NUM_CLASSES, STRUCTURES
 from ctseg_tpu_torch.inference.predict import predict_scan, write_artifacts
+from ctseg_tpu_torch.models.released import (
+    add_released_args,
+    resolve_checkpoint_arg,
+)
 from ctseg_tpu_torch.ops import _build
 from ctseg_tpu_torch.training.config import load_checkpoint
 from ctseg_tpu_torch.utils.miccai import Volume
@@ -183,12 +187,13 @@ def serve(service: SegmentationService, host: str, port: int):
     return ThreadingHTTPServer((host, port), make_handler(service))
 
 
-def main():
+def main(argv=None):
     parser = ArgumentParser(description="Serve a segmentation checkpoint")
     parser.add_argument(
-        "--checkpoint", required=True,
+        "--checkpoint", default=None,
         help="a port checkpoint or a reference Lightning .ckpt file",
     )
+    add_released_args(parser)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8080)
@@ -201,17 +206,17 @@ def main():
                         default=(128, 128, 48), help="3D checkpoints only")
     parser.add_argument("--overlap", type=float, default=0.5,
                         help="3D checkpoints only")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
     service = SegmentationService(
-        args.checkpoint, device=args.device, crop=not args.no_crop,
+        resolve_checkpoint_arg(args), device=args.device, crop=not args.no_crop,
         patch_size=tuple(args.patch_size), overlap=args.overlap,
     )
     if args.warmup:
         secs = service.warmup(tuple(args.warmup))
         print(f"warmup {tuple(args.warmup)}: {secs:.1f}s")
     server = serve(service, args.host, args.port)
-    print(f"serving {args.checkpoint} on http://{args.host}:{args.port}")
+    print(f"serving {service.checkpoint} on http://{args.host}:{args.port}")
     server.serve_forever()
 
 

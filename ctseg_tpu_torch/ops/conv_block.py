@@ -34,13 +34,16 @@ JAX op's custom VJP: the forward (train=True) also writes xhat in x's dtype
 and rsinv (N, Cout) float32; the backward runs K2b (`in_prelu_bwd`) for dy
 and dalpha, and takes the conv's dx, dw and db from
 torch.ops.aten.convolution_backward on dy (cuDNN on the card), as the JAX
-rule takes them from XLA.
+rule takes them from XLA, each only where its input needs a gradient.
+Otherwise (serving) the forward writes out only, through the custom op
+`ctseg::conv3x3_in_prelu` (ops/custom_ops.py) on every device.
 """
 
 import torch
 import torch.nn.functional as F
 
 from ctseg_tpu_torch.ops import _build
+from ctseg_tpu_torch.ops import custom_ops  # noqa: F401 (torch.ops.ctseg)
 
 EPS = 1e-5
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -96,9 +99,11 @@ def in_prelu_bwd_plain(g, xhat, rsinv, alpha):
     return dy, dalpha.reshape(1)
 
 
-def conv3x3_backward(dy, x, w):
+def conv3x3_backward(dy, x, w, output_mask=(True, True, True)):
     """(dx, dw, db) of conv3x3_same(x, w) + b for the cotangent dy, in the
     JAX layouts: dy (N, H, W, Cout), x (N, H, W, Cin), w (3, 3, Cin, Cout).
+    `output_mask` says which of the three to compute; the others come back
+    as None (GradCAM wants dx only).
 
     torch's convolution backward (cuDNN on the card): the conv's own
     gradients are library work in both frameworks.
@@ -109,9 +114,10 @@ def conv3x3_backward(dy, x, w):
         # (Cout, Cin, 3, 3) laid out like the channels_last activations
         w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last),
         [w.shape[3]], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
-        [True, True, True],
+        list(output_mask),
     )
-    return dx.permute(0, 2, 3, 1), dw.permute(2, 3, 1, 0), db
+    return (None if dx is None else dx.permute(0, 2, 3, 1),
+            None if dw is None else dw.permute(2, 3, 1, 0), db)
 
 
 def split_tf32(v: torch.Tensor):
@@ -353,8 +359,10 @@ class _ConvINPReLU(torch.autograd.Function):
         x, w, alpha, xhat, rsinv = ctx.saved_tensors
         # The cotangent of a view may be strided; the kernel reads NHWC rows.
         dy, dalpha = in_prelu_bwd(g.contiguous(), xhat, rsinv, alpha)
-        dx, dw, db = conv3x3_backward(dy.to(x.dtype), x, w)
-        return dx, dw, db.to(ctx.b_dtype), dalpha.to(alpha.dtype)
+        dx, dw, db = conv3x3_backward(dy.to(x.dtype), x, w,
+                                      ctx.needs_input_grad[:3])
+        return (dx, dw, None if db is None else db.to(ctx.b_dtype),
+                dalpha.to(alpha.dtype))
 
 
 def conv3x3_in_prelu(x, w, b, alpha):
@@ -364,7 +372,7 @@ def conv3x3_in_prelu(x, w, b, alpha):
         t.requires_grad for t in (x, w, b, alpha)
     ):
         return _ConvINPReLU.apply(x, w, b, alpha)
-    return _forward(x, w, b, alpha, train=False)[0]
+    return torch.ops.ctseg.conv3x3_in_prelu(x, w, b, alpha)
 
 
 conv3x3_in_prelu.launches = 0  # K2 launches since the last reset, any route

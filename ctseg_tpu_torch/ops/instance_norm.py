@@ -18,7 +18,9 @@ call goes through an autograd.Function: the forward also writes the
 per-(sample, channel) mean and var (the residuals of the Pallas `_fwd_rule`)
 and saves them with x; the backward (`instance_norm_prelu_bwd`) recomputes
 xhat from them. Otherwise (serving, under inference_mode or no_grad) the
-forward writes y only.
+forward writes y only, through the custom op `ctseg::instance_norm_prelu`
+(ops/custom_ops.py) on every device, so an exported program keeps the
+kernel.
 
 Both kernels on the card split the spatial axis over blocks, in one of two
 forms chosen from the shape. `fwd_cluster_plan`, `bwd_cluster_plan`: a
@@ -39,6 +41,7 @@ import math
 import torch
 
 from ctseg_tpu_torch.ops import _build
+from ctseg_tpu_torch.ops import custom_ops  # noqa: F401 (torch.ops.ctseg)
 
 EPS = 1e-5
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -460,7 +463,7 @@ def instance_norm_prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     _check_shapes(x, alpha)
     if torch.is_grad_enabled() and (x.requires_grad or alpha.requires_grad):
         return _InstanceNormPReLU.apply(x, alpha)
-    return _forward(x, alpha, train=False)[0]
+    return torch.ops.ctseg.instance_norm_prelu(x, alpha)
 
 
 instance_norm_prelu.launches = 0  # K1 launches since the last reset

@@ -21,11 +21,19 @@ from ctseg_tpu_torch.constants import (
 
 
 @functools.lru_cache(maxsize=None)
+def _cached_constant(values, dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def _constant(values: Union[float, Tuple[float, ...]], dtype: torch.dtype,
               device: torch.device) -> torch.Tensor:
     """Kept per device: a copy to the card per call would wait for the
-    stream."""
-    return torch.tensor(values, dtype=dtype, device=device)
+    stream. Made anew while `torch.export` traces (the trace's tensors are
+    fake and become the graph's constants; the cache keeps real ones)."""
+    if torch.compiler.is_compiling():
+        return torch.tensor(values, dtype=dtype, device=device)
+    return _cached_constant(values, dtype, device)
 
 
 def apply_window(

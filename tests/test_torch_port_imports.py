@@ -54,7 +54,9 @@ def test_importing_the_port_loads_no_jax():
                    "ops.edt", "metrics.hd95", "training.mixup",
                    "models.presets", "inference.evaluate",
                    "data.process_miccai", "data.stats", "training.callbacks",
-                   "utils.profiling", "utils.visualize"):
+                   "utils.profiling", "utils.visualize", "ops.custom_ops",
+                   "inference.export", "interpret.gradcam", "interpret.run",
+                   "models.released", "parity_report", "__main__"):
         assert f"ctseg_tpu_torch.{module}" in new
     bad = [
         m for m in new
@@ -139,7 +141,8 @@ def _code(path: Path, rename: bool) -> str:
     return ast.dump(tree)
 
 
-@pytest.mark.parametrize("module", ["data/datasets.py", "paths.py"])
+@pytest.mark.parametrize("module", ["data/datasets.py", "paths.py",
+                                    "models/released.py"])
 def test_copied_modules_equal_the_jax_package(module):
     jax_pkg = Path(ctseg_tpu.__file__).resolve().parent
     assert _code(PKG / module, rename=True) == _code(jax_pkg / module, False)
