@@ -174,6 +174,29 @@ Phases (any failure raises and the script exits non-zero):
      reference-layout model_large.ckpt; parity --checkpoint; parity
      --synthetic --max_epochs 1 (both small models, K5 in Model M's steps).
 
+ 30. K1f/K1b's split form across depth slabs (parallel/collectives.py's
+     depth sharding): every depth-sharded site of the bench_3d step (batch
+     128, full width) cut into 2 and 4 slabs in one process; the slabs' sums
+     added (what the all_reduce over 'space' adds), the statistics, each
+     slab's y, the backward's sums and dx, against the unsplit kernels and
+     the plain version, float32 and bfloat16, within phase 16's
+     tolerances; each of the four launches' ms on one slab beside its
+     bytes' bound and its plain version.
+ 31. NCCL at world size 1: the data-parallel Model L step (batch 128, full
+     width, degree 2) on make_mesh(1) against the Trainer without a mesh on
+     the same batch and draws (3 steps' losses with cuDNN deterministic on
+     both sides: DP_LOSS_RTOL, then DP_TRAJ_RTOL); ms/step of both as phase
+     9 runs, the gradients' all_reduce alone and the NCCL kernels it
+     launches.
+ 32. On the same communicator: evaluate_2d(mesh=) of phase 14's checkpoint
+     (Dice equal, HD95 within 1e-6 of one process) and one bfloat16
+     bench_3d step (17 K1 and K1b launches).
+ 33. Two ranks sharing cuda:0 over gloo: the data-parallel Model L step at
+     the global batch of one process (64 rows a rank), cuDNN deterministic,
+     losses against one process's, ms and launches a step; gloo's all_reduce, all_gather and broadcast
+     of CUDA tensors probed (its point-to-point fails on them, aborting
+     the process: no depth-sharded path runs on one card).
+
 No main path (serve, Model L, Model M, evaluation) may launch K2's FP32-pipe
 route: its count is asserted to be 0 after each.
 
@@ -1073,7 +1096,7 @@ def _counters():
 
 
 def reset_launches():
-    for fn in _counters().values():
+    for fn in list(_counters().values()) + list(_split_counters().values()):
         fn.launches = 0
     _counters()["k2"].launches_simt = 0
 
@@ -3587,6 +3610,483 @@ def phase_front_door(label, workdir: Path, ckpt: Path, data_dir: Path):
     return times
 
 
+# ---------------------------------------------------------------- scale-out
+# Phases 30-33. The card is one H100, and NCCL takes one rank a device: so
+# the data-parallel paths run on NCCL at world size 1 (a real communicator:
+# the collectives launch NCCL kernels), two ranks share cuda:0 over gloo
+# (which stages its collectives through the host), and K1's split form is
+# held at every depth-sharded site of the bench_3d step in one process, the
+# slabs' sums added as the all_reduce over 'space' adds them.
+SPLIT_SLABS = (2, 4)    # phase 30: slabs a site's depth is cut into
+DP_STEPS = 3            # phases 31 and 33: timed data-parallel steps
+# Phases 31 and 33: a mesh's loss against one process on the same batch and
+# draws, cuDNN deterministic on both sides (its default algorithms add in
+# another order from run to run, and Adam turns that into 1e-5 after a few
+# steps). The first step is the same weights: float32 round-off of the
+# reductions' order. Later steps: Adam's first updates are about lr *
+# sign(g), so a near-zero gradient whose sign the order flips moves a
+# weight by 2 lr.
+DP_LOSS_RTOL = 1e-5
+DP_TRAJ_RTOL = 1e-4
+GLOO_RANKS = 2          # phase 33: ranks sharing cuda:0
+
+
+def _split_counters():
+    from ctseg_tpu_torch.ops import instance_norm as k1
+
+    return {"k1s_fwd_sums": k1.split_fwd_sums,
+            "k1s_fwd_apply": k1.split_fwd_apply,
+            "k1s_bwd_sums": k1.split_bwd_sums,
+            "k1s_bwd_apply": k1.split_bwd_apply}
+
+
+# Where each 3D K1 site's module reads its input: (the input's depth, the
+# module's sites) for the encoder units (from the level above) and the
+# decoder's transposed conv and unit (from the level below).
+K1_SITE_INPUTS_3D = {
+    (64, 64, 8, 64): ((16, 2), (4, 2)),
+    (32, 32, 4, 128): ((8, 2), (2, 2)),
+    (16, 16, 2, 256): ((4, 2), (1, 2)),
+    (8, 8, 1, 512): ((2, 2),),
+    (8, 8, 1, 1024): ((1, 2),),
+    (128, 128, 16, 10): ((8, 1),),
+}
+
+
+def _depth_sharded_sites(slabs):
+    """The 3D step's K1 sites that run split over `slabs` ranks, with their
+    count a step: models/unet.py runs a module on depth slabs while its
+    input's and its output's levels both stay sharded (d % n == 0 and
+    d // n >= 2, the JAX rule), and replicated otherwise."""
+    def sharded(d):
+        return d % slabs == 0 and d // slabs >= 2
+
+    out = {}
+    for site, inputs in K1_SITE_INPUTS_3D.items():
+        n = sum(k for d_in, k in inputs if sharded(site[2]) and sharded(d_in))
+        if n:
+            out[site] = n
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_k1_split(label, gen):
+    """30. K1f/K1b's split form at every depth-sharded site of the bench_3d
+    step (batch 128, full width), cut into 2 and 4 slabs: the slabs' sums
+    added, the statistics, each slab's y, and the backward's sums and dx,
+    against the unsplit kernels and the plain version, in float32 and
+    bfloat16 within phase 16's tolerances; ms and the bytes' bound of one
+    slab for each of the four launches."""
+    import torch
+    from ctseg_tpu_torch.ops import instance_norm as k1
+
+    names = ("fwd_sums", "fwd_apply", "bwd_sums", "bwd_apply")
+    report = {}
+    reset_launches()
+    for slabs in SPLIT_SLABS:
+        tot = {k: dict.fromkeys(names, 0.0)
+               for k in ("ms", "plain_ms", "bound_ms")}
+        worst = {f"{k}_{t}": 0.0 for k in ("y", "dx")
+                 for t in ("float32", "bfloat16")}
+        for (h, w, d, c), sites in _depth_sharded_sites(slabs).items():
+            shape = (TRAIN_BATCH, h, w, d, c)
+            x32 = _k1_input(gen, shape)
+            g32 = torch.randn(shape, generator=gen, device=DEVICE)
+            for dname in ("float32", "bfloat16"):
+                x, g = x32.to(dname == "float32" and torch.float32
+                              or torch.bfloat16), None
+                g = g32.to(x.dtype)
+                tag = f"K1 split {shape} / {slabs} {dname}"
+                alpha = torch.full((1,), 0.25, device=DEVICE)
+                xs = [s.contiguous() for s in x.chunk(slabs, dim=3)]
+                gs = [s.contiguous() for s in g.chunk(slabs, dim=3)]
+                count = h * w * d
+                mean, var = k1.split_stats(
+                    sum(k1.split_fwd_sums(s) for s in xs), count)
+                y = torch.cat([k1.split_fwd_apply(s, mean, var, alpha)
+                               for s in xs], dim=3)
+                _, pmean, pvar = k1._fwd_plain(x, alpha)
+                check_close(f"{tag} mean", mean, pmean, 1e-5, 1e-5)
+                check_close(f"{tag} var", var[:, 1:], pvar[:, 1:], 1e-5,
+                            1e-4)
+                check_close(f"{tag} var (channel 0)", var[:, 0], pvar[:, 0],
+                            1e-5 + 1e-4 * (pvar[:, 0] + pmean[:, 0] ** 2),
+                            0.0)
+                tol = TOL[("k1", dname)]
+                err = check_close(f"{tag} y", y[..., 1:],
+                                  k1.instance_norm_prelu_plain(x, alpha)[
+                                      ..., 1:], *tol)
+                check_close(f"{tag} y vs the unsplit K1", y[..., 1:],
+                            k1.instance_norm_prelu(x, alpha)[..., 1:], *tol)
+                xh0 = (x[..., 0].float() - _stat(mean, x)[..., 0]) * \
+                    torch.rsqrt(_stat(var, x)[..., 0] + k1.EPS)
+                check_close(f"{tag} y (channel 0)", y[..., 0],
+                            torch.where(xh0 >= 0, xh0, 0.25 * xh0).to(
+                                x.dtype), *tol)
+                del y, xh0
+                worst[f"y_{dname}"] = max(worst[f"y_{dname}"], err)
+                # The backward at the plain statistics, on both sides.
+                atol, rtol = BWD_TOL[dname]
+                dx_atol = atol * _stat(torch.clamp_min(
+                    torch.rsqrt(pvar + k1.EPS), 1.0), x)
+                parts = [k1.split_bwd_sums(a, b, pmean, pvar, alpha)
+                         for a, b in zip(xs, gs)]
+                means = sum(p[0] for p in parts) / count
+                dx = torch.cat([k1.split_bwd_apply(a, b, pmean, pvar, alpha,
+                                                   means)
+                                for a, b in zip(xs, gs)], dim=3)
+                pdx, pda = k1.instance_norm_prelu_bwd_plain(x, g, pmean,
+                                                            pvar, alpha)
+                worst[f"dx_{dname}"] = max(worst[f"dx_{dname}"], check_close(
+                    f"{tag} dx", dx, pdx, dx_atol, rtol))
+                del pdx
+                kdx, _ = k1.instance_norm_prelu_bwd(x, g, pmean, pvar, alpha)
+                check_close(f"{tag} dx vs the unsplit K1b", dx, kdx, dx_atol,
+                            rtol)
+                del kdx, dx
+                xhat = (x.float() - _stat(pmean, x)) * torch.rsqrt(
+                    _stat(pvar, x) + k1.EPS)
+                terms = (g.float() * torch.clamp_max(xhat, 0.0)).abs().sum()
+                del xhat
+                check_dalpha(tag, sum(p[1] for p in parts), pda, terms)
+                if dname == "float32":
+                    s0, t0 = xs[0], gs[0]
+                    m0 = means.contiguous()
+                    calls = {
+                        "fwd_sums": (lambda: k1.split_fwd_sums(s0),
+                                     lambda: k1.split_fwd_sums_plain(s0), 1),
+                        "fwd_apply": (
+                            lambda: k1.split_fwd_apply(s0, mean, var, alpha),
+                            lambda: k1.split_fwd_apply_plain(s0, mean, var,
+                                                             alpha), 2),
+                        "bwd_sums": (
+                            lambda: k1.split_bwd_sums(s0, t0, pmean, pvar,
+                                                      alpha),
+                            lambda: k1.split_bwd_sums_plain(s0, t0, pmean,
+                                                            pvar, alpha), 2),
+                        "bwd_apply": (
+                            lambda: k1.split_bwd_apply(s0, t0, pmean, pvar,
+                                                       alpha, m0),
+                            lambda: k1.split_bwd_apply_plain(
+                                s0, t0, pmean, pvar, alpha, m0), 3),
+                    }
+                    row = []
+                    for k, (kernel, plain, io) in calls.items():
+                        t_k, t_p = time_ms(kernel, 10), time_ms(plain, 3)
+                        b = bound_ms(4 * s0.numel(),
+                                     io * s0.numel() * 4)[0]
+                        tot["ms"][k] += sites * t_k
+                        tot["plain_ms"][k] += sites * t_p
+                        tot["bound_ms"][k] += sites * b
+                        row.append(f"{k} {t_k:.4f} ms (bound {b:.4f}, "
+                                   f"plain {t_p:.4f})")
+                    print(f"[{label}] {tag}: one slab {tuple(s0.shape)}: "
+                          + "; ".join(row) + f"; sites/step {sites}")
+                del xs, gs, parts, means
+            del x32, g32, x, g
+            torch.cuda.empty_cache()
+        report[slabs] = {"tot": tot, "worst": worst}
+        print(f"[{label}] K1 split over {slabs} slabs, the "
+              f"{sum(_depth_sharded_sites(slabs).values())} depth-sharded "
+              f"sites of a 3D step, one slab each, float32 ms: "
+              + "; ".join(f"{k} {tot['ms'][k]:.3f} (bound "
+                          f"{tot['bound_ms'][k]:.3f}, plain "
+                          f"{tot['plain_ms'][k]:.3f})" for k in names)
+              + "; max |split - plain|: " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in worst.items()))
+    launches = {k: fn.launches for k, fn in _split_counters().items()}
+    if not all(launches.values()):
+        raise AssertionError(f"split launches {launches}")
+    print(f"[{label}] K1 split launches in this phase: {launches}")
+    report["launches"] = launches
+    return report
+
+
+def _dp_batch():
+    import torch
+    from ctseg_tpu_torch.data.pipeline import DevicePipeline2D
+    from ctseg_tpu_torch.transforms.augment import draw_degree2
+
+    pipe = DevicePipeline2D(_synthetic_split(0, TRAIN_BATCH), TRAIN_BATCH,
+                            DEVICE)
+    batch = next(pipe.epoch(torch.Generator(device=DEVICE).manual_seed(2)))
+    draws = draw_degree2(torch.Generator(device=DEVICE).manual_seed(3),
+                         TRAIN_BATCH, RAW, RAW, SIZE)
+    return batch, draws
+
+
+def _step_losses(trainer, state, batch, draws, steps):
+    losses = []
+    for _ in range(steps):
+        state, metrics = trainer.train_step(state, batch, draws)
+        losses.append(metrics["loss/total"])
+    return state, [float(v) for v in losses]
+
+
+def _check_trajectory(what, ref, losses):
+    """Each step's loss against one process's (see DP_TRAJ_RTOL)."""
+    for i, (x, y) in enumerate(zip(ref, losses, strict=True)):
+        rtol = DP_LOSS_RTOL if i == 0 else DP_TRAJ_RTOL
+        if not abs(x - y) <= rtol * abs(x):
+            raise AssertionError(f"{what} step {i}: loss {y!r} vs {x!r} in "
+                                 f"one process")
+
+
+def _deterministic_losses(trainer_fn, batch, draws, steps):
+    """The losses of `steps` steps of a fresh trainer from seed 0, with
+    cuDNN's deterministic algorithms."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainer = trainer_fn()
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+        return _step_losses(trainer, state, batch, draws, steps)[1]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def phase_dp_nccl(label, ckpt_m: Path):
+    """31-32. NCCL at world size 1 (a real communicator): the data-parallel
+    Model L step at batch 128, full width, degree 2, against the Trainer
+    without a mesh on the same batch and draws (the losses of DP_STEPS
+    steps, cuDNN deterministic; then ms/step of each, as phase 9 runs,
+    beside the all_reduce of the gradients alone); evaluate_2d(mesh=) of
+    phase 14's Model M checkpoint against evaluate_2d; one bfloat16
+    bench_3d step on the data mesh."""
+    import torch
+    import torch.distributed as dist
+    from ctseg_tpu_torch.data.datasets import PackedDataset2D
+    from ctseg_tpu_torch.inference.evaluate import evaluate_2d
+    from ctseg_tpu_torch.parallel import distributed, make_mesh
+    from ctseg_tpu_torch.training.trainer import Trainer
+    from ctseg_tpu_torch.volumetric.pipeline3d import PatchPipeline3D
+    from ctseg_tpu_torch.volumetric.trainer3d import make_trainer_3d
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = make_mesh(1)
+        batch, draws = _dp_batch()
+        ref = _deterministic_losses(lambda: Trainer(_model_l_config(), DEVICE),
+                                    batch, draws, DP_STEPS)
+        on_mesh = _deterministic_losses(
+            lambda: Trainer(_model_l_config(), DEVICE, mesh=mesh), batch,
+            draws, DP_STEPS)
+        _check_trajectory("NCCL world 1", ref, on_mesh)
+        runs = {}
+        for name, m in (("one process", None), ("NCCL world 1", mesh)):
+            trainer = Trainer(_model_l_config(), DEVICE, mesh=m)
+            state = trainer.init_state(torch.Generator().manual_seed(0))
+            state, first = _step_losses(trainer, state, batch, draws, 2)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            state, losses = _step_losses(trainer, state, batch, draws,
+                                         DP_STEPS)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / DP_STEPS * 1e3
+            launches = read_launches()
+            want = {k: v * DP_STEPS for k, v in PER_STEP.items()}
+            if launches != want:
+                raise AssertionError(f"{name}: launches {launches} over "
+                                     f"{DP_STEPS} steps; want {want}")
+            runs[name] = (first + losses, step_ms, launches)
+            if m is not None:
+                params = [p for p in state.model.parameters()]
+                ar_ms = time_ms(lambda: distributed.sum_gradients(
+                    params, mesh.world), 10)
+                # Which device kernels the all_reduce launches at world 1
+                # (an in-place all_reduce over one rank may launch none).
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    distributed.sum_gradients(params, mesh.world)
+                    torch.cuda.synchronize()
+                nccl = sorted({e.name for e in prof.events()
+                               if e.device_type.name == "CUDA"
+                               and "nccl" in e.name.lower()})
+                out["allreduce_ms"], out["nccl_kernels"] = ar_ms, nccl
+                out["launches"] = launches
+            del trainer, state
+            torch.cuda.empty_cache()
+        out["ms"] = {k: v[1] for k, v in runs.items()}
+        print(f"[{label}] Model L step, batch {TRAIN_BATCH}, float32: one "
+              f"process {runs['one process'][1]:.3f} ms/step, NCCL world 1 "
+              f"{runs['NCCL world 1'][1]:.3f} ms/step (host clock over "
+              f"{DP_STEPS} steps after 2), of which the all_reduce of the "
+              f"{sum(p.numel() for p in params)} gradients alone "
+              f"{out['allreduce_ms']:.3f} ms (CUDA events; NCCL kernels "
+              f"{out['nccl_kernels']}); losses, cuDNN deterministic: one "
+              f"process {ref}, mesh {on_mesh}; launches "
+              f"{runs['NCCL world 1'][2]}")
+
+        # 32: evaluate_2d on the mesh against one process. cuDNN's
+        # transposed convs may add in another order from run to run, which
+        # moves a near-tied argmax: both runs take its deterministic
+        # algorithms, so that they compute the same function.
+        ds = _eval_split(7, EVAL_SLICES)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            tr, st = Trainer.restore(ckpt_m, DEVICE)
+            for _ in range(2):  # the first call picks cuDNN's algorithms
+                single = evaluate_2d(tr, st.model, ds, batch_size=EVAL_BATCH,
+                                     with_hd95=True)
+            trm, stm = Trainer.restore(ckpt_m, DEVICE, mesh=mesh)
+            reset_launches()
+            meshed = evaluate_2d(trm, stm.model, ds, batch_size=EVAL_BATCH,
+                                 with_hd95=True, mesh=mesh)
+            eval_launches = read_launches()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        if meshed["per_structure_dice"] != single["per_structure_dice"]:
+            raise AssertionError("evaluate_2d(mesh=): Dice "
+                                 f"{meshed['per_structure_dice']} vs "
+                                 f"{single['per_structure_dice']}")
+        for s, v in single["per_structure_hd95"].items():
+            u = meshed["per_structure_hd95"][s]
+            if (u is None) != (v is None) or (
+                    v is not None and abs(u - v) > 1e-6 * max(abs(v), 1.0)):
+                raise AssertionError(f"evaluate_2d(mesh=) HD95 {s}: {u} vs "
+                                     f"{v}")
+        print(f"[{label}] evaluate_2d(mesh=) on NCCL world 1, "
+              f"{EVAL_SLICES} slices (cuDNN deterministic on both sides): "
+              f"Dice equal, HD95 within 1e-6 of evaluate_2d; mean Dice "
+              f"{meshed['mean_dice']:.6f}; {meshed['slices_per_sec']:.2f} "
+              f"slices/s against {single['slices_per_sec']:.2f}; launches "
+              f"{eval_launches}")
+        out["eval_slices_per_s"] = (meshed["slices_per_sec"],
+                                    single["slices_per_sec"])
+        out["eval_launches"] = eval_launches
+        del tr, st, trm, stm
+        torch.cuda.empty_cache()
+
+        # One bfloat16 bench_3d step under the data mesh.
+        trainer = make_trainer_3d(_config_3d("bfloat16"), "patch", PATCH_3D,
+                                  DEVICE, mesh=mesh)
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+        pipe = PatchPipeline3D(_volumes_3d(0, 4), TRAIN_BATCH, PATCH_3D, 1,
+                               DEVICE)
+        state, _, launches, losses = _train_3d(label, trainer, state, pipe, 1)
+        print(f"[{label}] bench_3d step, bfloat16, batch {TRAIN_BATCH}, on "
+              f"NCCL world 1: loss {losses}, launches {launches}")
+        out["launches_3d"] = launches
+        del trainer, state, pipe
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _gloo_rank(rank, world, rdzv, batch_file, result_file):
+    """One of phase 33's ranks on cuda:0 over gloo: the probes of the
+    collectives on CUDA tensors, then the data-parallel Model L steps on
+    its rows of the global batch."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from ctseg_tpu_torch.parallel import make_mesh
+    from ctseg_tpu_torch.training.config import use_float32_convs
+    from ctseg_tpu_torch.training.trainer import Trainer, take_rows
+    from ctseg_tpu_torch.transforms.augment import Degree2Draws
+
+    use_float32_convs()
+    torch.backends.cudnn.deterministic = True  # as the reference run's
+    dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    refused = {}
+    t = torch.full((4,), float(rank + 1), device=DEVICE)
+    probes = {
+        "all_reduce": lambda: dist.all_reduce(t.clone()),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(t) for _ in range(world)], t),
+        "broadcast": lambda: dist.broadcast(t.clone(), 0),
+    }
+    # Not probed: point-to-point (send/recv, batch_isend_irecv) of CUDA
+    # tensors, which gloo's TCP transport fails on in a thread of its own
+    # ("writev: Bad address"), aborting the process.
+    for name, fn in probes.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except RuntimeError as e:  # what gloo refuses on CUDA tensors
+            refused[name] = f"{type(e).__name__}: {str(e)[:160]}"
+    saved = torch.load(batch_file)
+    n = TRAIN_BATCH // world
+    rows = slice(rank * n, (rank + 1) * n)
+    batch = tuple(t[rows].to(DEVICE) for t in saved["batch"])
+    draws = take_rows(Degree2Draws(*(t.to(DEVICE) for t in saved["draws"])),
+                      rows)
+    trainer = Trainer(_model_l_config(), DEVICE, mesh=make_mesh(world))
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    state, first = _step_losses(trainer, state, batch, draws, 1)
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, losses = _step_losses(trainer, state, batch, draws, DP_STEPS)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / DP_STEPS * 1e3
+    launches = read_launches()
+    torch.save({"losses": first + losses, "step_ms": step_ms,
+                "launches": launches, "refused": refused},
+               f"{result_file}.{rank}")
+    dist.destroy_process_group()
+
+
+def phase_dp_gloo(label, workdir: Path):
+    """33. Two ranks sharing cuda:0 over gloo: the data-parallel Model L
+    step at the global batch of one process (64 rows a rank), against one
+    process on the same batch and draws, cuDNN deterministic on both sides
+    (its ms/step too); which of gloo's collectives refuse CUDA tensors."""
+    import torch
+    import torch.multiprocessing as mp
+    from ctseg_tpu_torch.training.trainer import Trainer
+
+    batch, draws = _dp_batch()
+    batch_file = workdir / "dp_batch.pt"
+    torch.save({"batch": [t.cpu() for t in batch],
+                "draws": [t.cpu() for t in draws]}, batch_file)
+    ref = _deterministic_losses(lambda: Trainer(_model_l_config(), DEVICE),
+                                batch, draws, 1 + DP_STEPS)
+    del batch, draws
+    torch.cuda.empty_cache()
+    result = workdir / "gloo_rank"
+    mp.start_processes(_gloo_rank, args=(GLOO_RANKS, workdir / "rdzv",
+                                         batch_file, result),
+                       nprocs=GLOO_RANKS, start_method="spawn")
+    ranks = [torch.load(f"{result}.{r}") for r in range(GLOO_RANKS)]
+    for r, res in enumerate(ranks):
+        _check_trajectory(f"gloo rank {r}", ref, res["losses"])
+        want = {k: v * DP_STEPS for k, v in PER_STEP.items()}
+        if res["launches"] != want:
+            raise AssertionError(f"gloo rank {r}: launches "
+                                 f"{res['launches']}; want {want}")
+    print(f"[{label}] {GLOO_RANKS} ranks on cuda:0 over gloo, Model L at "
+          f"the global batch {TRAIN_BATCH}: "
+          + "; ".join(f"rank {r} {res['step_ms']:.3f} ms/step, launches "
+                      f"{res['launches']}" for r, res in enumerate(ranks))
+          + f"; losses (cuDNN deterministic on both sides) against one "
+          f"process {ref}: {[res['losses'] for res in ranks]}; of gloo's "
+          f"all_reduce, all_gather and broadcast of CUDA tensors, refused: "
+          f"{ranks[0]['refused'] or 'none'}")
+    return {"ms": [res["step_ms"] for res in ranks],
+            "refused": ranks[0]["refused"],
+            "launches": ranks[0]["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -3664,6 +4164,15 @@ def main() -> int:
         seconds["28"] = time.perf_counter() - t0 - seconds["27"]
         front_s = phase_front_door(label, Path(tmp), ckpt, data_dir)
         seconds["29"] = time.perf_counter() - t0 - seconds["27"] - seconds["28"]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        split = phase_k1_split(label, gen)
+        seconds["30"] = time.perf_counter() - t0
+        dp = phase_dp_nccl(label, ckpt_m)
+        seconds["31-32"] = time.perf_counter() - t0 - seconds["30"]
+        gloo = phase_dp_gloo(label, Path(tmp))
+        seconds["33"] = (time.perf_counter() - t0 - seconds["30"]
+                         - seconds["31-32"])
 
     bounds = site_bounds()
     bounds["k5"] = k5_times["step maps"][2:4]
@@ -3788,6 +4297,35 @@ def main() -> int:
         k["launches_export_portable"] = exported["launches"]["portable"][key]
         k["launches_gradcam"] = cams["launches_per_batch"][key]
     kernels[0]["launches_export_3d"] = exported["launches_3d"]["k1"]
+    # Phases 31-33: the data-parallel paths' launches (NCCL world 1: the
+    # Model L steps, the evaluation, the 3D step; gloo: one rank's steps).
+    for k, key in zip(kernels, keys, strict=True):
+        k["launches_dp_nccl"] = dp["launches"][key]
+        k["launches_dp_eval"] = dp["eval_launches"][key]
+        k["launches_dp_3d"] = dp["launches_3d"][key]
+        k["launches_dp_gloo_rank0"] = gloo["launches"][key]
+    # Phase 30: K1's split form, one entry a launch; times of one slab over
+    # the depth-sharded sites of a 3D step at 2 slabs (and at 4 beside).
+    two, four = split[2], split[4]
+    for key, where, err in (("fwd_sums", "289", "y"), ("fwd_apply", "298", "y"),
+                            ("bwd_sums", "357", "dx"),
+                            ("bwd_apply", "377", "dx")):
+        kernels.append({
+            "name": f"instance_norm_prelu_split_{key}", "route": "cuda",
+            "source": "ctseg_tpu_torch/csrc/instance_norm.cu",
+            "replaces": pallas + f"instance_norm.py:{where}",
+            "launches": split["launches"][f"k1s_{key}"],
+            "max_abs_err": max(two["worst"][f"{err}_float32"],
+                               four["worst"][f"{err}_float32"]),
+            "max_abs_err_bf16": max(two["worst"][f"{err}_bfloat16"],
+                                    four["worst"][f"{err}_bfloat16"]),
+            "ms": two["tot"]["ms"][key],
+            "plain_ms": two["tot"]["plain_ms"][key],
+            "bound_ms": two["tot"]["bound_ms"][key], "bound_by": "bytes",
+            "library_ms": None,
+            "ms_4_slabs": four["tot"]["ms"][key],
+            "plain_ms_4_slabs": four["tot"]["plain_ms"][key],
+            "bound_ms_4_slabs": four["tot"]["bound_ms"][key]})
     print(f"(launches: phase 9's {TIMED_STEPS} timed Model L train steps, for "
           f"K5 and the EDT kernels phase 14's {TIMED_STEPS} Model M steps; "
           "launches_model_m: phase 14's; launches_serve: phase 4's requests; "
@@ -3819,6 +4357,14 @@ def main() -> int:
           "280x280x120 volume (K5: both passes); launches_degree0: phase "
           f"24's {TIMED_STEPS} timed Model L steps at degree 0, "
           "launches_degree0_model_m: its 2 Model M steps at degree 0; "
+          "launches_dp_nccl, _dp_eval, _dp_3d: phases 31-32 on NCCL at "
+          "world 1 (the timed Model L steps, the evaluation, the bfloat16 3D "
+          "step), launches_dp_gloo_rank0: phase 33's rank 0 on cuda:0 over "
+          "gloo; the split entries: phase 30's launches at the depth-sharded "
+          "sites (one card runs no depth-sharded path: NCCL takes one rank a "
+          "card and gloo refuses point-to-point CUDA tensors), ms/plain_ms/"
+          "bound_ms one slab of each of those sites at 2 slabs, *_4_slabs at "
+          "4; "
           f"launches_export: one call of phase 27's kernel artifact at batch "
           f"{BATCH} (launches_export_portable: the portable one's, "
           "launches_export_3d: the 3D patch scorer's at batch "
@@ -3839,7 +4385,10 @@ def main() -> int:
         "gradcam_ms_per_batch": {
             "run_interpretability": cams["ms_per_batch"],
             "gradcam": cams["cam_ms"]},
-        "front_door_s": front_s}))
+        "front_door_s": front_s,
+        "dp_ms_per_step": dp["ms"], "dp_allreduce_ms": dp["allreduce_ms"],
+        "dp_nccl_kernels": dp["nccl_kernels"],
+        "gloo_ms_per_step": gloo["ms"], "gloo_refused": gloo["refused"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -989,6 +989,143 @@ cudaError_t launch_bwd(const void* x, const void* g, const void* mean,
                                s, c, chunks, rows_per_chunk, stream);
 }
 
+
+// ---- K1f/K1b split across depth slabs ----
+//
+// A depth-sharded 3D activation lives as one slab a rank; its statistics are
+// sums over every slab. The split form is the two-phase form with the sums
+// taken out between the phases: a statistics launch writes the slab's
+// per-(sample, channel) sums, the caller all-reduces them over the ranks of
+// the slabs and finishes the statistics, and a second launch normalises (or
+// writes dx) from the global ones. It reuses the two-phase kernels'
+// partials and phase-2 kernels and their geometry (fwd_plan / bwd_plan);
+// only the kernel between the phases differs: it adds the chunks' partials
+// of planes 0 and 1 (x and x^2 forward; gh and gh * xhat backward) in
+// index order into totals (n, 2, c), undivided. Bound on an H100: memory,
+// as the unsplit form; a slab is read twice (once a launch), 12 bytes an
+// element forward and 20 backward, against the bound's 8 and 12.
+
+// totals[img, k, ch] = sum over the chunks (in order) and the element
+// columns that carry ch (in order) of plane k of the partials, k = 0, 1.
+// `planes`: the partials' planes (2 forward, 3 backward). Grid (ceil(c /
+// 128), N): one thread a channel.
+__global__ void __launch_bounds__(kMeansThreads)
+    in_prelu_split_sums_kernel(const float* __restrict__ parts,
+                               float* __restrict__ totals, int planes,
+                               BwdGeometry geo) {
+  const int ch = blockIdx.x * kMeansThreads + threadIdx.x;
+  if (ch >= geo.c) return;
+  const float* src = parts + static_cast<size_t>(blockIdx.y) * geo.chunks *
+                                 planes * geo.lcm;
+  float total[2] = {0.f, 0.f};
+  for (int chunk = 0; chunk < geo.chunks; ++chunk) {
+    const float* p = src + static_cast<size_t>(chunk) * planes * geo.lcm;
+    for (int e = ch; e < geo.lcm; e += geo.c) {
+      total[0] += p[e];
+      total[1] += p[geo.lcm + e];
+    }
+  }
+  float* dst = totals + static_cast<size_t>(blockIdx.y) * 2 * geo.c + ch;
+  dst[0] = total[0];
+  dst[geo.c] = total[1];
+}
+
+// The four launches of the split form, one struct each, dispatched on the
+// storage type and the vector width by `dispatch_split`.
+struct SplitArgs {
+  const void* x;
+  const void* g;  // backward only
+  const float* mean;
+  const float* var;
+  const float* alpha;
+  const float* means;  // dx only: (n, 2, c), the global sums over the count
+  float* parts;
+  float* totals;
+  void* out;  // y or dx
+  int n;
+  BwdGeometry geo;
+  cudaStream_t stream;
+};
+
+struct SplitFwdSums {
+  template <typename T, int V>
+  static cudaError_t run(const SplitArgs& a) {
+    const dim3 grid(a.geo.coltiles, a.geo.chunks, a.n);
+    in_prelu_fwd_partials_kernel<T, V><<<grid, kBwdThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.x), a.parts, a.geo);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const dim3 sums_grid((a.geo.c + kMeansThreads - 1) / kMeansThreads, a.n);
+    in_prelu_split_sums_kernel<<<sums_grid, kMeansThreads, 0, a.stream>>>(
+        a.parts, a.totals, 2, a.geo);
+    return cudaGetLastError();
+  }
+};
+
+struct SplitFwdApply {
+  template <typename T, int V>
+  static cudaError_t run(const SplitArgs& a) {
+    const dim3 grid(a.geo.coltiles, a.geo.chunks, a.n);
+    in_prelu_fwd_normalize_kernel<T, V><<<grid, kBwdThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.x), a.mean, a.var, a.alpha,
+        static_cast<T*>(a.out), a.geo);
+    return cudaGetLastError();
+  }
+};
+
+struct SplitBwdSums {
+  template <typename T, int V>
+  static cudaError_t run(const SplitArgs& a) {
+    const dim3 grid(a.geo.coltiles, a.geo.chunks, a.n);
+    in_prelu_bwd_partials_kernel<T, V><<<grid, kBwdThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.mean, a.var,
+        a.alpha, a.parts, a.geo);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const dim3 sums_grid((a.geo.c + kMeansThreads - 1) / kMeansThreads, a.n);
+    in_prelu_split_sums_kernel<<<sums_grid, kMeansThreads, 0, a.stream>>>(
+        a.parts, a.totals, 3, a.geo);
+    return cudaGetLastError();
+  }
+};
+
+struct SplitBwdApply {
+  template <typename T, int V>
+  static cudaError_t run(const SplitArgs& a) {
+    const dim3 grid(a.geo.coltiles, a.geo.chunks, a.n);
+    in_prelu_bwd_dx_kernel<T, V><<<grid, kBwdThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.mean, a.var,
+        a.alpha, a.means, static_cast<T*>(a.out), a.geo);
+    return cudaGetLastError();
+  }
+};
+
+// F::run<T, V>(args) for the storage type `dtype` and `vec` elements a lane
+// (1, or 16 bytes' worth with every tensor 16-byte aligned), after the
+// geometry check.
+template <typename F>
+cudaError_t dispatch_split(int dtype, int vec, int s, int c, int chunks,
+                           int rows_per_chunk, uintptr_t pointer_bits,
+                           SplitArgs a) {
+  if (dtype != ctseg::kFloat32 && dtype != ctseg::kBFloat16) {
+    return cudaErrorInvalidValue;
+  }
+  const int full = dtype == ctseg::kFloat32 ? 4 : 8;
+  if (vec != 1 && (vec != full || pointer_bits % 16 != 0 ||
+                   (static_cast<long long>(s) * c) % vec != 0)) {
+    return cudaErrorInvalidValue;
+  }
+  if (!make_geometry(s, c, vec, chunks, rows_per_chunk, &a.geo)) {
+    return cudaErrorInvalidValue;
+  }
+  if (dtype == ctseg::kFloat32) {
+    return vec == 1 ? F::template run<float, 1>(a)
+                    : F::template run<float, 4>(a);
+  }
+  return vec == 1 ? F::template run<__nv_bfloat16, 1>(a)
+                  : F::template run<__nv_bfloat16, 8>(a);
+}
+
 }  // namespace
 
 // Forward (K1f), two-phase form. x, y: (n, s, c) contiguous, of the type
@@ -1099,6 +1236,89 @@ extern "C" int ctseg_in_prelu_bwd_cluster(const void* x, const void* g,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The split form of K1f/K1b across depth slabs (see the kernels above). x,
+// g, y, dx: one slab, (n, s, c) contiguous, of the type `dtype` names; mean,
+// var: (n, c) float32, the global statistics; alpha: one float32. `vec`,
+// `chunks`, `rows_per_chunk`: the plan of ops/instance_norm.py::fwd_plan
+// (forward) or bwd_plan (backward) at the slab's shape. parts: the
+// two-phase form's workspace, (n, chunks, 2 or 3, lcm(c, vec)) float32;
+// totals: (n, 2, c) float32. Each returns the last cudaError_t.
+
+// Forward statistics: totals = the slab's sums of x and x^2. Two launches.
+extern "C" int ctseg_in_prelu_split_fwd_sums(const void* x, void* parts,
+                                             void* totals, int n, int s, int c,
+                                             int vec, int chunks,
+                                             int rows_per_chunk, int dtype,
+                                             int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  SplitArgs a{x, nullptr, nullptr, nullptr, nullptr, nullptr,
+              static_cast<float*>(parts), static_cast<float*>(totals),
+              nullptr, n, {}, static_cast<cudaStream_t>(stream)};
+  return dispatch_split<SplitFwdSums>(dtype, vec, s, c, chunks, rows_per_chunk,
+                                      reinterpret_cast<uintptr_t>(x), a);
+}
+
+// Forward normalisation: y = PReLU((x - mean) * rsqrt(var + eps)). One
+// launch.
+extern "C" int ctseg_in_prelu_split_fwd_apply(const void* x, const void* mean,
+                                              const void* var,
+                                              const void* alpha, void* y,
+                                              int n, int s, int c, int vec,
+                                              int chunks, int rows_per_chunk,
+                                              int dtype, int device,
+                                              void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  SplitArgs a{x, nullptr, static_cast<const float*>(mean),
+              static_cast<const float*>(var), static_cast<const float*>(alpha),
+              nullptr, nullptr, nullptr, y, n, {},
+              static_cast<cudaStream_t>(stream)};
+  return dispatch_split<SplitFwdApply>(
+      dtype, vec, s, c, chunks, rows_per_chunk,
+      reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y), a);
+}
+
+// Backward statistics: totals = the slab's sums of gh and gh * xhat; plane 2
+// of parts holds the slab's dalpha partials. Two launches.
+extern "C" int ctseg_in_prelu_split_bwd_sums(const void* x, const void* g,
+                                             const void* mean, const void* var,
+                                             const void* alpha, void* parts,
+                                             void* totals, int n, int s, int c,
+                                             int vec, int chunks,
+                                             int rows_per_chunk, int dtype,
+                                             int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  SplitArgs a{x, g, static_cast<const float*>(mean),
+              static_cast<const float*>(var), static_cast<const float*>(alpha),
+              nullptr, static_cast<float*>(parts), static_cast<float*>(totals),
+              nullptr, n, {}, static_cast<cudaStream_t>(stream)};
+  return dispatch_split<SplitBwdSums>(
+      dtype, vec, s, c, chunks, rows_per_chunk,
+      reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g), a);
+}
+
+// Backward dx from the global means (n, 2, c) of gh and gh * xhat. One
+// launch.
+extern "C" int ctseg_in_prelu_split_bwd_apply(
+    const void* x, const void* g, const void* mean, const void* var,
+    const void* alpha, const void* means, void* dx, int n, int s, int c,
+    int vec, int chunks, int rows_per_chunk, int dtype, int device,
+    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  SplitArgs a{x, g, static_cast<const float*>(mean),
+              static_cast<const float*>(var), static_cast<const float*>(alpha),
+              static_cast<const float*>(means), nullptr, nullptr, dx, n, {},
+              static_cast<cudaStream_t>(stream)};
+  return dispatch_split<SplitBwdApply>(
+      dtype, vec, s, c, chunks, rows_per_chunk,
+      reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g) |
+          reinterpret_cast<uintptr_t>(dx),
+      a);
 }
 
 extern "C" const char* ctseg_error_string(int code) {

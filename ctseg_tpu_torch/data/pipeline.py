@@ -15,6 +15,16 @@ from ctseg_tpu_torch.data.datasets import PackedDataset2D
 Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
+def shard_rows(rows: torch.Tensor, shard: Tuple[int, int]) -> torch.Tensor:
+    """Share `index` of `parts` equal shares of a global batch's rows."""
+    index, parts = shard
+    if rows.shape[0] % parts:
+        raise ValueError(f"a batch of {rows.shape[0]} does not split into "
+                         f"{parts} equal shares")
+    k = rows.shape[0] // parts
+    return rows[index * k:(index + 1) * k]
+
+
 class DevicePipeline2D:
     """Raw-HU slice batches gathered on the device.
 
@@ -25,7 +35,9 @@ class DevicePipeline2D:
     bool; `padded_indices` yields the same batches as sample indices, for a
     caller that needs per-sample side data (`spacings`, (N, 2) float32 when
     the split carries them). Windowing and augmentation happen later, in
-    the train step.
+    the train step. On a mesh every rank holds the whole split and walks
+    the same global order; `shard=(index, parts)` makes each call yield
+    rank `index`'s equal share of the rows of every global batch.
     """
 
     def __init__(self, dataset: PackedDataset2D, batch_size: int,
@@ -62,15 +74,17 @@ class DevicePipeline2D:
     def gather(self, idx: torch.Tensor) -> Batch:
         return (self.images[idx], self.labels[idx], self.indicators[idx])
 
-    def epoch(self, generator: Optional[torch.Generator] = None
-              ) -> Iterator[Batch]:
+    def epoch(self, generator: Optional[torch.Generator] = None,
+              shard: Tuple[int, int] = (0, 1)) -> Iterator[Batch]:
         """One epoch of batches, shuffled by `generator` (on the pipeline's
         device) when one is given."""
         perm = self._order(generator)
         for b in range(self.num_batches()):
-            yield self.gather(perm[b * self.batch_size:(b + 1) * self.batch_size])
+            yield self.gather(shard_rows(
+                perm[b * self.batch_size:(b + 1) * self.batch_size], shard))
 
-    def padded_indices(self, generator: Optional[torch.Generator] = None
+    def padded_indices(self, generator: Optional[torch.Generator] = None,
+                       shard: Tuple[int, int] = (0, 1)
                        ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
         """(sample indices (B,), row_valid (B,)) batches covering every
         sample exactly once; padding rows point at sample 0."""
@@ -81,11 +95,12 @@ class DevicePipeline2D:
         row_valid = torch.arange(total, device=self.device) < self.size
         for b in range(n_batches):
             sl = slice(b * self.batch_size, (b + 1) * self.batch_size)
-            yield perm[sl], row_valid[sl]
+            yield shard_rows(perm[sl], shard), shard_rows(row_valid[sl], shard)
 
-    def padded_epoch(self, generator: Optional[torch.Generator] = None
+    def padded_epoch(self, generator: Optional[torch.Generator] = None,
+                     shard: Tuple[int, int] = (0, 1)
                      ) -> Iterator[Tuple[torch.Tensor, ...]]:
         """(images, labels, indicators, row_valid) batches covering every
         sample exactly once; for evaluation."""
-        for idx, row_valid in self.padded_indices(generator):
+        for idx, row_valid in self.padded_indices(generator, shard):
             yield self.gather(idx) + (row_valid,)

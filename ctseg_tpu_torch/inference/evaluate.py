@@ -11,6 +11,11 @@ package's, so one report reads both.
     python -m ctseg_tpu_torch.inference.evaluate --checkpoint CKPT \\
         [--data_dir DIR] [--split test] [--hd95] [--out results.json] \\
         [--patch_size 128 128 48 --overlap 0.5 --throughput]  # 3D
+    torchrun --nproc_per_node N -m ctseg_tpu_torch evaluate --n_devices N ...
+
+On a mesh (parallel/mesh.py) a 2D split is evaluated data-parallel (each
+rank its rows of every batch, the per-slice rows gathered in sample order)
+and a 3D one window-parallel; every rank gets the same report.
 """
 
 import json
@@ -38,6 +43,8 @@ from ctseg_tpu_torch.models.released import (
     resolve_checkpoint_arg,
 )
 from ctseg_tpu_torch.models.unet import SegmentationModel
+from ctseg_tpu_torch.parallel.collectives import GlobalBatch
+from ctseg_tpu_torch.parallel.distributed import mesh_from_flags
 from ctseg_tpu_torch.paths import DEFAULT_DATA_STORAGE
 from ctseg_tpu_torch.training.config import TrainConfig
 from ctseg_tpu_torch.training.trainer import Trainer
@@ -50,6 +57,7 @@ def evaluate_2d(
     dataset: PackedDataset2D,
     batch_size: Optional[int] = None,
     with_hd95: bool = False,
+    mesh=None,
 ) -> Dict:
     """Slice-wise evaluation on the trainer's device, with dataset-level (not
     step-averaged) Dice.
@@ -66,10 +74,28 @@ def evaluate_2d(
     (the metric runs on the model's grid, after the test transform's
     resize). Without spacings it is in voxels. Everything accumulates on
     the device and is fetched once at the end.
+
+    On a `mesh` the batch is rounded to a multiple of its data axis, each
+    rank evaluates its rows of every batch, and the per-slice Dice and
+    HD95 rows are gathered in sample order before the one reduction: the
+    single-process result, on every rank.
     """
     if len(dataset) == 0:
         raise ValueError("evaluate_2d: empty dataset")
     batch_size = min(batch_size or 64, len(dataset))
+    shard, gather = (0, 1), None
+    if mesh is not None:
+        parts = mesh.shape["data"]
+        batch_size = max((batch_size // parts) * parts, parts)
+        shard = (mesh.data_index, parts)
+        rows = GlobalBatch(mesh.data)
+
+        def gather(local):  # (batches * k, ...) per rank -> sample order
+            t = torch.cat(local)
+            k = t.shape[0] // len(local)
+            t = rows.gather_rows(t).reshape(parts, len(local), k,
+                                            *t.shape[1:])
+            return t.transpose(0, 1).reshape(-1, *t.shape[3:])
     pipe = DevicePipeline2D(dataset, batch_size, trainer.device)
     use_spacing = with_hd95 and pipe.spacings is not None
     if use_spacing:
@@ -81,7 +107,7 @@ def evaluate_2d(
 
     all_dice, all_valid, all_rows, hd_rows, hd_valid_rows = [], [], [], [], []
     t0 = time.perf_counter()
-    for idx, row_valid in pipe.padded_indices():
+    for idx, row_valid in pipe.padded_indices(shard=shard):
         images_raw, labels_raw, indicators = pipe.gather(idx)
         images, labels = trainer.test_transform(images_raw, labels_raw)
         x = images.permute(0, 3, 1, 2).contiguous(
@@ -101,12 +127,11 @@ def evaluate_2d(
                 spatial_dims=2)
             hd_rows.append(hd)
             hd_valid_rows.append(hd_valid & row_valid[:, None])
-    per_class, _ = masked_mean_batch(torch.cat(all_dice), torch.cat(all_valid))
-    fetch = [per_class.double(),
-             torch.sum(torch.cat(all_rows)).double()[None]]
+    cat = torch.cat if gather is None else gather
+    per_class, _ = masked_mean_batch(cat(all_dice), cat(all_valid))
+    fetch = [per_class.double(), torch.sum(cat(all_rows)).double()[None]]
     if with_hd95:
-        hd_mean, hd_n = masked_mean_batch(torch.cat(hd_rows),
-                                          torch.cat(hd_valid_rows))
+        hd_mean, hd_n = masked_mean_batch(cat(hd_rows), cat(hd_valid_rows))
         fetch += [hd_mean.double(), hd_n.double()]
     fetched = torch.cat(fetch).cpu().tolist()  # the one wait for the device
     elapsed = time.perf_counter() - t0
@@ -214,9 +239,12 @@ def evaluate_3d_sliding_window(
     batch_size: int = 4,
     with_hd95: bool = False,
     device="cuda",
+    mesh=None,
 ) -> Dict:
     """Whole-volume 3D evaluation of a 3D model (on `device`) by
-    sliding-window Gaussian blending.
+    sliding-window Gaussian blending; window-parallel on a `mesh`
+    (sliding_window.py::blend_accumulate: each rank runs its share of every
+    window batch, the blend is summed over the ranks).
 
     Per volume: the soft-tissue window for a patch-mode config, as its
     trainer saw it (a resize-mode config sees raw HU, as in predict), the
@@ -267,7 +295,7 @@ def evaluate_3d_sliding_window(
         grids.add(tuple(image.shape))
         d, h, w = dataset.images[i].shape
         logits = volume_logits(model, image, patch_size, overlap, batch_size,
-                               window)
+                               window, mesh)
         logits = logits[:h, :w, :d]
         if config.exclude_missing:
             # as the trainer's eval step: a structure missing from this
@@ -352,6 +380,11 @@ def main(argv=None):
     parser.add_argument("--out", type=str, default=None)
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument(
+        "--n_devices", type=int, default=None,
+        help="Evaluate over this many ranks (the world size of a torchrun "
+        "launch, which it must equal): data-parallel in 2D, "
+        "window-parallel in 3D.")
+    parser.add_argument(
         "--patch_size", type=int, nargs=3, default=(128, 128, 48),
         help="3D checkpoints: sliding-window patch size")
     parser.add_argument("--overlap", type=float, default=0.5,
@@ -362,8 +395,9 @@ def main(argv=None):
         "volumes on the device (metrics excluded)")
     args = parser.parse_args(argv)
 
-    trainer, state = Trainer.restore(resolve_checkpoint_arg(args),
-                                     args.device)
+    mesh, device = mesh_from_flags(args.n_devices, device=args.device)
+    trainer, state = Trainer.restore(resolve_checkpoint_arg(args), device,
+                                     mesh=mesh)
     if trainer.config.spatial_dims == 3:
         data_dir = Path(args.data_dir
                         or (Path(DEFAULT_DATA_STORAGE) / "miccai_3d"))
@@ -371,17 +405,21 @@ def main(argv=None):
         patch = tuple(args.patch_size)
         result = evaluate_3d_sliding_window(
             state.model, trainer.config, dataset, patch_size=patch,
-            overlap=args.overlap, with_hd95=args.hd95, device=args.device)
+            overlap=args.overlap, with_hd95=args.hd95, device=device,
+            mesh=mesh)
         if args.throughput:
             result["throughput"] = sliding_window_throughput(
                 state.model, trainer.config, dataset, patch_size=patch,
-                overlap=args.overlap, device=args.device)
+                overlap=args.overlap, device=device)
     else:
         data_dir = Path(args.data_dir
                         or (Path(DEFAULT_DATA_STORAGE) / "miccai_2d"))
         dataset = PackedDataset2D.load(data_dir / f"{args.split}_packed.npz")
         result = evaluate_2d(trainer, state.model, dataset,
-                             batch_size=args.batch_size, with_hd95=args.hd95)
+                             batch_size=args.batch_size, with_hd95=args.hd95,
+                             mesh=mesh)
+    if mesh is not None and mesh.rank != 0:
+        return
     print(format_table(result))
     if "vols_per_min" in result:
         print(f"vols/min (copies included): {result['vols_per_min']:.2f}")

@@ -27,6 +27,7 @@ import torch
 from ctseg_tpu_torch.constants import NUM_CLASSES, WINDOWING_CONFIG
 from ctseg_tpu_torch.models.layers import channels_last
 from ctseg_tpu_torch.ops.masks import squash_predictions
+from ctseg_tpu_torch.parallel.collectives import all_sum
 from ctseg_tpu_torch.transforms.windowing import apply_window
 
 AIR_HU = -1024.0  # the pad fill of raw HU volumes
@@ -124,11 +125,18 @@ def volume_to_device(arr: np.ndarray, patch_size: Sequence[int], fill,
 def blend_accumulate(volume: torch.Tensor, apply_fn: Callable,
                      starts: np.ndarray, patch_size: Tuple[int, ...],
                      importance: torch.Tensor, out_channels: int,
-                     batch_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                     batch_size: int, mesh=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the windows at `starts` through `apply_fn`, `batch_size` at a
     time, and return (acc (*spatial, out_channels), weight (*spatial, 1)),
     float32: each window's logits times the importance added into `acc` in
-    window order, the importance into `weight`."""
+    window order, the importance into `weight`.
+
+    Window-parallel on a `mesh` (parallel/mesh.py; every rank holds the
+    whole volume): each rank runs its share of every window batch, a
+    contiguous ceil(batch / ranks) windows, and `acc` and `weight` are then
+    summed over the ranks, so every rank returns the same blend (its sums
+    in another order than one process's: float32 round-off)."""
     ndim = len(patch_size)
     spatial = tuple(volume.shape[:ndim])
     acc = torch.zeros(spatial + (out_channels,), dtype=torch.float32,
@@ -138,23 +146,32 @@ def blend_accumulate(volume: torch.Tensor, apply_fn: Callable,
     importance_c = importance[..., None]
     windows = [tuple(slice(int(s), int(s) + p) for s, p in zip(st, patch_size))
                for st in starts]
+    index, parts = (0, 1) if mesh is None else (mesh.rank, mesh.size)
     for lo in range(0, len(windows), batch_size):
         batch = windows[lo:lo + batch_size]
+        share = -(-len(batch) // parts)
+        batch = batch[index * share:(index + 1) * share]
+        if not batch:
+            continue
         patches = torch.stack([volume[w] for w in batch])
         weighted = apply_fn(patches).to(torch.float32) * importance_c
         for i, w in enumerate(batch):
             acc[w] += weighted[i]
             weight[w] += importance_c
+    if mesh is not None:
+        both = all_sum(torch.cat([acc, weight], dim=-1), mesh.world)
+        acc, weight = both[..., :out_channels], both[..., out_channels:]
     return acc, weight
 
 
 def build_sliding_window_fn(apply_fn: Callable, spatial_shape: Sequence[int],
                             patch_size: Sequence[int], overlap: float = 0.5,
                             batch_size: int = 4, mode: str = "gaussian",
-                            out_channels: int = NUM_CLASSES, device=None
-                            ) -> Callable:
+                            out_channels: int = NUM_CLASSES, device=None,
+                            mesh=None) -> Callable:
     """A runner for volumes of `spatial_shape`: volume (*spatial, C_in) ->
-    blended logits (*spatial, out_channels), float32."""
+    blended logits (*spatial, out_channels), float32; window-parallel on a
+    `mesh` (`blend_accumulate`)."""
     patch_size = tuple(int(p) for p in patch_size)
     starts = compute_window_grid(spatial_shape, patch_size, overlap)
     if mode == "gaussian":
@@ -166,7 +183,7 @@ def build_sliding_window_fn(apply_fn: Callable, spatial_shape: Sequence[int],
     def run(volume: torch.Tensor) -> torch.Tensor:
         acc, weight = blend_accumulate(
             volume, apply_fn, starts, patch_size, importance.to(volume.device),
-            out_channels, batch_size)
+            out_channels, batch_size, mesh)
         return acc / torch.clamp_min(weight, 1e-30)
 
     return run
@@ -204,7 +221,7 @@ def model_apply_fn(model: torch.nn.Module) -> Callable:
 
 def volume_logits(model: torch.nn.Module, image_hwd: torch.Tensor,
                   patch_size: Sequence[int], overlap: float, batch_size: int,
-                  window: bool) -> torch.Tensor:
+                  window: bool, mesh=None) -> torch.Tensor:
     """Blended logits (H, W, D, classes) of one raw-HU volume (H, W, D) on
     the model's device, at least the patch along every axis: the
     soft-tissue window (patch-mode checkpoints) or raw HU (resize mode),
@@ -214,14 +231,14 @@ def volume_logits(model: torch.nn.Module, image_hwd: torch.Tensor,
         vol = apply_window(vol, *WINDOWING_CONFIG["soft_tissue"])
     run = build_sliding_window_fn(model_apply_fn(model), vol.shape[:3],
                                   patch_size, overlap, batch_size,
-                                  device=vol.device)
+                                  device=vol.device, mesh=mesh)
     with torch.inference_mode():
         return run(vol)
 
 
 def volume_labels(model: torch.nn.Module, image_hwd: torch.Tensor,
                   patch_size: Sequence[int], overlap: float, batch_size: int,
-                  window: bool) -> torch.Tensor:
+                  window: bool, mesh=None) -> torch.Tensor:
     """`volume_logits`'s argmax: the (H, W, D) label map."""
     return squash_predictions(volume_logits(
-        model, image_hwd, patch_size, overlap, batch_size, window))
+        model, image_hwd, patch_size, overlap, batch_size, window, mesh))

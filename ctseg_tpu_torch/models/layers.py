@@ -20,6 +20,15 @@ convs, stay torch convs followed by the norm kernel (the JAX package
 leaves them to XLA; its fused conv kernel is 2D only,
 ops/pallas/conv_block.py:91).
 
+Depth sharding: every unit's forward takes `space`, a
+parallel/collectives.py::DepthShard when x is this rank's depth slab of a
+3D activation (models/unet.py decides per level). Then every conv whose
+kernel spans depth (the stride-1 and strided convs, the transposed convs,
+the residual shortcut) runs on the slab extended by its halo rows
+(`DepthShard.conv`, `conv_transpose`), and the norm is K1's split form
+(ops/instance_norm.py::instance_norm_prelu_split) with statistics summed
+over the slabs. Without `space` nothing changes.
+
 Parameters stay float32 (float64 in the float64 tests) and the units
 compute in their input's dtype, as the JAX model's dtype/param_dtype split
 does: conv weights and biases are cast to it at the call, while the
@@ -35,7 +44,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ctseg_tpu_torch.ops.conv_block import conv3x3_in_prelu
-from ctseg_tpu_torch.ops.instance_norm import instance_norm_prelu
+from ctseg_tpu_torch.ops.instance_norm import (
+    instance_norm_prelu,
+    instance_norm_prelu_split,
+)
 
 
 def _same_padding(kernel_size: int) -> int:
@@ -67,10 +79,22 @@ def _nchw(y: torch.Tensor) -> torch.Tensor:
     return y.permute(0, y.ndim - 1, *range(1, y.ndim - 1))
 
 
-def conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """`conv(x)` computed in x's dtype, the parameters cast at the call."""
-    return _CONV_FN[x.ndim](x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
-                            conv.stride, conv.padding)
+def conv(conv: nn.Module, x: torch.Tensor, space=None) -> torch.Tensor:
+    """`conv(x)` computed in x's dtype, the parameters cast at the call; on
+    a depth slab (`space`) with its halo."""
+    w, b = conv.weight.to(x.dtype), conv.bias.to(x.dtype)
+    if space is None:
+        return _CONV_FN[x.ndim](x, w, b, conv.stride, conv.padding)
+    return space.conv(_CONV_FN[x.ndim], x, w, b, conv.stride, conv.padding,
+                      conv.kernel_size[-1])
+
+
+def _norm(y: torch.Tensor, alpha: torch.Tensor, space) -> torch.Tensor:
+    """IN + PReLU of an (N, *spatial, C) view; over every slab on a depth
+    slab."""
+    if space is None:
+        return instance_norm_prelu(y, alpha)
+    return instance_norm_prelu_split(y, alpha, space.group, space.n)
 
 
 class ConvUnit(nn.Module):
@@ -92,20 +116,20 @@ class ConvUnit(nn.Module):
             padding=_same_padding(kernel_size),
         )
         self.act = None if conv_only else nn.PReLU(init=0.25)
+        self.stride = stride
         self.fused = (not conv_only and stride == 1 and kernel_size == 3
                       and spatial_dims == 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, space=None) -> torch.Tensor:
         if self.act is None:
-            return conv(self.conv, x)
+            return conv(self.conv, x, space)
         if self.fused:
             w = self.conv.weight.to(x.dtype).permute(2, 3, 1, 0).contiguous()
             return _nchw(conv3x3_in_prelu(
                 _nhwc(x), w, self.conv.bias, self.act.weight
             ))
-        return _nchw(instance_norm_prelu(
-            _nhwc(conv(self.conv, x)), self.act.weight
-        ))
+        return _nchw(_norm(_nhwc(conv(self.conv, x, space)), self.act.weight,
+                           space))
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -139,7 +163,7 @@ class ConvTransposeUnit(nn.Module):
         )
         self.act = None if conv_only else nn.PReLU(init=0.25)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, space=None) -> torch.Tensor:
         c = self.conv
         # cuDNN's FP32 weight gradient of a 3D transposed conv into few
         # channels is about 8x slower on channels_last_3d tensors than on
@@ -152,15 +176,19 @@ class ConvTransposeUnit(nn.Module):
                    and x.dtype == torch.float32 and torch.is_grad_enabled())
         if shallow:
             x = x.contiguous()
-        y = _CONV_T_FN[x.ndim](
-            x, c.weight.to(x.dtype), c.bias.to(x.dtype), c.stride, c.padding,
-            c.output_padding,
-        )
+        w, b = c.weight.to(x.dtype), c.bias.to(x.dtype)
+        if space is None:
+            y = _CONV_T_FN[x.ndim](x, w, b, c.stride, c.padding,
+                                   c.output_padding)
+        else:
+            y = space.conv_transpose(_CONV_T_FN[x.ndim], x, w, b, c.stride,
+                                     c.padding, c.output_padding,
+                                     c.kernel_size[-1])
         if shallow:
             y = _ContiguousGrad.apply(y)
         if self.act is None:
             return y
-        return _nchw(instance_norm_prelu(_nhwc(y), self.act.weight))
+        return _nchw(_norm(_nhwc(y), self.act.weight, space))
 
 
 class ResidualUnit(nn.Module):
@@ -177,6 +205,7 @@ class ResidualUnit(nn.Module):
                  last_conv_only: bool = False, spatial_dims: int = 2):
         super().__init__()
         subunits = max(1, subunits)
+        self.stride = stride
         self.conv = nn.Sequential()
         cin, s = in_channels, stride
         for su in range(subunits):
@@ -194,10 +223,13 @@ class ResidualUnit(nn.Module):
                 padding=_same_padding(rkernel),
             )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, space=None) -> torch.Tensor:
         res = x if isinstance(self.residual, nn.Identity) \
-            else conv(self.residual, x)
-        return res + self.conv(x)
+            else conv(self.residual, x, space)
+        out = x
+        for unit in self.conv:
+            out = unit(out, space)
+        return res + out
 
 
 def reset_parameters(model: nn.Module,

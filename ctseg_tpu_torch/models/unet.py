@@ -19,8 +19,19 @@ loads with `load_state_dict`:
 
 Inputs and outputs are (N, C, *spatial) tensors, 2D (N, C, H, W) or 3D
 (N, C, H, W, D) as `spatial_dims` says; keep them channels_last (see
-models/layers.py). The reference's TPU layout switches (`_constrain_depth`,
-`packed_depth`, `packed_up_fwd`, `polyphase_up`) have no counterpart.
+models/layers.py). The reference's TPU layout switches (`packed_depth`,
+`packed_up_fwd`, `polyphase_up`) have no counterpart.
+
+Depth sharding (`spatial_mesh`, a ('data', 'space') parallel/mesh.py::Mesh;
+the JAX UNet.spatial_mesh): a 3D input is this rank's depth slab, and so is
+the output. Each level keeps the JAX `_constrain_depth` rule: its
+activation stays sharded while its depth d divides into n slabs of at least
+`min_depth_per_shard` (2) rows, and its units then run on the slab with
+conv halos and the split norm (models/layers.py). Below that the level's
+input is all-gathered (with its gradient), the level computes replicated,
+and where a level above is sharded again its output is sliced back to the
+slab. The GSPMD fence itself has no counterpart: what it guarded, the halo
+exchanges and the gather, is explicit here.
 """
 
 from typing import Optional, Sequence
@@ -28,6 +39,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
+from ctseg_tpu_torch.parallel.collectives import depth_shard
 from ctseg_tpu_torch.models.layers import (
     ConvTransposeUnit,
     ConvUnit,
@@ -63,6 +75,8 @@ class UNet(nn.Module):
         super().__init__()
         if len(channels) != len(strides) + 1:
             raise ValueError("need one more channel spec than strides")
+        self.spatial_mesh = None  # see the module's docstring
+        self.min_depth_per_shard = 2
         self.spatial_dims = spatial_dims
         self.num_res_units = num_res_units
         self.kernel_size = kernel_size
@@ -108,7 +122,45 @@ class UNet(nn.Module):
         return nn.Sequential(conv, ru)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.model(x)
+        shard = depth_shard(self.spatial_mesh, self.min_depth_per_shard)
+        if shard is None or x.ndim != 5:
+            return self.model(x)
+        y, sharded = self._block(self.model, x, True, x.shape[-1] * shard.n,
+                                 shard)
+        return y if sharded else shard.slab(y)
+
+    def _block(self, block: nn.Sequential, x, sharded: bool, d: int, shard):
+        """One level of the recursion on x of global depth d: (output, whether
+        it is a slab). Both halves of the skip concatenation come out in
+        their level's layout."""
+        down, skip, up = block
+        d_mid = d // down.stride
+        x, sharded = _apply(down, x, sharded, d_mid, shard)
+        sub = skip.submodule
+        if isinstance(sub, nn.Sequential):
+            inner, _ = self._block(sub, x, sharded, d_mid, shard)
+        else:  # the bottom unit
+            inner, _ = _apply(sub, x, sharded, d_mid, shard)
+        return _apply(up, torch.cat([x, inner], dim=1), sharded, d, shard)
+
+
+def _apply(module: nn.Module, x, sharded: bool, d_out: int, shard):
+    """`module` on x (a slab when `sharded`) into a level of global depth
+    d_out: on the slab with halos while both levels are sharded, else
+    replicated on the gathered depth, sliced back where d_out is sharded."""
+    keep = shard.sharded(d_out)
+    if sharded and keep:
+        return _call(module, x, shard), True
+    if sharded:
+        x = shard.gather(x)
+    y = _call(module, x, None)
+    return (shard.slab(y), True) if keep else (y, False)
+
+
+def _call(module: nn.Module, x, space):
+    for m in (module if isinstance(module, nn.Sequential) else (module,)):
+        x = m(x, space)
+    return x
 
 
 class SegmentationModel(nn.Module):

@@ -40,6 +40,19 @@ SIGNATURES = {
     # x, y, alpha, parts, mean, var, n, s, c, vec, chunks, rows_per_chunk,
     # dtype, device, stream
     "ctseg_in_prelu_fwd": [_P] * 6 + [_I] * 8 + [_P],
+    # The split form across depth slabs:
+    # x, parts, totals, n, s, c, vec, chunks, rows_per_chunk, dtype, device,
+    # stream
+    "ctseg_in_prelu_split_fwd_sums": [_P] * 3 + [_I] * 8 + [_P],
+    # x, mean, var, alpha, y, n, s, c, vec, chunks, rows_per_chunk, dtype,
+    # device, stream
+    "ctseg_in_prelu_split_fwd_apply": [_P] * 5 + [_I] * 8 + [_P],
+    # x, g, mean, var, alpha, parts, totals, n, s, c, vec, chunks,
+    # rows_per_chunk, dtype, device, stream
+    "ctseg_in_prelu_split_bwd_sums": [_P] * 7 + [_I] * 8 + [_P],
+    # x, g, mean, var, alpha, means, dx, n, s, c, vec, chunks,
+    # rows_per_chunk, dtype, device, stream
+    "ctseg_in_prelu_split_bwd_apply": [_P] * 7 + [_I] * 8 + [_P],
     # x, y, alpha, mean_out, var_out, n, s, c, wcc, cluster_size, dtype,
     # device, stream
     "ctseg_in_prelu_fwd_cluster": [_P] * 5 + [_I] * 7 + [_P],

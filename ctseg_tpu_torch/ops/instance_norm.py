@@ -336,7 +336,8 @@ def _check_cuda(x: torch.Tensor, alpha: torch.Tensor, **others) -> tuple:
                 "*spatial, C) order (the NHWC view of a channels_last tensor);"
                 f" got strides {tuple(t.stride())} on {t.device}"
             )
-    if alpha.dtype != torch.float32 or alpha.device != x.device:
+    if alpha is not None and (alpha.dtype != torch.float32
+                              or alpha.device != x.device):
         raise TypeError(
             f"kernel wants alpha float32 on {x.device}, got {alpha.dtype} "
             f"on {alpha.device}"
@@ -468,3 +469,195 @@ def instance_norm_prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
 
 instance_norm_prelu.launches = 0  # K1 launches since the last reset
 instance_norm_prelu_bwd.launches = 0  # K1b launches since the last reset
+
+
+# ---------------------------------------------- split across depth slabs
+#
+# A depth-sharded activation is one slab a rank, and its statistics are sums
+# over every slab (ctseg_tpu/ops/pallas/instance_norm.py's two phases,
+# _stats_stream then _normalize_stream, and _ghstats_stream then _dx_stream,
+# with an all_reduce between them). Four wrappers, each a launch of
+# csrc/instance_norm.cu's split form at the slab's two-phase geometry
+# (fwd_plan / bwd_plan) on CUDA or its plain version on the CPU:
+#   split_fwd_sums   x -> the slab's sums of x and x^2, (N, 2, C)
+#   split_fwd_apply  x, global mean and var -> y
+#   split_bwd_sums   x, g -> the slab's sums of gh and gh * xhat (N, 2, C),
+#                    and the slab's dalpha
+#   split_bwd_apply  x, g, global means of those -> dx
+# Sums are float32 (float64 for float64 input). Each has its plain version
+# beside it (`*_plain`). `instance_norm_prelu_split` puts them around the
+# all_reduce in one autograd.Function.
+
+
+def _ctype(x: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _rows(x: torch.Tensor, ctype) -> torch.Tensor:
+    """(N, S, C) view of x in `ctype`."""
+    return x.to(ctype).reshape(x.shape[0], -1, x.shape[-1])
+
+
+def _split_launch(name, x, plan, args, what):
+    lib = _build.library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    n, c = x.shape[0], x.shape[-1]
+    s = x.numel() // (n * c)
+    err = getattr(lib, name)(
+        *args, n, s, c, plan["vec"], plan["chunks"], plan["rows_per_chunk"],
+        _DTYPE_CODES[x.dtype], x.device.index, stream)
+    lib.check(err, what)
+
+
+def split_fwd_sums_plain(x: torch.Tensor) -> torch.Tensor:
+    x32 = _rows(x, _ctype(x))
+    return torch.stack([x32.sum(dim=1), (x32 * x32).sum(dim=1)], dim=1)
+
+
+def split_fwd_sums(x: torch.Tensor) -> torch.Tensor:
+    """The slab's per-(sample, channel) sums of x and x^2, (N, 2, C)."""
+    if x.device.type == "cpu":
+        return split_fwd_sums_plain(x)
+    n, s, c = _check_cuda(x, None)
+    plan = fwd_plan(n, s, c, x.element_size(), x.data_ptr() % 16 == 0)
+    parts = torch.empty(plan["workspace"], dtype=torch.float32,
+                        device=x.device)
+    totals = torch.empty((n, 2, c), dtype=torch.float32, device=x.device)
+    _split_launch("ctseg_in_prelu_split_fwd_sums", x, plan,
+                  (x.data_ptr(), parts.data_ptr(), totals.data_ptr()),
+                  "split_fwd_sums")
+    split_fwd_sums.launches += 1
+    return totals
+
+
+def split_stats(totals: torch.Tensor, count: int):
+    """(mean, var), each (N, C), from the global sums of x and x^2 over
+    `count` pixels: the one-pass statistics, var clamped at 0."""
+    mean = totals[:, 0] / count
+    var = torch.clamp_min(totals[:, 1] / count - mean * mean, 0.0)
+    return mean, var
+
+
+def split_fwd_apply_plain(x, mean, var, alpha) -> torch.Tensor:
+    ctype = _ctype(x)
+    xhat = (_rows(x, ctype) - mean.to(ctype)[:, None]) * torch.rsqrt(
+        var.to(ctype)[:, None] + EPS)
+    a = alpha.reshape(()).to(ctype)
+    return torch.where(xhat >= 0, xhat, a * xhat).reshape(x.shape).to(x.dtype)
+
+
+def split_fwd_apply(x, mean, var, alpha) -> torch.Tensor:
+    """y = PReLU((x - mean) * rsqrt(var + eps)) from the global statistics."""
+    if x.device.type == "cpu":
+        return split_fwd_apply_plain(x, mean, var, alpha)
+    n, s, c = _check_cuda(x, alpha, mean=mean, var=var)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    aligned = x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+    plan = fwd_plan(n, s, c, x.element_size(), aligned)
+    _split_launch("ctseg_in_prelu_split_fwd_apply", x, plan,
+                  (x.data_ptr(), mean.data_ptr(), var.data_ptr(),
+                   alpha.data_ptr(), y.data_ptr()), "split_fwd_apply")
+    split_fwd_apply.launches += 1
+    return y
+
+
+def _gh_xhat(x, g, mean, var, alpha):
+    ctype = _ctype(x)
+    inv = torch.rsqrt(var.to(ctype)[:, None] + EPS)
+    xhat = (_rows(x, ctype) - mean.to(ctype)[:, None]) * inv
+    g32 = _rows(g, ctype)
+    a = alpha.reshape(()).to(ctype)
+    return torch.where(xhat >= 0, g32, a * g32), xhat, g32, inv
+
+
+def split_bwd_sums_plain(x, g, mean, var, alpha):
+    gh, xhat, g32, _ = _gh_xhat(x, g, mean, var, alpha)
+    dalpha = (g32 * torch.clamp_max(xhat, 0.0)).sum()
+    return (torch.stack([gh.sum(dim=1), (gh * xhat).sum(dim=1)], dim=1),
+            dalpha.reshape(1).to(alpha.dtype))
+
+
+def split_bwd_sums(x, g, mean, var, alpha):
+    """(the slab's sums of gh and gh * xhat, (N, 2, C); the slab's dalpha,
+    (1,))."""
+    if x.device.type == "cpu":
+        return split_bwd_sums_plain(x, g, mean, var, alpha)
+    n, s, c = _check_cuda(x, alpha, g=g, mean=mean, var=var)
+    aligned = x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
+    plan = bwd_plan(n, s, c, x.element_size(), aligned)
+    parts = torch.empty(plan["workspace"], dtype=torch.float32,
+                        device=x.device)
+    totals = torch.empty((n, 2, c), dtype=torch.float32, device=x.device)
+    _split_launch("ctseg_in_prelu_split_bwd_sums", x, plan,
+                  (x.data_ptr(), g.data_ptr(), mean.data_ptr(),
+                   var.data_ptr(), alpha.data_ptr(), parts.data_ptr(),
+                   totals.data_ptr()), "split_bwd_sums")
+    split_bwd_sums.launches += 1
+    return totals, parts[:, :, 2].sum().reshape(1)
+
+
+def split_bwd_apply_plain(x, g, mean, var, alpha, means) -> torch.Tensor:
+    gh, xhat, _, inv = _gh_xhat(x, g, mean, var, alpha)
+    m = means.to(gh.dtype)
+    dx = inv * (gh - m[:, 0, None] - xhat * m[:, 1, None])
+    return dx.reshape(x.shape).to(x.dtype)
+
+
+def split_bwd_apply(x, g, mean, var, alpha, means) -> torch.Tensor:
+    """dx = rsqrt(var + eps) * (gh - m1 - xhat * m2) from the global means
+    (N, 2, C) of gh and gh * xhat."""
+    if x.device.type == "cpu":
+        return split_bwd_apply_plain(x, g, mean, var, alpha, means)
+    n, s, c = _check_cuda(x, alpha, g=g, mean=mean, var=var, means=means)
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, g, dx))
+    plan = bwd_plan(n, s, c, x.element_size(), aligned)
+    _split_launch("ctseg_in_prelu_split_bwd_apply", x, plan,
+                  (x.data_ptr(), g.data_ptr(), mean.data_ptr(),
+                   var.data_ptr(), alpha.data_ptr(), means.data_ptr(),
+                   dx.data_ptr()), "split_bwd_apply")
+    split_bwd_apply.launches += 1
+    return dx
+
+
+for _fn in (split_fwd_sums, split_fwd_apply, split_bwd_sums, split_bwd_apply):
+    _fn.launches = 0  # launches since the last reset
+
+
+def _all_sum(t: torch.Tensor, group) -> torch.Tensor:
+    import torch.distributed as dist
+
+    dist.all_reduce(t, group=group)
+    return t
+
+
+class _SplitInstanceNormPReLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, alpha, group, slabs):
+        count = (x.numel() // (x.shape[0] * x.shape[-1])) * slabs
+        mean, var = split_stats(_all_sum(split_fwd_sums(x), group), count)
+        ctx.save_for_backward(x, mean, var, alpha)
+        ctx.group, ctx.count = group, count
+        return split_fwd_apply(x, mean, var, alpha)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, var, alpha = ctx.saved_tensors
+        g = g.contiguous()
+        totals, dalpha = split_bwd_sums(x, g, mean, var, alpha)
+        means = _all_sum(totals, ctx.group) / ctx.count
+        return split_bwd_apply(x, g, mean, var, alpha, means), dalpha, \
+            None, None
+
+
+def instance_norm_prelu_split(x: torch.Tensor, alpha: torch.Tensor,
+                              group=None, slabs: int = 1) -> torch.Tensor:
+    """PReLU(InstanceNorm(.)) of a depth-sharded activation: x (N, *spatial,
+    C) is this rank's slab, one of `slabs` equal slabs held by the ranks of
+    the process group `group`, and the statistics are those of the whole.
+    Without a group it is `instance_norm_prelu`. dalpha is this slab's
+    share: the caller sums parameter gradients over the ranks."""
+    if group is None:
+        return instance_norm_prelu(x, alpha)
+    _check_shapes(x, alpha)
+    return _SplitInstanceNormPReLU.apply(x, alpha, group, slabs)

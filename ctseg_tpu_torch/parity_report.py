@@ -18,9 +18,12 @@ mixup_trainer.py:131-190), then `evaluate_2d` on the whole test split
 
 `REFERENCE_DICE`, `REFERENCE_MEAN`, `PARITY_TOLERANCE` and
 `comparison_table` are the root script's, pinned equal by
-tests/test_torch_front_door.py. Runs on one device: the root script's mesh
-branch (data-parallel training and evaluation over every device) waits for
-the port's scale-out slice (ROADMAP.md section 1, item 6).
+tests/test_torch_front_door.py. Launched by torchrun over N cards, it
+trains and evaluates data-parallel over every rank, as the root script does
+over every device (the batch rounded to a multiple of the ranks); rank 0
+writes the report:
+
+    torchrun --nproc_per_node N -m ctseg_tpu_torch parity --data_dir DIR
 """
 
 import argparse
@@ -77,17 +80,23 @@ def run_model(name, data_dir, args):
             input_size=args.synthetic_input_size,
         )
     config = dataclasses.replace(config, **overrides)
+    mesh, device = args.mesh, args.rank_device
+    if mesh is not None:
+        from ctseg_tpu_torch.training.cli import _fit_batch
 
-    trainer = Trainer(config, args.device)
+        config = dataclasses.replace(config, batch_size=_fit_batch(
+            config.batch_size, len(full), mesh.size))
+
+    trainer = Trainer(config, device, mesh=mesh)
     state = trainer.init_state()
     logger = MetricLogger(log_dir=args.out_dir / name, use_wandb=False,
                           experiment_name=f"parity-{name}",
-                          config=config.as_dict())
-    pipe = DevicePipeline2D(full, min(config.batch_size, len(full)),
-                            args.device)
+                          config=config.as_dict()) if trainer.is_main else None
+    pipe = DevicePipeline2D(full, min(config.batch_size, len(full)), device)
     state = trainer.fit(state, pipe, None, logger=logger)
     trainer.save(args.out_dir / name / "model.ckpt", state)
-    logger.close()
+    if logger is not None:
+        logger.close()
     return _evaluate(trainer, state.model, test)
 
 
@@ -95,7 +104,8 @@ def _evaluate(trainer, model, test):
     from ctseg_tpu_torch.inference.evaluate import evaluate_2d
 
     result = evaluate_2d(trainer, model, test,
-                         batch_size=trainer.config.batch_size)
+                         batch_size=trainer.config.batch_size,
+                         mesh=trainer.mesh)
     if result["num_slices"] != len(test):
         raise RuntimeError(f"evaluated {result['num_slices']} of "
                            f"{len(test)} test slices")
@@ -108,7 +118,8 @@ def evaluate_checkpoint(ckpt_path, name, data_dir, args):
     from ctseg_tpu_torch.data.datasets import PackedDataset2D
     from ctseg_tpu_torch.training.trainer import Trainer
 
-    trainer, state = Trainer.restore(ckpt_path, args.device)
+    trainer, state = Trainer.restore(ckpt_path, args.rank_device,
+                                     mesh=args.mesh)
     test = PackedDataset2D.load(data_dir / "test_packed.npz")
     return _evaluate(trainer, state.model, test)
 
@@ -168,6 +179,10 @@ def main(argv=None):
     args = parser.parse_args(argv)
     args.out_dir = Path(args.out_dir)
     args.out_dir.mkdir(parents=True, exist_ok=True)
+    from ctseg_tpu_torch.parallel.distributed import mesh_from_flags
+
+    args.mesh, args.rank_device = mesh_from_flags(device=args.device)
+    main_rank = args.mesh is None or args.mesh.rank == 0
 
     from ctseg_tpu_torch.paths import DEFAULT_DATA_STORAGE
 
@@ -196,8 +211,11 @@ def main(argv=None):
             "result": result,
             "parity_pass": bool(ok) and not args.synthetic,
         }
-        print(table)
+        if main_rank:
+            print(table)
 
+    if not main_rank:
+        return
     (args.out_dir / "parity_report.md").write_text("\n".join(report))
     (args.out_dir / "parity_report.json").write_text(
         json.dumps(payload, indent=2)

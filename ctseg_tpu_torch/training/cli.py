@@ -27,6 +27,15 @@ it publishes `model_mixup.ckpt`).
 (default $CTSEG_DATA_STORAGE/miccai_3d) and trains whole resized volumes
 (`--volumetric_mode resize`, the reference's parity mode; `--preset
 model_3d`) or random native-resolution patches (`patch`).
+
+Data parallel on N cards, depth-sharded 3D on a ('data', 'space') mesh:
+
+    torchrun --nproc_per_node N -m ctseg_tpu_torch train --n_devices N ...
+    torchrun --nproc_per_node 4 -m ctseg_tpu_torch train_3d \
+        --n_devices 4 --spatial_devices 2 --volumetric_mode patch ...
+
+one process a card (NCCL); --batch_size is the global batch, rounded to a
+multiple of the data axis (`_fit_batch`); only rank 0 logs and saves.
 """
 
 import contextlib
@@ -35,10 +44,13 @@ import warnings
 from argparse import ArgumentParser
 from pathlib import Path
 
+import torch.distributed as dist
+
 from ctseg_tpu_torch.constants import EXPERIMENT_SEED
 from ctseg_tpu_torch.data.datasets import PackedDataset2D, PackedDataset3D
 from ctseg_tpu_torch.data.pipeline import DevicePipeline2D
 from ctseg_tpu_torch.models.presets import PRESETS
+from ctseg_tpu_torch.parallel.distributed import mesh_from_flags
 from ctseg_tpu_torch.paths import DEFAULT_DATA_STORAGE
 from ctseg_tpu_torch.training.callbacks import ExamplesLoggingCallback
 from ctseg_tpu_torch.training.config import TrainConfig
@@ -93,6 +105,15 @@ def _add_args(parser: ArgumentParser) -> None:
                         "plateau and step restore) or a reference .ckpt.")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument(
+        "--n_devices", type=int, default=None,
+        help="Data-parallel ranks (one device each): the world size of a "
+        "torchrun launch, which it must equal.")
+    parser.add_argument(
+        "--spatial_devices", type=int, default=1,
+        help="train_3d: shard volume depth over this many ranks (a "
+        "('data', 'space') mesh; the world must be a multiple). 1 = pure "
+        "data parallelism.")
+    parser.add_argument(
         "--resize_shape", nargs=3, type=int, default=None,
         help="train_3d: (H, W, D) volume grid (default: the reference's "
         "256 256 96).")
@@ -143,6 +164,34 @@ def _config_from_args(args, mixup: bool) -> TrainConfig:
     )
 
 
+def _fit_batch(requested: int, n_items, divisor: int = 1) -> int:
+    """Largest usable global batch: at most the dataset's size (when
+    bounded) and a multiple of `divisor`, the mesh's data axis (batches
+    shard over it). n_items=None: unbounded (patch pipelines sample with
+    replacement)."""
+    b = requested if n_items is None else min(requested, n_items)
+    if divisor > 1:
+        if n_items is not None and n_items < divisor:
+            raise SystemExit(f"a split of {n_items} is smaller than the "
+                             f"{divisor} data-parallel ranks")
+        b = max((b // divisor) * divisor, divisor)
+    return b
+
+
+def _logger(trainer, args, config):
+    """The run's MetricLogger on rank 0, None on the other ranks."""
+    if not trainer.is_main:
+        return None
+    return MetricLogger(
+        log_dir=args.checkpoint_dir or "logs", use_wandb=args.use_wandb,
+        experiment_name=args.experiment_name, config=config.as_dict(),
+    )
+
+
+def _data_ranks(trainer) -> int:
+    return 1 if trainer.mesh is None else trainer.mesh.shape["data"]
+
+
 def fit_and_finalize(trainer, state, train_pipe, val_pipe, args, logger,
                      callbacks=None):
     """Trainer.fit to --max_epochs with an asynchronous save every
@@ -153,7 +202,8 @@ def fit_and_finalize(trainer, state, train_pipe, val_pipe, args, logger,
     ckpt_path = (Path(args.checkpoint_dir) / "model.ckpt"
                  if args.checkpoint_dir else None)
     profile = (trace(str(Path(args.checkpoint_dir or "logs") / "profile"))
-               if args.profile else contextlib.nullcontext())
+               if args.profile and trainer.is_main
+               else contextlib.nullcontext())
     try:
         with profile:
             state = trainer.fit(
@@ -165,8 +215,9 @@ def fit_and_finalize(trainer, state, train_pipe, val_pipe, args, logger,
     except Preempted as p:
         where = (f"resume with --resume {ckpt_path}" if ckpt_path
                  else "NO checkpoint was saved (no --checkpoint_dir)")
-        print(f"{p}; {where}")
-        logger.close()
+        if trainer.is_main:
+            print(f"{p}; {where}")
+            logger.close()
         return None
     if ckpt_path:
         trainer.save(ckpt_path, state)
@@ -180,24 +231,23 @@ def run_2d(args, mixup: bool) -> None:
     if args.use_full_data:
         train = PackedDataset2D.concatenate(train, valid)
 
+    mesh, device = mesh_from_flags(args.n_devices, device=args.device)
     if args.resume:
-        trainer, state = Trainer.restore(args.resume, args.device)
+        trainer, state = Trainer.restore(args.resume, device, mesh=mesh)
     else:
-        trainer = Trainer(_config_from_args(args, mixup), args.device)
+        trainer = Trainer(_config_from_args(args, mixup), device, mesh=mesh)
         state = trainer.init_state()
     config = trainer.config
-    logger = MetricLogger(
-        log_dir=args.checkpoint_dir or "logs", use_wandb=args.use_wandb,
-        experiment_name=args.experiment_name, config=config.as_dict(),
-    )
+    logger = _logger(trainer, args, config)
+    ranks = _data_ranks(trainer)
     train_pipe = DevicePipeline2D(
-        train, min(config.batch_size, len(train)), args.device
+        train, _fit_batch(config.batch_size, len(train), ranks), device
     )
     val_pipe = None if args.use_full_data else DevicePipeline2D(
-        valid, min(config.batch_size, len(valid)), args.device
+        valid, _fit_batch(config.batch_size, len(valid), ranks), device
     )
     callbacks = []
-    if args.checkpoint_dir:
+    if args.checkpoint_dir and trainer.is_main:
         callbacks.append(ExamplesLoggingCallback(
             valid, Path(args.checkpoint_dir) / "examples",
             every_n_epochs=args.checkpoint_every))
@@ -215,12 +265,14 @@ def run_2d(args, mixup: bool) -> None:
         test = PackedDataset2D.load(data_dir / "test_packed.npz")
         metrics = trainer.eval_epoch(
             state.model,
-            DevicePipeline2D(test, min(config.batch_size, len(test)),
-                             args.device),
+            DevicePipeline2D(test, _fit_batch(config.batch_size, len(test),
+                                              ranks), device),
             "test", logger, step=state.step,
         )
-        print({k: round(v, 4) for k, v in metrics.items()})
-    logger.close()
+        if trainer.is_main:
+            print({k: round(v, 4) for k, v in metrics.items()})
+    if logger is not None:
+        logger.close()
 
 
 def run_3d(args) -> None:
@@ -265,22 +317,22 @@ def run_3d(args) -> None:
     data_dir = Path(args.data_dir or (Path(DEFAULT_DATA_STORAGE) / "miccai_3d"))
     train = PackedDataset3D.load(data_dir / "train_packed.npz")
     valid = PackedDataset3D.load(data_dir / "valid_packed.npz")
+    mesh, device = mesh_from_flags(args.n_devices, args.spatial_devices,
+                                   args.device)
     if args.resume:
         # The transforms follow the checkpoint's volumetric_mode.
-        trainer, state = Trainer.restore(args.resume, args.device)
+        trainer, state = Trainer.restore(args.resume, device, mesh=mesh)
         mode = trainer.config.volumetric_mode or "resize"
     else:
         trainer = make_trainer_3d(config, mode=mode, patch_size=patch_size,
-                                  device=args.device)
+                                  device=device, mesh=mesh)
         state = trainer.init_state()
     # make_trainer_3d stamps volumetric_mode into its copy of the config:
     # log and use that one, so the record matches the checkpoint.
     config = trainer.config
     shape = tuple(config.input_shape)  # the patch or the resize grid
-    logger = MetricLogger(
-        log_dir=args.checkpoint_dir or "logs", use_wandb=args.use_wandb,
-        experiment_name=args.experiment_name, config=config.as_dict(),
-    )
+    logger = _logger(trainer, args, config)
+    ranks = _data_ranks(trainer)
     if mode == "patch":
         # The epoch schedule lives in the checkpoint (resume derives the
         # start epoch from step // steps_per_epoch): a conflicting flag on
@@ -293,17 +345,18 @@ def run_3d(args) -> None:
                 f"--steps_per_epoch {requested} ignored: the checkpoint's "
                 f"schedule is {config.steps_per_epoch} steps/epoch and the "
                 "resume epoch is derived from it")
-        train_pipe = PatchPipeline3D(train, config.batch_size, shape, steps,
-                                     args.device)
-        val_pipe = PatchPipeline3D(valid, config.batch_size, shape, steps,
-                                   args.device)
+        batch = _fit_batch(config.batch_size, None, ranks)
+        train_pipe = PatchPipeline3D(train, batch, shape, steps, device)
+        val_pipe = PatchPipeline3D(valid, batch, shape, steps, device)
     else:
         train_pipe = DevicePipeline3D(
-            train, min(config.batch_size, len(train)), shape, args.device)
+            train, _fit_batch(config.batch_size, len(train), ranks), shape,
+            device)
         val_pipe = DevicePipeline3D(
-            valid, min(config.batch_size, len(valid)), shape, args.device)
+            valid, _fit_batch(config.batch_size, len(valid), ranks), shape,
+            device)
     if fit_and_finalize(trainer, state, train_pipe, val_pipe, args,
-                        logger) is not None:
+                        logger) is not None and logger is not None:
         logger.close()
 
 
@@ -313,10 +366,15 @@ def main(argv=None):
     for name in ("train", "train_mixup", "train_3d"):
         _add_args(sub.add_parser(name))
     args = parser.parse_args(argv)
-    if args.command == "train_3d":
-        run_3d(args)
-        return
-    run_2d(args, mixup=args.command == "train_mixup")
+    owned = not dist.is_initialized()  # a torchrun launch starts it here
+    try:
+        if args.command == "train_3d":
+            run_3d(args)
+        else:
+            run_2d(args, mixup=args.command == "train_mixup")
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

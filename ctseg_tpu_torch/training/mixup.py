@@ -13,6 +13,13 @@ the draws is that of the JAX package, not its stream of numbers.
 
 Structure presence comes from the label map (class s + 1 anywhere in the
 sample), as in the JAX package.
+
+On a mesh (`batch`, parallel/collectives.py::GlobalBatch) the draws are the
+global batch's, as the JAX package's under pjit: the probabilities come
+from every rank's presence rows, gathered; the index (over the global
+batch) and lambda are drawn from a generator that is the same on every
+rank; each rank's rows take their partners from the gathered batch
+(`take_partners`).
 """
 
 import functools
@@ -21,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from ctseg_tpu_torch.constants import ANNOTATION_COUNT, NUM_CLASSES
+from ctseg_tpu_torch.parallel.collectives import LOCAL, GlobalBatch
 
 
 @functools.lru_cache(maxsize=None)
@@ -37,10 +45,15 @@ def structure_presence(labels: torch.Tensor) -> torch.Tensor:
     ).to(torch.float32)
 
 
-def mixup_probability(labels: torch.Tensor) -> torch.Tensor:
-    """(N,) partner probabilities of weighted mixup, summing to 1."""
+def mixup_probability(labels: torch.Tensor, batch: GlobalBatch = LOCAL
+                      ) -> torch.Tensor:
+    """(N,) partner probabilities of weighted mixup over the global batch,
+    summing to 1."""
     count = _annotation_count(labels.device)
-    indicator = structure_presence(labels) * count  # (N, 9)
+    presence = structure_presence(labels)
+    if batch.n_space > 1:  # present in any depth slab
+        presence = (batch.spatial_counts(presence) > 0).to(torch.float32)
+    indicator = batch.gather_rows(presence) * count  # (N, 9)
     # A sample with no structure gets the full count row, so its
     # probability stays finite (reference utils.py:31-36).
     empty = torch.sum(indicator, dim=1, keepdim=True) == 0
@@ -79,19 +92,35 @@ def mixup_tensors(a: torch.Tensor, b: torch.Tensor, lam: torch.Tensor
     return lam * a + (1.0 - lam) * b
 
 
+def take_partners(index: torch.Tensor, batch: GlobalBatch, *tensors):
+    """The partners of this rank's rows: `index` (N_global,) is over the
+    global batch, each of `tensors` holds this rank's rows. The rows are
+    gathered from every rank (the whole transformed batch: simple, and a
+    copy of the global batch per rank)."""
+    mine = batch.local_rows(index)
+    return tuple(None if t is None else batch.gather_rows(t)[mine]
+                 for t in tensors)
+
+
 def weighted_mixup(generator: Optional[torch.Generator], images: torch.Tensor,
-                   labels: torch.Tensor, alpha: float = 0.2
+                   labels: torch.Tensor, alpha: float = 0.2,
+                   batch: GlobalBatch = LOCAL
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (mixed_images, partner_index, lambda)."""
-    index, lam = draw_mixup(generator, mixup_probability(labels), alpha)
-    return mixup_tensors(images, images[index], lam), index, lam
+    """Returns (mixed_images, partner_index over the global batch,
+    lambda)."""
+    index, lam = draw_mixup(generator, mixup_probability(labels, batch),
+                            alpha)
+    partner, = take_partners(index, batch, images)
+    return mixup_tensors(images, partner, lam), index, lam
 
 
 def plain_mixup(generator: Optional[torch.Generator], images: torch.Tensor,
-                alpha: float = 0.2
+                alpha: float = 0.2, batch: GlobalBatch = LOCAL
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Uniform-permutation mixup (reference mixup_data, utils.py:45-52)."""
+    """Uniform-permutation mixup (reference mixup_data, utils.py:45-52) over
+    the global batch."""
     lam = sample_beta(generator, alpha, device=images.device)
-    index = torch.randperm(images.shape[0], generator=generator,
-                           device=images.device)
-    return mixup_tensors(images, images[index], lam), index, lam
+    index = torch.randperm(images.shape[0] * batch.n_data,
+                           generator=generator, device=images.device)
+    partner, = take_partners(index, batch, images)
+    return mixup_tensors(images, partner, lam), index, lam

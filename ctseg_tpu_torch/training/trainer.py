@@ -20,10 +20,22 @@ labels), or, with a `draw` attribute, also takes draws: the reference's
 eval step draws them from the fixed key 0, and this one from a generator
 seeded 0 (the same distribution; RNG streams are not compared).
 
-Eager PyTorch on one device. A step never waits for the device: metrics
-stay device tensors until the one stacked fetch at the end of an epoch.
-Losses and metrics run in float32 under bfloat16 compute (float64 under
-float64), as in the JAX trainer.
+Eager PyTorch, one device a process. A step never waits for the device:
+metrics stay device tensors until the one stacked fetch at the end of an
+epoch. Losses and metrics run in float32 under bfloat16 compute (float64
+under float64), as in the JAX trainer.
+
+Under a mesh (parallel/mesh.py; `mesh=`) each rank trains on its rows of
+the global batch (`config.batch_size` is the global batch, as in the JAX
+Trainer), and on a ('data', 'space') mesh a 3D trainer also on its depth
+slab of each volume (the model then shards depth, models/unet.py). The
+update every rank applies is the single-process update on the global batch
+(parallel/distributed.py): the losses and Dice reduce over the global batch
+(their GlobalBatch), the transform's and mixup's draws are the global
+batch's, from a generator that is the same on every rank, and the ranks
+sum their gradients. A step's metrics are the global batch's on every
+rank. Only rank 0 logs and saves. The hand kernels run as without a mesh:
+under data parallelism every kernel sees whole samples.
 """
 
 import dataclasses
@@ -46,6 +58,19 @@ from ctseg_tpu_torch.models.layers import channels_last
 from ctseg_tpu_torch.models.unet import SegmentationModel
 from ctseg_tpu_torch.ops.edt import signed_distance_maps_from_labels
 from ctseg_tpu_torch.ops.masks import squash_predictions
+from ctseg_tpu_torch.parallel.collectives import (
+    LOCAL,
+    GlobalBatch,
+    all_sum,
+    depth_shard,
+)
+from ctseg_tpu_torch.parallel.distributed import sum_gradients
+from ctseg_tpu_torch.parallel.mesh import (
+    Mesh,
+    batch_sharding,
+    depth_slab,
+    replicated,
+)
 from ctseg_tpu_torch.training import checkpoint as ckpt
 from ctseg_tpu_torch.training.config import (
     TrainConfig,
@@ -58,6 +83,7 @@ from ctseg_tpu_torch.training.mixup import (
     draw_mixup,
     mixup_probability,
     mixup_tensors,
+    take_partners,
 )
 from ctseg_tpu_torch.training.optimizer import make_adam, set_lr
 from ctseg_tpu_torch.training.schedule import (
@@ -88,6 +114,16 @@ class Preempted(RuntimeError):
         self.epoch = epoch
 
 
+def take_rows(tree, rows: slice):
+    """`rows` of every tensor of a (nested) NamedTuple of per-sample draws
+    (None stays None)."""
+    if tree is None:
+        return None
+    if torch.is_tensor(tree):
+        return tree[rows]
+    return type(tree)(*(take_rows(t, rows) for t in tree))
+
+
 def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
     """The epoch's generator (permutation, then the steps' draws), derived
     from (seed, epoch) so a resumed run continues the sequence."""
@@ -97,15 +133,28 @@ def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
 
 class Trainer:
     def __init__(self, config: TrainConfig, device="cuda",
-                 train_transform=None, test_transform=None):
+                 train_transform=None, test_transform=None,
+                 mesh: Optional[Mesh] = None):
         self.config = config
         self.device = torch.device(device)
         self._metric_dtype = (torch.float64 if model_dtype(config) == torch.float64
                               else torch.float32)
+        # A 2D config on a ('data', 'space') mesh is plain data parallelism
+        # over every rank, as the JAX Trainer makes of it.
+        self._spatial = (mesh is not None and mesh.n_space > 1
+                         and config.spatial_dims == 3)
+        if mesh is not None and mesh.n_space > 1 and not self._spatial:
+            mesh = mesh.data_parallel()
+        self.mesh = mesh
+        self.batch = LOCAL if mesh is None else GlobalBatch(
+            mesh.data, mesh.space if self._spatial else None)
+        self._shard = (0, 1) if mesh is None \
+            else (mesh.data_index, mesh.shape["data"])
         self.loss = MultiLoss(list(config.loss_fx),
-                              exclude_missing=config.exclude_missing)
+                              exclude_missing=config.exclude_missing,
+                              batch=self.batch)
         self.needs_dist_maps = "Boundary" in config.loss_fx
-        self.dice = DiceMetric()
+        self.dice = DiceMetric(batch=self.batch)
         # Each side falls back on its own: a 3D trainer given only a train
         # transform must not evaluate through the 2D resize pipeline.
         if config.spatial_dims == 3:
@@ -132,12 +181,44 @@ class Trainer:
                 f"input shape {shape}: each axis must divide by 2**{levels} "
                 "for the skip connections to line up")
         gen = generator or torch.Generator().manual_seed(self.config.seed)
-        model = build_model(self.config, self.device, generator=gen).train()
+        model = self.place(build_model(self.config, self.device,
+                                       generator=gen).train())
         return TrainState(
             step=0, model=model,
             optimizer=make_adam(model.parameters(), self.config.lr),
             plateau=plateau_init(self.config.lr, mode="max"),
         )
+
+    def place(self, model: SegmentationModel) -> SegmentationModel:
+        """The model on this trainer's mesh: rank 0's weights on every rank
+        and, for a depth-sharded 3D trainer, the mesh on its UNet."""
+        if self.mesh is not None:
+            replicated(self.mesh, model)
+            model.unet.spatial_mesh = self.mesh if self._spatial else None
+        return model
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process logs and saves (rank 0, or no mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def shard_batch(self, batch):
+        """This rank's part of a global batch: its rows and, depth-sharded,
+        its depth slab of every volume-shaped tensor (rank >= 4; per-sample
+        rows such as indicators keep their width)."""
+        if self.mesh is None:
+            return batch
+        return self._slabs(batch_sharding(self.mesh, tuple(batch)))
+
+    def _pipeline_kw(self) -> Dict:
+        """On a mesh, a pipeline yields this rank's rows of each batch."""
+        return {} if self.mesh is None else {"shard": self._shard}
+
+    def _slabs(self, rows):
+        if not self._spatial:
+            return rows
+        return tuple(depth_slab(self.mesh, t, 3) if t.ndim >= 4 else t
+                     for t in rows)
 
     # ------------------------------------------------------------------ steps
     def _logits(self, model, images):
@@ -147,10 +228,15 @@ class Trainer:
 
     def _dist_maps(self, labels):
         """Signed distance maps of the labels (data, no gradient) when a
-        Boundary loss wants them."""
+        Boundary loss wants them; depth-sharded, the slab of the whole
+        volume's maps."""
         if not self.needs_dist_maps:
             return None
-        return signed_distance_maps_from_labels(labels)
+        shard = depth_shard(self.mesh) if self._spatial else None
+        if shard is None:
+            return signed_distance_maps_from_labels(labels)
+        return shard.slab(signed_distance_maps_from_labels(
+            shard.gather(labels)))
 
     def _losses_and_logits(self, model, images, labels, indicators,
                            sample_mask=None):
@@ -173,11 +259,23 @@ class Trainer:
 
     def draw(self, generator: Optional[torch.Generator], images_raw):
         """The train transform's draws for a raw batch (None for a
-        transform without a `draw` attribute)."""
+        transform without a `draw` attribute): on a mesh, this rank's rows
+        of the global batch's draws."""
         draw = getattr(self.train_transform, "draw", None)
         if draw is None:
             return None
-        return draw(generator, tuple(images_raw.shape), self.device)
+        return self._rows_of_draws(draw, generator, images_raw)
+
+    def _global(self, values: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """The ranks' loss shares summed into the global batch's losses (one
+        all_reduce)."""
+        if self.mesh is None:
+            return values
+        names = list(values)
+        total = all_sum(torch.stack([values[k].detach() for k in names]),
+                        self.mesh.world)
+        return dict(zip(names, total.unbind()))
 
     def test_inputs(self, images_raw, labels_raw, draws=None):
         """The test transform of a raw batch, with fixed draws where it
@@ -187,8 +285,17 @@ class Trainer:
             return self.test_transform(images_raw, labels_raw)
         if draws is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
-            draws = draw(gen, tuple(images_raw.shape), self.device)
+            draws = self._rows_of_draws(draw, gen, images_raw)
         return self.test_transform(images_raw, labels_raw, draws)
+
+    def _rows_of_draws(self, draw, generator, images_raw):
+        """`draw`'s draws for the global batch of which `images_raw` holds
+        this rank's rows (all of it without a mesh), this rank's rows."""
+        index, parts = self._shard
+        n = images_raw.shape[0]
+        draws = draw(generator, (n * parts,) + tuple(images_raw.shape[1:]),
+                     self.device)
+        return take_rows(draws, slice(index * n, (index + 1) * n))
 
     def train_step(self, state: TrainState, batch,
                    draws=None,
@@ -200,7 +307,8 @@ class Trainer:
         degree's NamedTuple in 2D, the volumetric transform's in 3D) and,
         under mixup, the partner index and lambda `mixup_draws` are drawn
         from `generator` unless given. Updates `state` in place and returns
-        it."""
+        it. On a mesh `batch` and `draws` are this rank's rows (and depth
+        slab), and `mixup_draws` are the global batch's."""
         images_raw, labels_raw, indicators = batch
         if draws is None:
             draws = self.draw(generator, images_raw)
@@ -210,21 +318,26 @@ class Trainer:
         set_lr(state.optimizer, state.plateau.lr)
         if self.config.mixup:
             if mixup_draws is None:
-                mixup_draws = draw_mixup(generator, mixup_probability(labels),
-                                         self.config.mixup_alpha)
+                mixup_draws = draw_mixup(
+                    generator, mixup_probability(labels, self.batch),
+                    self.config.mixup_alpha)
             index, lam = mixup_draws
             lam = lam.to(self._metric_dtype)  # a device scalar: no wait
             images = images.to(self._metric_dtype)
-            logits = self._logits(
-                model, mixup_tensors(images, images[index], lam))
+            images_b, labels_b, indicators_b = take_partners(
+                index, self.batch, images, labels, indicators)
+            logits = self._logits(model, mixup_tensors(images, images_b, lam))
             # The maps come from the unmixed labels, once; the partner's
-            # are a gather (reference mixup_trainer.py:94-128).
+            # are a gather (reference mixup_trainer.py:94-128). On a mesh a
+            # partner may live on another rank: its maps are made here from
+            # its labels (per sample, so the same maps).
             dist_maps = self._dist_maps(labels)
-            labels_b, indicators_b = labels[index], indicators[index]
             values_a = self.loss(logits, labels, indicators, dist_maps)
-            values_b = self.loss(
-                logits, labels_b, indicators_b,
-                None if dist_maps is None else dist_maps[index])
+            dist_b = None
+            if dist_maps is not None:
+                dist_b = (dist_maps[index] if self.mesh is None
+                          else self._dist_maps(labels_b))
+            values_b = self.loss(logits, labels_b, indicators_b, dist_b)
             values = {name: mixup_tensors(values_a[name], values_b[name], lam)
                       for name in values_a}
         else:
@@ -233,6 +346,8 @@ class Trainer:
         total = self.loss.total(values)
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        if self.mesh is not None:
+            sum_gradients(model.parameters(), self.mesh.world)
         state.optimizer.step()
 
         with torch.no_grad():
@@ -246,8 +361,8 @@ class Trainer:
                 )
                 dice_mean = mixup_tensors(dice_mean, mean_b, lam)
                 dice_per_class = mixup_tensors(dice_per_class, per_class_b, lam)
-        metrics = {f"loss/{k}": v.detach() for k, v in values.items()}
-        metrics["loss/total"] = total.detach()
+        losses = self._global({**values, "total": total})
+        metrics = {f"loss/{k}": v.detach() for k, v in losses.items()}
         metrics["dice/mean"] = dice_mean
         for s, v in zip(STRUCTURES, dice_per_class):
             metrics[f"dice/{s}"] = v
@@ -267,14 +382,15 @@ class Trainer:
             model.eval(), images, labels, indicators, sample_mask=row_valid
         )
         dice, valid = dice_per_sample_class(
-            self._predictions(logits, indicators), labels
+            self._predictions(logits, indicators), labels, batch=self.batch
         )
-        dice_per_class, _ = masked_mean_batch(dice, valid & row_valid[:, None])
-        metrics = {f"loss/{k}": v for k, v in values.items()}
+        dice_per_class, _ = masked_mean_batch(
+            dice, valid & row_valid[:, None], self.batch)
+        metrics = {f"loss/{k}": v for k, v in self._global(values).items()}
         metrics["dice/mean"] = torch.mean(dice_per_class)
         for s, v in zip(STRUCTURES, dice_per_class):
             metrics[f"dice/{s}"] = v
-        return metrics, torch.sum(row_valid.to(torch.float32))
+        return metrics, self.batch.rows(torch.sum(row_valid.to(torch.float32)))
 
     # ------------------------------------------------------------------ loops
     @staticmethod
@@ -294,8 +410,9 @@ class Trainer:
         """One epoch, shuffled and augmented from `generator`."""
         sums: Dict = {}
         count = 0
-        for batch in pipeline.epoch(generator):
-            state, metrics = self.train_step(state, batch, generator=generator)
+        for batch in pipeline.epoch(generator, **self._pipeline_kw()):
+            state, metrics = self.train_step(state, self._slabs(batch),
+                                             generator=generator)
             count += 1
             for k, v in metrics.items():
                 sums[k] = v if k not in sums else sums[k] + v
@@ -310,8 +427,8 @@ class Trainer:
         """Full-split evaluation: batch means weighted by their real rows."""
         sums: Dict = {}
         rows = torch.zeros((), device=self.device)
-        for batch in pipeline.padded_epoch(None):
-            metrics, n_valid = self.eval_step(model, batch)
+        for batch in pipeline.padded_epoch(None, **self._pipeline_kw()):
+            metrics, n_valid = self.eval_step(model, self._slabs(batch))
             rows = rows + n_valid
             for k, v in metrics.items():
                 sums[k] = v * n_valid if k not in sums else sums[k] + v * n_valid
@@ -355,6 +472,8 @@ class Trainer:
                 f"{steps_per_epoch}; the start epoch follows the checkpoint"
             )
         start_epoch = min(state.step // steps_per_epoch, epochs)
+        if not self.is_main:
+            logger, checkpoint_path, callbacks = None, None, None
         async_ckpt = ckpt.AsyncCheckpointer() if checkpoint_path else None
         preempted = {"flag": False}
 
@@ -385,7 +504,7 @@ class Trainer:
                 if logger is not None:
                     logger.log({"epoch": epoch, "epoch_time": time.time() - t0},
                                step=state.step)
-                if preempted["flag"]:
+                if self._any_rank(preempted["flag"]):
                     if checkpoint_path:
                         try:
                             async_ckpt.wait()
@@ -414,13 +533,26 @@ class Trainer:
                     async_ckpt.wait()
         return state
 
+    def _any_rank(self, flag: bool) -> bool:
+        """Whether `flag` holds on any rank (a SIGTERM reaches the ranks at
+        different times; they must stop at the same epoch)."""
+        if self.mesh is None:
+            return flag
+        t = torch.tensor([int(flag)], device=self.device)
+        return bool(all_sum(t, self.mesh.world).item())
+
     # ------------------------------------------------------------ checkpoints
     def save(self, path, state: TrainState) -> None:
-        ckpt.save(path, self.config, state)
+        if self.is_main:
+            ckpt.save(path, self.config, state)
 
     @classmethod
-    def restore(cls, path, device="cuda") -> Tuple["Trainer", TrainState]:
+    def restore(cls, path, device="cuda", mesh: Optional[Mesh] = None
+                ) -> Tuple["Trainer", TrainState]:
         """(trainer, state) from a training checkpoint, or from any port or
-        reference checkpoint with a fresh optimizer and plateau."""
+        reference checkpoint with a fresh optimizer and plateau; on `mesh`
+        every rank reads the file and holds rank 0's weights."""
         config, state = ckpt.load(path, device)
-        return cls(config, device), state
+        trainer = cls(config, device, mesh=mesh)
+        trainer.place(state.model)
+        return trainer, state

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ctseg_tpu_torch.data.datasets import PackedDataset3D
-from ctseg_tpu_torch.data.pipeline import DevicePipeline2D
+from ctseg_tpu_torch.data.pipeline import DevicePipeline2D, shard_rows
 
 RESIZE_SHAPE = (256, 256, 96)  # (H, W, D), the reference's volumetric grid
 
@@ -166,18 +166,24 @@ class PatchPipeline3D:
         return self.images[idx], self.labels[idx], self.indicators[v]
 
     def epoch(self, generator: Optional[torch.Generator] = None,
-              steps: Optional[int] = None) -> Iterator[Batch]:
+              steps: Optional[int] = None,
+              shard: Tuple[int, int] = (0, 1)) -> Iterator[Batch]:
         """`steps` (default steps_per_epoch) random batches; without a
-        generator, the fixed one seeded 0 (the reference's key 0)."""
+        generator, the fixed one seeded 0 (the reference's key 0). `shard`
+        (index, parts): only that share of each batch's patches is
+        gathered (the draws are the whole batch's)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         for _ in range(steps or self.steps_per_epoch):
-            yield self.gather(self.draw(generator))
+            draws = self.draw(generator)
+            yield self.gather(PatchDraws(*(shard_rows(t, shard)
+                                           for t in draws)))
 
     def padded_epoch(self, generator: Optional[torch.Generator] = None,
-                     steps: Optional[int] = None) -> Iterator:
+                     steps: Optional[int] = None,
+                     shard: Tuple[int, int] = (0, 1)) -> Iterator:
         """Every random patch is a real sample: row_valid is all True."""
-        valid = torch.ones((self.batch_size,), dtype=torch.bool,
+        valid = torch.ones((self.batch_size // shard[1],), dtype=torch.bool,
                            device=self.device)
-        for batch in self.epoch(generator, steps):
+        for batch in self.epoch(generator, steps, shard):
             yield batch + (valid,)

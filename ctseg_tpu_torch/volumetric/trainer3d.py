@@ -27,13 +27,14 @@ DEFAULT_PATCH = (128, 128, 48)
 def make_trainer_3d(config: Optional[TrainConfig] = None,
                     mode: str = "resize",
                     patch_size: Optional[Tuple[int, int, int]] = None,
-                    device="cuda") -> Trainer:
+                    device="cuda", mesh=None) -> Trainer:
     """A 3D trainer; `config` defaults to the reference's parity settings.
 
     In patch mode `patch_size` sets the training grid whether or not a
     config is given: it overrides `config.input_shape`. `mode` is stamped
     into the config's `volumetric_mode`, which picks the Trainer's
-    transforms."""
+    transforms. `mesh` (parallel/mesh.py): data parallelism, and on a
+    ('data', 'space') mesh depth sharding of the volumes and the model."""
     if config is not None and mode == "patch" and patch_size is not None:
         if tuple(config.input_shape or ()) != tuple(patch_size):
             config = dataclasses.replace(config, input_shape=tuple(patch_size))
@@ -55,4 +56,4 @@ def make_trainer_3d(config: Optional[TrainConfig] = None,
         )
     if config.volumetric_mode != mode:
         config = dataclasses.replace(config, volumetric_mode=mode)
-    return Trainer(config, device)
+    return Trainer(config, device, mesh=mesh)

@@ -56,7 +56,9 @@ def test_importing_the_port_loads_no_jax():
                    "data.process_miccai", "data.stats", "training.callbacks",
                    "utils.profiling", "utils.visualize", "ops.custom_ops",
                    "inference.export", "interpret.gradcam", "interpret.run",
-                   "models.released", "parity_report", "__main__"):
+                   "models.released", "parity_report", "__main__",
+                   "parallel", "parallel.mesh", "parallel.distributed",
+                   "parallel.collectives", "inference.spatial_sharded"):
         assert f"ctseg_tpu_torch.{module}" in new
     bad = [
         m for m in new
