@@ -33,7 +33,9 @@ Phases (any failure raises and the script exits non-zero):
      near-constant channel included.
   7. K2b, in_prelu_bwd, and K2's training forward (xhat, rsinv) against
      their plain versions at the train step's unit shapes (phase 3's at
-     batch 128), float32 and bfloat16.
+     batch 128), float32 and bfloat16; K2b's two runs on one input
+     torch.equal; per site its time, its share of its bytes' bound and the
+     form its plan took (K1b's read-once clusters or two phases).
   8. K4, window_normalize_degree2, against its plain version on 128 raw
      280x280 HU slices with draws covering all 8 (k, flip) pairs, to 256,
      200 and 201 (ragged tiles), with identity draws, and at every float32
@@ -52,6 +54,11 @@ Phases (any failure raises and the script exits non-zero):
      device time by group of kernels (torch.profiler; phase 14 as well).
  10. Train, bfloat16: the same model from compute_dtype="bfloat16", 2 steps:
      float32 parameters, finite loss, the same launches.
+ 10b. The Model L step timed in bfloat16 compute (bench.py line 1's dtype
+     on an accelerator) and in float32: 10 steps each after 3 warm-ups on
+     phase 9's batch, a CUDA event between steps, the median ms/step and
+     slices/s (csrc/tools/time_model_l_step.py); the launches a step as
+     phase 9's; the bfloat16 step by group of kernels.
  11. Gradient parity: one float32 step of the full-width model on 2 slices,
      CUDA kernels against a CPU copy on the plain path from the same
      weights and draws (and a float64 CPU copy as the referee).
@@ -874,8 +881,9 @@ def _k2_weights(gen, cin, cout):
 def _k2b_site(label, gen, n, h, w, cin, cout, what="sites/step", sites=None,
               dtypes=("float32", "bfloat16")):
     """K2b and K2's training forward against their plain versions at one
-    site (batch n), in each of `dtypes`; returns per type (worst dy error,
-    kernel ms, plain ms) of K2b."""
+    site (batch n), in each of `dtypes`; K2b's two runs on one input
+    torch.equal; returns per type (worst dy error, kernel ms, plain ms,
+    bytes' bound ms) of K2b."""
     import torch
     from ctseg_tpu_torch.ops import conv_block as k2
 
@@ -897,11 +905,26 @@ def _k2b_site(label, gen, n, h, w, cin, cout, what="sites/step", sites=None,
             terms = (g.float() * torch.clamp_max(xhat.float(), 0.0)).abs().sum()
             check_dalpha(f"{tag} alpha={a}", da, pda, terms)
             worst = max(worst, err)
+            del pdy
+        # Fixed-order sums, no atomics: a second call repeats both.
+        dy2, da2 = k2.in_prelu_bwd(g, xhat, rsinv, alpha)
+        if not (torch.equal(dy, dy2) and torch.equal(da, da2)):
+            raise AssertionError(f"{tag}: two calls on one input differ")
+        del dy, dy2
+        plan = k2.bwd_plan(n, h * w, cout, g.element_size())
+        form = ("two-phase" if plan["form"] == "two-phase"
+                else f"read-once in clusters of {plan['size']} blocks of "
+                f"{plan['threads']} threads, {plan['wcc']} vectors a tile")
         t_k = time_ms(lambda: k2.in_prelu_bwd(g, xhat, rsinv, alpha), 20)
         t_p = time_ms(lambda: k2.in_prelu_bwd_plain(g, xhat, rsinv, alpha), 20)
+        # g and xhat read once, dy written once.
+        site_bound = 3 * g.numel() * g.element_size() / PEAK_BYTES * 1e3
         print(f"[{label}] K2b {(n, h, w, cin, cout)} {dname}: kernel "
-              f"{t_k:.4f} ms, plain {t_p:.4f} ms, {what} {sites}")
-        out[dname] = (worst, t_k, t_p)
+              f"{t_k:.4f} ms, plain {t_p:.4f} ms, its bytes' bound "
+              f"{site_bound:.4f} ms ({site_bound / t_k:.2f} of the kernel's "
+              f"time), {form}, grid {plan['grid']}, {plan['vec']} elements "
+              f"a lane, {what} {sites}")
+        out[dname] = (worst, t_k, t_p, site_bound)
     del g32, xh32, g, xhat
     # K2's training forward: xhat and rsinv beside out, against the plain's.
     x32 = torch.randn((n, h, w, cin), generator=gen, device=DEVICE)
@@ -926,18 +949,23 @@ def phase_k2b(label, gen):
     worst = {"float32": 0.0, "bfloat16": 0.0}
     ms = {"float32": 0.0, "bfloat16": 0.0}
     plain_ms = {"float32": 0.0, "bfloat16": 0.0}
+    bound = {"float32": 0.0, "bfloat16": 0.0}
     for (h, w, cin, cout), sites in K2_SITES.items():
-        for dname, (err, t_k, t_p) in _k2b_site(label, gen, n, h, w, cin,
-                                                 cout, sites=sites).items():
+        for dname, (err, t_k, t_p, t_b) in _k2b_site(
+                label, gen, n, h, w, cin, cout, sites=sites).items():
             worst[dname] = max(worst[dname], err)
             ms[dname] += sites * t_k
             plain_ms[dname] += sites * t_p
+            bound[dname] += sites * t_b
     print(f"K2b max |kernel - plain| (dy): float32 {worst['float32']:.3e}, "
-          f"bfloat16 {worst['bfloat16']:.3e}; per step at batch {n}: float32 "
-          f"kernel {ms['float32']:.3f} ms, plain {plain_ms['float32']:.3f} ms; "
-          f"bfloat16 kernel {ms['bfloat16']:.3f} ms, plain "
-          f"{plain_ms['bfloat16']:.3f} ms; K2's training "
-          f"forward (out, xhat, rsinv) matched at every site, batch {n}")
+          f"bfloat16 {worst['bfloat16']:.3e}; per step at batch {n}: "
+          + "; ".join(
+              f"{d} kernel {ms[d]:.3f} ms, plain {plain_ms[d]:.3f} ms, bytes' "
+              f"bound {bound[d]:.4f} ms ({bound[d] / ms[d]:.2f} of the "
+              "kernel's time)" for d in ms)
+          + "; two runs on one input torch.equal at every site; K2's "
+          f"training forward (out, xhat, rsinv) matched at every site, batch "
+          f"{n}")
     return worst, ms, plain_ms
 
 
@@ -1127,7 +1155,7 @@ KERNEL_GROUPS = (
     ("prepare_weights_kernel", "K2 weights, statistics and apply"),
     ("conv_stats_finalize_kernel", "K2 weights, statistics and apply"),
     ("in_prelu_apply_kernel", "K2 weights, statistics and apply"),
-    ("in_prelu_bwd_saved_kernel", "K2b"),
+    ("in_prelu_bwd_saved_", "K2b"),
     ("in_prelu_bwd_", "K1b"),
     ("in_prelu_fwd_", "K1"),
     ("window_normalize_kernel", "K4"),
@@ -1298,6 +1326,29 @@ def phase_train_bf16(label, batch, draws):
         raise AssertionError(f"bf16 launches {launches} over 2 steps")
     print(f"[{label}] bfloat16 compute: 2 steps, float32 parameters, losses "
           f"{losses}, launches {launches}")
+
+
+MODEL_L_TIMED_STEPS = 10  # phase 10b: steps a dtype, by median
+MODEL_L_WARMUP = 3
+
+
+def phase_time_model_l(label, batch, draws):
+    """Phase 10b: the Model L step in bfloat16 compute (bench.py line 1's
+    dtype on an accelerator) and in float32, each by median over
+    MODEL_L_TIMED_STEPS steps after MODEL_L_WARMUP warm-ups, on phase 9's
+    batch and draws (csrc/tools/time_model_l_step.py::time_model_l); the
+    bfloat16 step by group of kernels (phase 9 profiles the float32 one)."""
+    import importlib.util
+
+    path = (Path(__file__).resolve().parent / "ctseg_tpu_torch" / "csrc"
+            / "tools" / "time_model_l_step.py")
+    spec = importlib.util.spec_from_file_location("time_model_l_step", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return {dtype: tool.time_model_l(label, batch, draws, dtype,
+                                     MODEL_L_TIMED_STEPS, MODEL_L_WARMUP,
+                                     profile=dtype == "bfloat16")
+            for dtype in ("bfloat16", "float32")}
 
 
 def _grads(trainer, model, batch, draws):
@@ -2395,9 +2446,9 @@ def _hold_k2_at(label, what, shapes, gen, train):
                                  "the tensor-core route")
         row = {"shape": [*shape, cout], "dtype": dname, "calls": calls}
         if train:
-            err, t_b, t_bp = _k2b_site(label, gen, n, h, w, cin, cout,
-                                       f"calls in {what}", calls,
-                                       (dname,))[dname]
+            err, t_b, t_bp, _ = _k2b_site(label, gen, n, h, w, cin, cout,
+                                          f"calls in {what}", calls,
+                                          (dname,))[dname]
             row.update(k2b_ms=t_b, k2b_plain_ms=t_bp, k2b_err=err)
         dtype = getattr(torch, dname)
         x = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
@@ -4128,6 +4179,7 @@ def main() -> int:
         del trainer, state
         torch.cuda.empty_cache()
         phase_train_bf16(label, batch, draws)
+        model_l_steps = phase_time_model_l(label, batch, draws)
         del batch, draws
         torch.cuda.empty_cache()
         k5_times = phase_k5(label, gen)
@@ -4206,7 +4258,7 @@ def main() -> int:
         entry("conv3x3_in_prelu", "k2", "conv_block.cu",
               pallas + "conv_block.py:146", k2_err, k2_ms["float32"],
               k2_plain["float32"]),
-        entry("in_prelu_bwd", "k2b", "conv_block.cu",
+        entry("in_prelu_bwd", "k2b", "instance_norm.cu",
               pallas + "conv_block.py:193", k2b_err, k2b_ms["float32"],
               k2b_plain["float32"]),
         entry("window_normalize_degree2", "k4", "preprocess.cu",
@@ -4375,8 +4427,9 @@ def main() -> int:
     # stand on a line of their own.
     print(json.dumps({"train_transform_ms": {
         f"degree_{d}": ms for d, ms in transform_ms.items()}}))
-    # Phases 27-29: ms a call of batch 32 (CUDA events), ms a GradCAM batch,
-    # the front door's commands' seconds and each phase's (host clock).
+    # Phase 10b: the Model L step's median ms in each compute dtype. Phases
+    # 27-29: ms a call of batch 32 (CUDA events), ms a GradCAM batch, the
+    # front door's commands' seconds and each phase's (host clock).
     print(json.dumps({
         "phase_seconds": seconds,
         "export_ms_batch_32": exported["ms"],
@@ -4386,6 +4439,7 @@ def main() -> int:
             "run_interpretability": cams["ms_per_batch"],
             "gradcam": cams["cam_ms"]},
         "front_door_s": front_s,
+        "model_l_step": model_l_steps,
         "dp_ms_per_step": dp["ms"], "dp_allreduce_ms": dp["allreduce_ms"],
         "dp_nccl_kernels": dp["nccl_kernels"],
         "gloo_ms_per_step": gloo["ms"], "gloo_refused": gloo["refused"]}))

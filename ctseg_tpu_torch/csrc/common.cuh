@@ -1,5 +1,5 @@
-// Shared helpers of the port's kernels: storage types, PReLU, and the
-// per-channel column sum that both InstanceNorm kernels reduce with.
+// Shared helpers of the port's kernels: storage types, PReLU, 16-byte
+// cp.async, and the per-channel column sum of K2's FP32-pipe norm.
 //
 // Storage is float or __nv_bfloat16; all arithmetic is float32, like the
 // Pallas kernels these replace (statistics stay f32 under bf16 compute).
@@ -82,56 +82,6 @@ __device__ __forceinline__ float column_sum(float v, float (*buf)[32]) {
   const float total = buf[0][threadIdx.x];
   __syncthreads();
   return total;
-}
-
-// The IN+PReLU backward of one (sample, 32-channel tile) block of (32, kRows)
-// threads, K2b's routine (K1b's first version shared it; `xhat_at` is where
-// the two differed):
-//   gh = g * (xhat >= 0 ? 1 : alpha)
-//   dx = scale * (gh - mean(gh) - xhat * mean(gh * xhat))
-//   dalpha partial = sum over the block of g * min(xhat, 0)
-// `xhat_at(i)` returns xhat of element i in float32; `scale` is the lane's
-// rsqrt(var + eps). Elements of the lane's channel are base + p * c for
-// pixels p < s. The block's dalpha partial goes to *dalpha_part, summed in a
-// fixed order (no atomics: the backward is deterministic). Reads g and xhat's
-// source twice (sums, then dx) and writes dx once. Every thread of the block
-// must call this (it synchronises); inactive lanes pass active = false.
-template <int kRows, typename T, typename XhatAt>
-__device__ __forceinline__ void in_prelu_bwd_block(
-    const T* __restrict__ g, T* __restrict__ dx, float* dalpha_part,
-    XhatAt xhat_at, float scale, float alpha, int s, int c, size_t base,
-    bool active, float (*buf)[32]) {
-  float sum_gh = 0.f, sum_ghx = 0.f, sum_da = 0.f;
-  if (active) {
-    for (int p = threadIdx.y; p < s; p += kRows) {
-      const size_t i = base + static_cast<size_t>(p) * c;
-      const float xh = xhat_at(i);
-      const float gv = to_float(g[i]);
-      const float gh = xh >= 0.f ? gv : alpha * gv;
-      sum_gh += gh;
-      sum_ghx += gh * xh;
-      sum_da += gv * fminf(xh, 0.f);
-    }
-  }
-  const float m1 = column_sum<kRows>(sum_gh, buf) / static_cast<float>(s);
-  const float m2 = column_sum<kRows>(sum_ghx, buf) / static_cast<float>(s);
-  float da = column_sum<kRows>(sum_da, buf);
-  if (threadIdx.y == 0) {
-    da = active ? da : 0.f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      da += __shfl_down_sync(0xffffffffu, da, off);
-    }
-    if (threadIdx.x == 0) *dalpha_part = da;
-  }
-  if (!active) return;
-  for (int p = threadIdx.y; p < s; p += kRows) {
-    const size_t i = base + static_cast<size_t>(p) * c;
-    const float xh = xhat_at(i);
-    const float gv = to_float(g[i]);
-    const float gh = xh >= 0.f ? gv : alpha * gv;
-    dx[i] = from_float<T>(scale * (gh - m1 - xh * m2));
-  }
 }
 
 }  // namespace ctseg

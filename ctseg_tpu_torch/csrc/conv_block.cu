@@ -1,11 +1,11 @@
-// K2: PReLU(InstanceNorm(conv3x3_same(x, w) + b)), NHWC, forward and the
-// fused PReLU + InstanceNorm backward.
+// K2: PReLU(InstanceNorm(conv3x3_same(x, w) + b)), NHWC, the forward.
 //
 // Replaces: ctseg_tpu/ops/pallas/conv_block.py::fused_conv3x3_in_prelu,
 // forward (_run_forward / _fwd_kernel), and with it the float32 prototype
-// ctseg_tpu/ops/pallas/conv_fused.py::conv3x3_in_prelu (same function); and
-// conv_block.py::in_prelu_bwd (_bwd_kernel), the backward from the saved
-// residuals. Same arithmetic: products of the stored values accumulated in
+// ctseg_tpu/ops/pallas/conv_fused.py::conv3x3_in_prelu (same function). Its
+// backward from the saved residuals, conv_block.py::in_prelu_bwd
+// (_bwd_kernel, K2b), is K1b's kernels in csrc/instance_norm.cu reading
+// xhat and rsinv (ctseg_in_prelu_bwd_saved*). Same arithmetic: products of the stored values accumulated in
 // float32, + bias, then TWO-pass statistics per (sample, channel): mean,
 // then the centred variance mean((y - mean)^2), rsqrt(var + eps), PReLU.
 // The training forward (train=True) also writes xhat in x's type and rsinv
@@ -83,9 +83,6 @@
 //     ONCE, 32 bytes a lane, normalizes, applies PReLU and writes out (and
 //     xhat when training). Passes over the output: conv write, one read, one
 //     write (two when training), where there were five.
-//
-// The backward kernel (K2b) is unchanged: it reads g and xhat twice (sums,
-// then dy) and writes dy once, one block per (sample, 32 channels).
 //
 // Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py phase 3; the 9
 // launches of one Model L forward at batch 32): float32 7.768 ms (16.975 ms
@@ -823,29 +820,6 @@ __global__ void __launch_bounds__(kApplyThreads)
   }
 }
 
-// K2b: the PReLU + InstanceNorm backward from the saved xhat and rsinv, per
-// (sample, 32-channel tile); see ctseg::in_prelu_bwd_block.
-template <typename T>
-__global__ void __launch_bounds__(kTileC * kRows)
-    in_prelu_bwd_saved_kernel(const T* __restrict__ g,
-                              const T* __restrict__ xhat,
-                              const float* __restrict__ rsinv,
-                              const float* __restrict__ alpha,
-                              T* __restrict__ dy,
-                              float* __restrict__ dalpha_parts, int s, int c) {
-  __shared__ float buf[kRows][32];
-  const int ch = blockIdx.x * kTileC + threadIdx.x;
-  const bool active = ch < c;
-  const size_t base = static_cast<size_t>(blockIdx.y) * s * c + ch;
-  const float scale =
-      active ? rsinv[static_cast<size_t>(blockIdx.y) * c + ch] : 0.f;
-  const auto xhat_at = [=](size_t i) { return ctseg::to_float(xhat[i]); };
-  ctseg::in_prelu_bwd_block<kRows>(
-      g, dy, dalpha_parts + static_cast<size_t>(blockIdx.y) * gridDim.x +
-                 blockIdx.x,
-      xhat_at, scale, alpha[0], s, c, base, active, buf);
-}
-
 template <typename T>
 cudaError_t launch(const void* x, const void* w, const void* bias,
                    const void* alpha, void* scratch, void* out,
@@ -919,18 +893,6 @@ cudaError_t launch_tc(const void* x, const void* w, const void* bias,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_bwd(const void* g, const void* xhat, const void* rsinv,
-                       const void* alpha, void* dy, void* dalpha_parts, int n,
-                       int s, int c, cudaStream_t stream) {
-  const dim3 grid((c + kTileC - 1) / kTileC, n);
-  in_prelu_bwd_saved_kernel<T><<<grid, dim3(kTileC, kRows), 0, stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(xhat),
-      static_cast<const float*>(rsinv), static_cast<const float*>(alpha),
-      static_cast<T*>(dy), static_cast<float*>(dalpha_parts), s, c);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // Forward, FP32-pipe route (any Cin, Cout). x: (n, h, wd, cin) and w: (3, 3,
@@ -1001,29 +963,6 @@ extern "C" int ctseg_conv3x3_in_prelu_fwd_tc(
       return launch_tc<__nv_bfloat16>(x, w, bias, alpha, scratch, stats, mean,
                                       rsinv, out, xhat_out, wk, n, h, wd, cin,
                                       cout, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// Backward (K2b). g, xhat, dy: (n, s, c) contiguous, of the type `dtype`
-// names; rsinv: (n, c) float32; alpha: one float32; dalpha_parts:
-// (n, ceil(c / 32)) float32, one partial per block.
-extern "C" int ctseg_in_prelu_bwd_saved(const void* g, const void* xhat,
-                                        const void* rsinv, const void* alpha,
-                                        void* dy, void* dalpha_parts, int n,
-                                        int s, int c, int dtype, int device,
-                                        void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case ctseg::kFloat32:
-      return launch_bwd<float>(g, xhat, rsinv, alpha, dy, dalpha_parts, n, s,
-                               c, st);
-    case ctseg::kBFloat16:
-      return launch_bwd<__nv_bfloat16>(g, xhat, rsinv, alpha, dy,
-                                       dalpha_parts, n, s, c, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -84,6 +84,21 @@
 //     are read twice, 20 bytes an element.
 //   - dalpha is torch.sum over the third plane of either form's workspace.
 //
+// K2b (the backward of K2's IN + PReLU, csrc/conv_block.cu) is these same
+// backward kernels with kSaved set: they read the xhat and rsinv that K2's
+// training forward saved instead of recomputing them from x, mean and var.
+// Replaces: ctseg_tpu/ops/pallas/conv_block.py::in_prelu_bwd (_bwd_kernel).
+// Same bound (g and xhat read once, dy written once: 12 bytes an element in
+// float32), same two forms and plans (ops/conv_block.py::bwd_plan). Each
+// kernel keeps its own reference's statistics: K1b its one-pass variance,
+// K2b the two-pass rsinv it is given. K2b's plan also takes clusters of 1,
+// 2 and 4 blocks and blocks of 256 threads, two an SM, which small samples
+// need (csrc/tools/sweep_k2b.py). The first K2b took one block per (sample,
+// 32 channels), one element a lane (64 bytes a warp in bfloat16), and read
+// g and xhat twice. The 9 launches of one Model L backward at batch 128:
+// float32 2.99 ms (3.77 the first K2b; bound 1.98), bfloat16 1.74 (2.40;
+// bound 0.99) (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md, section 6).
+//
 // Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py phases 2 and 6).
 // K1f, the 8 launches of one Model L forward at batch 32: float32 0.522 ms
 // (1.844 ms as one block per (sample, 32 channels) reading x twice; its
@@ -186,12 +201,20 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p,
   }
 }
 
+// xhat of a stored element: K1b recomputes it from x and the forward's
+// statistics, K2b (kSaved) reads it, saved by K2's training forward.
+template <bool kSaved>
+__device__ __forceinline__ float xhat_of(float stored, float mean, float inv) {
+  return kSaved ? stored : (stored - mean) * inv;
+}
+
 // A thread's place in the two-phase kernels (backward and forward): column
 // `col` of the block's tile (global column gcol of the super-row), row `row`
 // of the block's rr rows; its V channels' mean and rsqrt(var + eps) (left 0
-// where the statistics are still to be made: mean_in null); the super-rows
-// [r0, r1) of the block's chunk.
-template <int V>
+// where the statistics are still to be made: var_in null); the super-rows
+// [r0, r1) of the block's chunk. kSaved (K2b): var_in holds rsinv itself
+// and mean_in is unused (mean stays 0).
+template <int V, bool kSaved = false>
 struct BwdThread {
   int col, row, gcol, r0, r1;
   bool active;
@@ -214,11 +237,15 @@ struct BwdThread {
     for (int v = 0; v < V; ++v) {
       mean[v] = 0.f;
       inv[v] = 0.f;
-      if (active && mean_in != nullptr) {
+      if (active && var_in != nullptr) {
         const size_t stat = static_cast<size_t>(img) * geo.c +
                             (static_cast<size_t>(gcol) * V + v) % geo.c;
-        mean[v] = mean_in[stat];
-        inv[v] = rsqrtf(var_in[stat] + ctseg::kEps);
+        if constexpr (kSaved) {
+          inv[v] = var_in[stat];
+        } else {
+          mean[v] = mean_in[stat];
+          inv[v] = rsqrtf(var_in[stat] + ctseg::kEps);
+        }
       }
     }
   }
@@ -226,17 +253,16 @@ struct BwdThread {
 
 // Phase 1: parts[img, chunk, k, i] = sum over the chunk's super-rows of sum k
 // (0: gh, 1: gh * xhat, 2: g * min(xhat, 0)) at element column i of the
-// super-row. Grid (column tiles, chunks, N).
-template <typename T, int V>
-__global__ void __launch_bounds__(kBwdThreads)
-    in_prelu_bwd_partials_kernel(const T* __restrict__ x,
-                                 const T* __restrict__ g,
-                                 const float* __restrict__ mean,
-                                 const float* __restrict__ var,
-                                 const float* __restrict__ alpha,
-                                 float* __restrict__ parts, BwdGeometry geo) {
+// super-row. Grid (column tiles, chunks, N). kSaved (K2b): x is xhat, var
+// is rsinv, mean unused.
+template <typename T, int V, bool kSaved>
+__device__ __forceinline__ void bwd_partials(
+    const T* __restrict__ x, const T* __restrict__ g,
+    const float* __restrict__ mean, const float* __restrict__ var,
+    const float* __restrict__ alpha, float* __restrict__ parts,
+    BwdGeometry geo) {
   __shared__ __align__(16) float red[3 * kBwdThreads * V];  // [k][row][i]
-  const BwdThread<V> th(geo, mean, var);
+  const BwdThread<V, kSaved> th(geo, mean, var);
   const float a = alpha[0];
   float sums[3][V];
 #pragma unroll
@@ -251,7 +277,7 @@ __global__ void __launch_bounds__(kBwdThreads)
       load_vec<T, V>(g + off, gv);
 #pragma unroll
       for (int v = 0; v < V; ++v) {
-        const float xh = (xv[v] - th.mean[v]) * th.inv[v];
+        const float xh = xhat_of<kSaved>(xv[v], th.mean[v], th.inv[v]);
         const float gh = xh >= 0.f ? gv[v] : a * gv[v];
         sums[0][v] += gh;
         sums[1][v] += gh * xh;
@@ -283,6 +309,26 @@ __global__ void __launch_bounds__(kBwdThreads)
   }
 }
 
+// The backward's kernels have one body and two names, K1b's and K2b's
+// (in_prelu_bwd_saved_*), so that a profile tells them apart.
+template <typename T, int V>
+__global__ void __launch_bounds__(kBwdThreads) in_prelu_bwd_partials_kernel(
+    const T* __restrict__ x, const T* __restrict__ g,
+    const float* __restrict__ mean, const float* __restrict__ var,
+    const float* __restrict__ alpha, float* __restrict__ parts,
+    BwdGeometry geo) {
+  bwd_partials<T, V, false>(x, g, mean, var, alpha, parts, geo);
+}
+template <typename T, int V>
+__global__ void __launch_bounds__(kBwdThreads)
+    in_prelu_bwd_saved_partials_kernel(
+    const T* __restrict__ x, const T* __restrict__ g,
+    const float* __restrict__ mean, const float* __restrict__ var,
+    const float* __restrict__ alpha, float* __restrict__ parts,
+    BwdGeometry geo) {
+  bwd_partials<T, V, true>(x, g, mean, var, alpha, parts, geo);
+}
+
 constexpr int kMeansThreads = 128;
 
 // Between the phases: means[img, k, ch] = sum k of channel ch over the whole
@@ -312,15 +358,13 @@ __global__ void __launch_bounds__(kMeansThreads)
 
 // Phase 2: dx over the block's chunk, from the sample's two means per
 // channel. Same grid as phase 1.
-template <typename T, int V>
-__global__ void __launch_bounds__(kBwdThreads)
-    in_prelu_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                           const float* __restrict__ mean,
-                           const float* __restrict__ var,
-                           const float* __restrict__ alpha,
-                           const float* __restrict__ means,
-                           T* __restrict__ dx, BwdGeometry geo) {
-  const BwdThread<V> th(geo, mean, var);
+template <typename T, int V, bool kSaved>
+__device__ __forceinline__ void bwd_dx(
+    const T* __restrict__ x, const T* __restrict__ g,
+    const float* __restrict__ mean, const float* __restrict__ var,
+    const float* __restrict__ alpha, const float* __restrict__ means,
+    T* __restrict__ dx, BwdGeometry geo) {
+  const BwdThread<V, kSaved> th(geo, mean, var);
   if (!th.active) return;
   const float a = alpha[0];
   float m1[V], m2[V];
@@ -340,12 +384,29 @@ __global__ void __launch_bounds__(kBwdThreads)
     load_vec<T, V>(g + off, gv);
 #pragma unroll
     for (int v = 0; v < V; ++v) {
-      const float xh = (xv[v] - th.mean[v]) * th.inv[v];
+      const float xh = xhat_of<kSaved>(xv[v], th.mean[v], th.inv[v]);
       const float gh = xh >= 0.f ? gv[v] : a * gv[v];
       out[v] = th.inv[v] * (gh - m1[v] - xh * m2[v]);
     }
     store_vec<T, V>(dx + off, out);
   }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kBwdThreads) in_prelu_bwd_dx_kernel(
+    const T* __restrict__ x, const T* __restrict__ g,
+    const float* __restrict__ mean, const float* __restrict__ var,
+    const float* __restrict__ alpha, const float* __restrict__ means,
+    T* __restrict__ dx, BwdGeometry geo) {
+  bwd_dx<T, V, false>(x, g, mean, var, alpha, means, dx, geo);
+}
+template <typename T, int V>
+__global__ void __launch_bounds__(kBwdThreads) in_prelu_bwd_saved_dx_kernel(
+    const T* __restrict__ x, const T* __restrict__ g,
+    const float* __restrict__ mean, const float* __restrict__ var,
+    const float* __restrict__ alpha, const float* __restrict__ means,
+    T* __restrict__ dx, BwdGeometry geo) {
+  bwd_dx<T, V, true>(x, g, mean, var, alpha, means, dx, geo);
 }
 
 // ---- K1f, two-phase form ----
@@ -466,22 +527,23 @@ constexpr int kClusterThreads = 512;
 // A cluster takes a column tile of `wcc` vectors (wcc * V channels; c is a
 // multiple of V here, so a column is a channel group and q = c / V) over all
 // s pixels of one sample; its CTA of rank r takes pixels [r * rows_per_cta,
-// (r + 1) * rows_per_cta). A cluster is 8 blocks, or 16 (the most an H100
-// allows, a size CUDA calls non-portable) where only that brings the rows of
-// the tile to 64 bytes. Mirrors ops/instance_norm.py::bwd_cluster_plan.
+// (r + 1) * rows_per_cta). K1b's cluster is 8 blocks, or 16 (the most an
+// H100 allows, a size CUDA calls non-portable) where only that brings the
+// rows of the tile to 64 bytes (ops/instance_norm.py::bwd_cluster_plan);
+// K2b's plan may also take 1, 2 or 4 (ops/conv_block.py::bwd_plan).
 struct ClusterGeometry {
   int s, c, q, wcc, rr, rows_per_cta;
 };
 
-// Dynamic shared memory of a CTA: its rows of x and of g, the block's
-// reduction buffer [3][rr][wcc * V], its own three sums per channel
-// [3][wcc * V] (read by the whole cluster), the two means [2][wcc * V].
+// Dynamic shared memory of a CTA of `threads` threads: its rows of x and of
+// g, the block's reduction buffer [3][rr][wcc * V], its own three sums per
+// channel [3][wcc * V] (read by the whole cluster), the two means
+// [2][wcc * V].
 template <typename T, int V>
-size_t cluster_smem_bytes(const ClusterGeometry& geo) {
+size_t cluster_smem_bytes(const ClusterGeometry& geo, int threads) {
   const size_t width = static_cast<size_t>(geo.wcc) * V;
   return 2 * geo.rows_per_cta * width * sizeof(T) +
-         (3 * static_cast<size_t>(kClusterThreads) * V + 5 * width) *
-             sizeof(float);
+         (3 * static_cast<size_t>(threads) * V + 5 * width) * sizeof(float);
 }
 
 // x and g are read from device memory once: each CTA copies its rows of
@@ -491,17 +553,14 @@ size_t cluster_smem_bytes(const ClusterGeometry& geo) {
 // through distributed shared memory, then writes dx from its resident
 // rows. dalpha's partials go to parts[img, rank, 2, channel]. Grid
 // (kClusterSize * column tiles, 1, N), clusters of kClusterSize along x
-// (set at launch).
-template <typename T, int V, int kClusterSize>
-__global__ void __launch_bounds__(kClusterThreads, 1)
-        in_prelu_bwd_cluster_kernel(const T* __restrict__ x,
-                                    const T* __restrict__ g,
-                                    const float* __restrict__ mean,
-                                    const float* __restrict__ var,
-                                    const float* __restrict__ alpha,
-                                    T* __restrict__ dx,
-                                    float* __restrict__ parts,
-                                    ClusterGeometry geo) {
+// (set at launch), blocks of kThreads. kSaved (K2b): x is xhat, var is
+// rsinv, mean unused.
+template <typename T, int V, int kClusterSize, bool kSaved, int kThreads>
+__device__ __forceinline__ void bwd_cluster_body(
+    const T* __restrict__ x, const T* __restrict__ g,
+    const float* __restrict__ mean, const float* __restrict__ var,
+    const float* __restrict__ alpha, T* __restrict__ dx,
+    float* __restrict__ parts, ClusterGeometry geo) {
   extern __shared__ __align__(16) unsigned char cluster_smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -513,13 +572,13 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   T* gs = xs + static_cast<size_t>(geo.rows_per_cta) * width;
   float* red = reinterpret_cast<float*>(
       gs + static_cast<size_t>(geo.rows_per_cta) * width);
-  float* own = red + 3 * kClusterThreads * V;  // [3][width]
+  float* own = red + 3 * kThreads * V;  // [3][width]
   float* means = own + 3 * width;              // [2][width]
 
   const int r0 = rank * geo.rows_per_cta;
   const int nrows = max(0, min(geo.rows_per_cta, geo.s - r0));
   const size_t base = static_cast<size_t>(img) * geo.s * geo.c;
-  for (int idx = tid; idx < nrows * geo.wcc; idx += kClusterThreads) {
+  for (int idx = tid; idx < nrows * geo.wcc; idx += kThreads) {
     const int row = idx / geo.wcc;
     const int col = idx - row * geo.wcc;
     const size_t off = base + (static_cast<size_t>(r0 + row) * geo.q +
@@ -537,8 +596,13 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   for (int v = 0; v < V; ++v) {
     const size_t stat = static_cast<size_t>(img) * geo.c +
                         (ctile * geo.wcc + col) * V + v;
-    m[v] = mean[stat];
-    inv[v] = rsqrtf(var[stat] + ctseg::kEps);
+    if constexpr (kSaved) {
+      m[v] = 0.f;
+      inv[v] = var[stat];
+    } else {
+      m[v] = mean[stat];
+      inv[v] = rsqrtf(var[stat] + ctseg::kEps);
+    }
   }
   ctseg::cp_async_wait<0>();
   __syncthreads();
@@ -553,7 +617,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
     load_vec<T, V>(gs + at, gv);
 #pragma unroll
     for (int v = 0; v < V; ++v) {
-      const float xh = (xv[v] - m[v]) * inv[v];
+      const float xh = xhat_of<kSaved>(xv[v], m[v], inv[v]);
       const float gh = xh >= 0.f ? gv[v] : a * gv[v];
       sums[0][v] += gh;
       sums[1][v] += gh * xh;
@@ -566,7 +630,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
     for (int v = 0; v < V; ++v)
       red[(k * geo.rr + row) * width + col * V + v] = sums[k][v];
   __syncthreads();
-  for (int idx = tid; idx < 3 * width; idx += kClusterThreads) {
+  for (int idx = tid; idx < 3 * width; idx += kThreads) {
     const int k = idx / width;
     const int i = idx - k * width;
     float total = 0.f;
@@ -578,7 +642,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
     }
   }
   cluster.sync();  // every CTA's sums are in its shared memory
-  for (int idx = tid; idx < 2 * width; idx += kClusterThreads) {
+  for (int idx = tid; idx < 2 * width; idx += kThreads) {
     float total = 0.f;
 #pragma unroll
     for (int r = 0; r < kClusterSize; ++r) {
@@ -601,7 +665,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
     load_vec<T, V>(gs + at, gv);
 #pragma unroll
     for (int v = 0; v < V; ++v) {
-      const float xh = (xv[v] - m[v]) * inv[v];
+      const float xh = xhat_of<kSaved>(xv[v], m[v], inv[v]);
       const float gh = xh >= 0.f ? gv[v] : a * gv[v];
       out[v] = inv[v] * (gh - m1[v] - xh * m2[v]);
     }
@@ -611,7 +675,30 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   }
 }
 
-template <typename T, int kClusterSize>
+template <typename T, int V, int kClusterSize>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    in_prelu_bwd_cluster_kernel(
+    const T* __restrict__ x, const T* __restrict__ g,
+    const float* __restrict__ mean, const float* __restrict__ var,
+    const float* __restrict__ alpha, T* __restrict__ dx,
+    float* __restrict__ parts, ClusterGeometry geo) {
+  bwd_cluster_body<T, V, kClusterSize, false, kClusterThreads>(
+      x, g, mean, var, alpha, dx, parts, geo);
+}
+// K2b's also comes in blocks of 256 threads, two an SM where the tile
+// leaves room (ops/conv_block.py::bwd_plan).
+template <typename T, int V, int kClusterSize, int kThreads>
+__global__ void __launch_bounds__(kThreads, kClusterThreads / kThreads)
+    in_prelu_bwd_saved_cluster_kernel(
+    const T* __restrict__ x, const T* __restrict__ g,
+    const float* __restrict__ mean, const float* __restrict__ var,
+    const float* __restrict__ alpha, T* __restrict__ dx,
+    float* __restrict__ parts, ClusterGeometry geo) {
+  bwd_cluster_body<T, V, kClusterSize, true, kThreads>(x, g, mean, var, alpha,
+                                                       dx, parts, geo);
+}
+
+template <typename T, int kClusterSize, bool kSaved, int kThreads>
 cudaError_t launch_bwd_cluster(const void* x, const void* g, const void* mean,
                                const void* var, const void* alpha, void* dx,
                                void* parts, int n, int s, int c, int wcc,
@@ -620,8 +707,8 @@ cudaError_t launch_bwd_cluster(const void* x, const void* g, const void* mean,
   const uintptr_t bits = reinterpret_cast<uintptr_t>(x) |
                          reinterpret_cast<uintptr_t>(g) |
                          reinterpret_cast<uintptr_t>(dx);
-  if (bits % 16 != 0 || c % kVec != 0 || wcc < 1 ||
-      kClusterThreads % wcc != 0 || (c / kVec) % wcc != 0) {
+  if (bits % 16 != 0 || c % kVec != 0 || wcc < 1 || kThreads % wcc != 0 ||
+      (c / kVec) % wcc != 0) {
     return cudaErrorInvalidValue;
   }
   ClusterGeometry geo;
@@ -629,11 +716,18 @@ cudaError_t launch_bwd_cluster(const void* x, const void* g, const void* mean,
   geo.c = c;
   geo.q = c / kVec;
   geo.wcc = wcc;
-  geo.rr = kClusterThreads / wcc;
+  geo.rr = kThreads / wcc;
   geo.rows_per_cta = (s + kClusterSize - 1) / kClusterSize;
-  const size_t bytes = cluster_smem_bytes<T, kVec>(geo);
+  const size_t bytes = cluster_smem_bytes<T, kVec>(geo, kThreads);
   if (bytes > 227 * 1024) return cudaErrorInvalidValue;
-  auto* kernel = in_prelu_bwd_cluster_kernel<T, kVec, kClusterSize>;
+  void (*kernel)(const T*, const T*, const float*, const float*, const float*,
+                 T*, float*, ClusterGeometry);
+  if constexpr (kSaved) {
+    kernel = in_prelu_bwd_saved_cluster_kernel<T, kVec, kClusterSize, kThreads>;
+  } else {
+    static_assert(kThreads == kClusterThreads, "K1b's blocks are 512");
+    kernel = in_prelu_bwd_cluster_kernel<T, kVec, kClusterSize>;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -650,7 +744,7 @@ cudaError_t launch_bwd_cluster(const void* x, const void* g, const void* mean,
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(kClusterSize * (geo.q / wcc), 1, n);
-  config.blockDim = dim3(kClusterThreads);
+  config.blockDim = dim3(kThreads);
   config.dynamicSmemBytes = bytes;
   config.stream = stream;
   config.attrs = &attr;
@@ -662,22 +756,54 @@ cudaError_t launch_bwd_cluster(const void* x, const void* g, const void* mean,
       static_cast<float*>(parts), geo);
 }
 
-template <typename T>
+template <typename T, bool kSaved, int kThreads>
 cudaError_t launch_bwd_cluster_sized(const void* x, const void* g,
                                      const void* mean, const void* var,
                                      const void* alpha, void* dx, void* parts,
                                      int n, int s, int c, int wcc,
                                      int cluster_size, cudaStream_t stream) {
   switch (cluster_size) {
+    case 1:
+      return launch_bwd_cluster<T, 1, kSaved, kThreads>(
+          x, g, mean, var, alpha, dx, parts, n, s, c, wcc, stream);
+    case 2:
+      return launch_bwd_cluster<T, 2, kSaved, kThreads>(
+          x, g, mean, var, alpha, dx, parts, n, s, c, wcc, stream);
+    case 4:
+      return launch_bwd_cluster<T, 4, kSaved, kThreads>(
+          x, g, mean, var, alpha, dx, parts, n, s, c, wcc, stream);
     case 8:
-      return launch_bwd_cluster<T, 8>(x, g, mean, var, alpha, dx, parts, n, s,
-                                      c, wcc, stream);
+      return launch_bwd_cluster<T, 8, kSaved, kThreads>(
+          x, g, mean, var, alpha, dx, parts, n, s, c, wcc, stream);
     case 16:
-      return launch_bwd_cluster<T, 16>(x, g, mean, var, alpha, dx, parts, n,
-                                       s, c, wcc, stream);
+      return launch_bwd_cluster<T, 16, kSaved, kThreads>(
+          x, g, mean, var, alpha, dx, parts, n, s, c, wcc, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// Blocks of 512 threads, or (K2b only) of 256.
+template <typename T, bool kSaved>
+cudaError_t launch_bwd_cluster_threads(const void* x, const void* g,
+                                       const void* mean, const void* var,
+                                       const void* alpha, void* dx,
+                                       void* parts, int n, int s, int c,
+                                       int wcc, int cluster_size, int threads,
+                                       cudaStream_t stream) {
+  if (threads == kClusterThreads) {
+    return launch_bwd_cluster_sized<T, kSaved, kClusterThreads>(
+        x, g, mean, var, alpha, dx, parts, n, s, c, wcc, cluster_size,
+        stream);
+  }
+  if constexpr (kSaved) {
+    if (threads == kClusterThreads / 2) {
+      return launch_bwd_cluster_sized<T, kSaved, kClusterThreads / 2>(
+          x, g, mean, var, alpha, dx, parts, n, s, c, wcc, cluster_size,
+          stream);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 // ---- K1f, read-once form ----
@@ -938,7 +1064,7 @@ cudaError_t launch_fwd(const void* x, void* y, const void* alpha, void* parts,
                                rows_per_chunk, stream);
 }
 
-template <typename T, int V>
+template <typename T, int V, bool kSaved>
 cudaError_t launch_bwd_v(const void* x, const void* g, const void* mean,
                          const void* var, const void* alpha, void* dx,
                          void* parts, void* means, int n, int s, int c,
@@ -948,7 +1074,9 @@ cudaError_t launch_bwd_v(const void* x, const void* g, const void* mean,
     return cudaErrorInvalidValue;
   }
   const dim3 grid(geo.coltiles, geo.chunks, n);
-  in_prelu_bwd_partials_kernel<T, V><<<grid, kBwdThreads, 0, stream>>>(
+  auto* partials = kSaved ? in_prelu_bwd_saved_partials_kernel<T, V>
+                          : in_prelu_bwd_partials_kernel<T, V>;
+  partials<<<grid, kBwdThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g),
       static_cast<const float*>(mean), static_cast<const float*>(var),
       static_cast<const float*>(alpha), static_cast<float*>(parts), geo);
@@ -959,7 +1087,9 @@ cudaError_t launch_bwd_v(const void* x, const void* g, const void* mean,
       static_cast<const float*>(parts), static_cast<float*>(means), geo);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  in_prelu_bwd_dx_kernel<T, V><<<grid, kBwdThreads, 0, stream>>>(
+  auto* dx_kernel = kSaved ? in_prelu_bwd_saved_dx_kernel<T, V>
+                           : in_prelu_bwd_dx_kernel<T, V>;
+  dx_kernel<<<grid, kBwdThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g),
       static_cast<const float*>(mean), static_cast<const float*>(var),
       static_cast<const float*>(alpha), static_cast<const float*>(means),
@@ -968,15 +1098,16 @@ cudaError_t launch_bwd_v(const void* x, const void* g, const void* mean,
 }
 
 // `vec` is the elements a lane takes: 16 / sizeof(T), or 1.
-template <typename T>
+template <typename T, bool kSaved>
 cudaError_t launch_bwd(const void* x, const void* g, const void* mean,
                        const void* var, const void* alpha, void* dx,
                        void* parts, void* means, int n, int s, int c, int vec,
                        int chunks, int rows_per_chunk, cudaStream_t stream) {
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));
   if (vec == 1) {
-    return launch_bwd_v<T, 1>(x, g, mean, var, alpha, dx, parts, means, n, s,
-                              c, chunks, rows_per_chunk, stream);
+    return launch_bwd_v<T, 1, kSaved>(x, g, mean, var, alpha, dx, parts,
+                                      means, n, s, c, chunks, rows_per_chunk,
+                                      stream);
   }
   const uintptr_t bits = reinterpret_cast<uintptr_t>(x) |
                          reinterpret_cast<uintptr_t>(g) |
@@ -985,8 +1116,9 @@ cudaError_t launch_bwd(const void* x, const void* g, const void* mean,
       (static_cast<long long>(s) * c) % kVec != 0) {
     return cudaErrorInvalidValue;
   }
-  return launch_bwd_v<T, kVec>(x, g, mean, var, alpha, dx, parts, means, n,
-                               s, c, chunks, rows_per_chunk, stream);
+  return launch_bwd_v<T, kVec, kSaved>(x, g, mean, var, alpha, dx, parts,
+                                       means, n, s, c, chunks, rows_per_chunk,
+                                       stream);
 }
 
 
@@ -1126,6 +1258,52 @@ cudaError_t dispatch_split(int dtype, int vec, int s, int c, int chunks,
                   : F::template run<__nv_bfloat16, 8>(a);
 }
 
+// The backward's two forms for the storage type `dtype`: K1b (kSaved
+// false) or K2b (kSaved true: x is xhat, var is rsinv, mean unused).
+template <bool kSaved>
+int bwd_two_phase(const void* x, const void* g, const void* mean,
+                  const void* var, const void* alpha, void* dx, void* parts,
+                  void* means, int n, int s, int c, int vec, int chunks,
+                  int rows_per_chunk, int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case ctseg::kFloat32:
+      return launch_bwd<float, kSaved>(x, g, mean, var, alpha, dx, parts,
+                                       means, n, s, c, vec, chunks,
+                                       rows_per_chunk, st);
+    case ctseg::kBFloat16:
+      return launch_bwd<__nv_bfloat16, kSaved>(x, g, mean, var, alpha, dx,
+                                               parts, means, n, s, c, vec,
+                                               chunks, rows_per_chunk, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <bool kSaved>
+int bwd_cluster(const void* x, const void* g, const void* mean,
+                const void* var, const void* alpha, void* dx, void* parts,
+                int n, int s, int c, int wcc, int cluster_size, int threads,
+                int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case ctseg::kFloat32:
+      return launch_bwd_cluster_threads<float, kSaved>(
+          x, g, mean, var, alpha, dx, parts, n, s, c, wcc, cluster_size,
+          threads, st);
+    case ctseg::kBFloat16:
+      return launch_bwd_cluster_threads<__nv_bfloat16, kSaved>(
+          x, g, mean, var, alpha, dx, parts, n, s, c, wcc, cluster_size,
+          threads, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Forward (K1f), two-phase form. x, y: (n, s, c) contiguous, of the type
@@ -1196,20 +1374,9 @@ extern "C" int ctseg_in_prelu_bwd(const void* x, const void* g,
                                   void* means, int n, int s, int c, int vec,
                                   int chunks, int rows_per_chunk, int dtype,
                                   int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case ctseg::kFloat32:
-      return launch_bwd<float>(x, g, mean, var, alpha, dx, parts, means, n, s,
-                               c, vec, chunks, rows_per_chunk, st);
-    case ctseg::kBFloat16:
-      return launch_bwd<__nv_bfloat16>(x, g, mean, var, alpha, dx, parts,
-                                       means, n, s, c, vec, chunks,
-                                       rows_per_chunk, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return bwd_two_phase<false>(x, g, mean, var, alpha, dx, parts, means, n, s,
+                              c, vec, chunks, rows_per_chunk, dtype, device,
+                              stream);
 }
 
 // Backward (K1b), read-once form, where ops/instance_norm.py::
@@ -1223,19 +1390,39 @@ extern "C" int ctseg_in_prelu_bwd_cluster(const void* x, const void* g,
                                           void* parts, int n, int s, int c,
                                           int wcc, int cluster_size, int dtype,
                                           int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case ctseg::kFloat32:
-      return launch_bwd_cluster_sized<float>(x, g, mean, var, alpha, dx, parts,
-                                             n, s, c, wcc, cluster_size, st);
-    case ctseg::kBFloat16:
-      return launch_bwd_cluster_sized<__nv_bfloat16>(
-          x, g, mean, var, alpha, dx, parts, n, s, c, wcc, cluster_size, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return bwd_cluster<false>(x, g, mean, var, alpha, dx, parts, n, s, c, wcc,
+                            cluster_size, kClusterThreads, dtype, device,
+                            stream);
+}
+
+// K2b: the PReLU + InstanceNorm backward of K2 from its saved xhat and rsinv
+// (see the note at the top of this file), in K1b's two forms and kernels:
+//   gh = g * (xhat >= 0 ? 1 : alpha)
+//   dy = rsinv * (gh - mean(gh) - xhat * mean(gh * xhat))
+//   dalpha = sum(g * min(xhat, 0)), plane 2 of `parts`.
+// g, xhat, dy: (n, s, c) contiguous, of the type `dtype` names; rsinv: (n,
+// c) float32; alpha: one float32. Two-phase form: the plan, workspaces and
+// launches of ctseg_in_prelu_bwd.
+extern "C" int ctseg_in_prelu_bwd_saved(const void* g, const void* xhat,
+                                        const void* rsinv, const void* alpha,
+                                        void* dy, void* parts, void* means,
+                                        int n, int s, int c, int vec,
+                                        int chunks, int rows_per_chunk,
+                                        int dtype, int device, void* stream) {
+  return bwd_two_phase<true>(xhat, g, nullptr, rsinv, alpha, dy, parts, means,
+                             n, s, c, vec, chunks, rows_per_chunk, dtype,
+                             device, stream);
+}
+
+// K2b, read-once form: the workspace and launch of
+// ctseg_in_prelu_bwd_cluster, by the plan of ops/conv_block.py::bwd_plan (a
+// cluster of 1, 2, 4, 8 or 16 blocks of 512 or 256 threads).
+extern "C" int ctseg_in_prelu_bwd_saved_cluster(
+    const void* g, const void* xhat, const void* rsinv, const void* alpha,
+    void* dy, void* parts, int n, int s, int c, int wcc, int cluster_size,
+    int threads, int dtype, int device, void* stream) {
+  return bwd_cluster<true>(xhat, g, nullptr, rsinv, alpha, dy, parts, n, s, c,
+                           wcc, cluster_size, threads, dtype, device, stream);
 }
 
 // The split form of K1f/K1b across depth slabs (see the kernels above). x,

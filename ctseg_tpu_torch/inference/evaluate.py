@@ -237,6 +237,7 @@ def evaluate_3d_sliding_window(
     patch_size: Sequence[int] = (128, 128, 48),
     overlap: float = 0.5,
     batch_size: int = 4,
+    window: Optional[bool] = None,
     with_hd95: bool = False,
     device="cuda",
     mesh=None,
@@ -246,8 +247,10 @@ def evaluate_3d_sliding_window(
     (sliding_window.py::blend_accumulate: each rank runs its share of every
     window batch, the blend is summed over the ranks).
 
-    Per volume: the soft-tissue window for a patch-mode config, as its
-    trainer saw it (a resize-mode config sees raw HU, as in predict), the
+    Per volume: with `window` the soft-tissue window, else raw HU; None
+    takes the config's rule, as its trainer saw it (a patch-mode config
+    windowed, a resize-mode one raw HU, as in predict and as the
+    reference's CLI passes it); then the
     blended logits over the volume's own window grid (an axis shorter
     than the patch padded with air, or 0 without the window, and cut off
     again), with exclude_missing the logits of the structures missing from
@@ -268,7 +271,8 @@ def evaluate_3d_sliding_window(
     device = torch.device(device)
     spacings = getattr(dataset, "spacings", None)
     use_spacing = with_hd95 and spacings is not None
-    window = config.volumetric_mode == "patch"
+    if window is None:
+        window = config.volumetric_mode == "patch"
     img_fill = AIR_HU if window else 0.0
     model = model.eval()
     indicators = torch.as_tensor(np.stack(dataset.indicators),
@@ -405,8 +409,9 @@ def main(argv=None):
         patch = tuple(args.patch_size)
         result = evaluate_3d_sliding_window(
             state.model, trainer.config, dataset, patch_size=patch,
-            overlap=args.overlap, with_hd95=args.hd95, device=device,
-            mesh=mesh)
+            overlap=args.overlap,
+            window=trainer.config.volumetric_mode == "patch",
+            with_hd95=args.hd95, device=device, mesh=mesh)
         if args.throughput:
             result["throughput"] = sliding_window_throughput(
                 state.model, trainer.config, dataset, patch_size=patch,

@@ -192,10 +192,13 @@ def build_sliding_window_fn(apply_fn: Callable, spatial_shape: Sequence[int],
 def sliding_window_inference(volume: torch.Tensor, apply_fn: Callable,
                              patch_size: Sequence[int], overlap: float = 0.5,
                              batch_size: int = 4, mode: str = "gaussian",
-                             out_channels: Optional[int] = None
-                             ) -> torch.Tensor:
+                             out_channels: Optional[int] = None,
+                             mesh=None) -> torch.Tensor:
     """Blend `apply_fn`'s logits over the window grid covering `volume`
-    (*spatial, C_in); returns (*spatial, C_out) float32."""
+    (*spatial, C_in); returns (*spatial, C_out) float32. On a `mesh`
+    (parallel/mesh.py) it is window-parallel: every rank passes the same
+    volume, runs its share of each window batch and gets the whole blend
+    (`blend_accumulate`)."""
     patch_size = tuple(int(p) for p in patch_size)
     ndim = len(patch_size)
     if volume.ndim != ndim + 1:
@@ -206,7 +209,7 @@ def sliding_window_inference(volume: torch.Tensor, apply_fn: Callable,
         out_channels = apply_fn(probe).shape[-1]
     run = build_sliding_window_fn(apply_fn, volume.shape[:ndim], patch_size,
                                   overlap, batch_size, mode, out_channels,
-                                  volume.device)
+                                  volume.device, mesh)
     return run(volume)
 
 

@@ -68,8 +68,12 @@ SIGNATURES = {
     # x, w, bias, alpha, scratch, stats, mean, rsinv, out, xhat_out,
     # w_planes, n, h, w, cin, cout, dtype, device, stream
     "ctseg_conv3x3_in_prelu_fwd_tc": [_P] * 11 + [_I] * 7 + [_P],
-    # g, xhat, rsinv, alpha, dy, dalpha_parts, n, s, c, dtype, device, stream
-    "ctseg_in_prelu_bwd_saved": [_P] * 6 + [_I] * 5 + [_P],
+    # K2b: g, xhat, rsinv, alpha, dy, parts, means, n, s, c, vec, chunks,
+    # rows_per_chunk, dtype, device, stream
+    "ctseg_in_prelu_bwd_saved": [_P] * 7 + [_I] * 8 + [_P],
+    # g, xhat, rsinv, alpha, dy, parts, n, s, c, wcc, cluster_size, threads,
+    # dtype, device, stream
+    "ctseg_in_prelu_bwd_saved_cluster": [_P] * 6 + [_I] * 8 + [_P],
     # images, top, left, rot, flip, params, out, n, h, w, s, device, stream
     "ctseg_window_normalize": [_P] * 7 + [_I] * 5 + [_P],
     # x, scale, out, b, k, l, device, stream

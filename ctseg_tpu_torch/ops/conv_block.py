@@ -8,8 +8,9 @@ and layouts are the JAX ones: x (N, H, W, Cin), w (3, 3, Cin, Cout), b
 (Cout,), alpha (1,); the output is (N, H, W, Cout) in x's dtype.
 
   - On a CPU tensor it runs the plain PyTorch versions.
-  - On a CUDA tensor it launches csrc/conv_block.cu, or raises: it never
-    falls back to the plain version and never copies its inputs.
+  - On a CUDA tensor it launches csrc/conv_block.cu (K2b: K1b's kernels in
+    csrc/instance_norm.cu), or raises: it never falls back to the plain
+    version and never copies its inputs.
 
 The forward has two routes on the card, chosen by a stated shape rule
 (`conv_route`), not by a failure: the tensor-core kernels (`wgmma`:
@@ -35,6 +36,10 @@ and rsinv (N, Cout) float32; the backward runs K2b (`in_prelu_bwd`) for dy
 and dalpha, and takes the conv's dx, dw and db from
 torch.ops.aten.convolution_backward on dy (cuDNN on the card), as the JAX
 rule takes them from XLA, each only where its input needs a gradient.
+K2b computes K1b's function from the saved xhat and rsinv, so it runs
+K1b's kernels and geometry with its own plan (`bwd_plan`): a thread block
+cluster of 1 to 16 blocks holding a sample's channel tile (g and xhat read
+once), or two phases over 16-byte lanes with the spatial axis split.
 Otherwise (serving) the forward writes out only, through the custom op
 `ctseg::conv3x3_in_prelu` (ops/custom_ops.py) on every device.
 """
@@ -42,12 +47,11 @@ Otherwise (serving) the forward writes out only, through the custom op
 import torch
 import torch.nn.functional as F
 
-from ctseg_tpu_torch.ops import _build
+from ctseg_tpu_torch.ops import _build, instance_norm
 from ctseg_tpu_torch.ops import custom_ops  # noqa: F401 (torch.ops.ctseg)
 
 EPS = 1e-5
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE_C = 32  # channels per block of the FP32-pipe norm and the backward
 TILE_M = 128  # output pixels per block of the tensor-core conv (kTcBM)
 
 
@@ -307,11 +311,92 @@ def _forward(x, w, b, alpha, train: bool):
     return out, xhat, rsinv
 
 
+BWD_CLUSTER_SIZES = (1, 2, 4, 8, 16)  # blocks a cluster of K2b may take
+# Threads a block of K2b's read-once form, in the order its plan prefers:
+# 256, two blocks an SM where the tile leaves room (an SM's 228 KB of shared
+# memory less 1 KB reserved a block, halved), or 512 as K1b's.
+BWD_CLUSTER_THREADS = (256, 512)
+BWD_PAIR_SMEM_BYTES = 113 * 1024
+
+
+def bwd_cluster_candidates(n: int, s: int, c: int, itemsize: int,
+                           aligned: bool = True) -> list:
+    """Every geometry of K1b's read-once kernel that K2b may take for this
+    shape, as `instance_norm.bwd_cluster_plan` describes one ("form":
+    "cluster", and "threads" a block), by block size (BWD_CLUSTER_THREADS),
+    cluster size (BWD_CLUSTER_SIZES), then tile width (a power of two of
+    16-byte vectors that divides c / vec), widest first: the channels whole
+    vectors, every block some rows, a block's rows of g and xhat within
+    instance_norm.CLUSTER_TILE_BYTES and its whole shared memory within
+    instance_norm.SMEM_BYTES (blocks of 512) or BWD_PAIR_SMEM_BYTES (blocks
+    of 256, two an SM)."""
+    vec = 16 // itemsize
+    if not aligned or c % vec != 0 or s < 1:
+        return []
+    q = c // vec
+    out = []
+    for threads in BWD_CLUSTER_THREADS:
+        smem_cap = BWD_PAIR_SMEM_BYTES if threads == 256 \
+            else instance_norm.SMEM_BYTES
+        for size in BWD_CLUSTER_SIZES:
+            rows_per_cta = -(-s // size)
+            if (size - 1) * rows_per_cta >= s:
+                continue  # a block without rows
+            wcc = threads
+            while wcc >= 1:
+                tile = 2 * rows_per_cta * wcc * 16
+                smem = instance_norm.bwd_cluster_smem_bytes(
+                    rows_per_cta, wcc, vec, threads)
+                if q % wcc == 0 and smem <= smem_cap and \
+                        tile <= instance_norm.CLUSTER_TILE_BYTES:
+                    out.append({
+                        "form": "cluster", "vec": vec, "q": q, "wcc": wcc,
+                        "size": size, "threads": threads,
+                        "rr": threads // wcc, "coltiles": q // wcc,
+                        "rows_per_cta": rows_per_cta, "tile_bytes": tile,
+                        "smem_bytes": smem,
+                        "grid": (size * (q // wcc), 1, n),
+                        "workspace": (n, size, 3, c),
+                    })
+                wcc //= 2
+    return out
+
+
+def bwd_plan(n: int, s: int, c: int, itemsize: int, aligned: bool = True):
+    """How K2b cuts n samples of s pixels x c channels: K1b's kernels, in
+    the read-once form where one of `bwd_cluster_candidates` has tile rows
+    of at least 128 bytes (else 64): of those blocks of 256 threads (two an
+    SM) before 512, then the fewest blocks a cluster, then the widest tile
+    ("form": "cluster", a sample's channel tile in a cluster's shared
+    memory, g and xhat read once); else K1b's two-phase form
+    (`instance_norm.bwd_plan`, "form": "two-phase"). Both read g and xhat
+    in 16-byte lanes (one element a lane where a sample's bytes are no
+    multiple of 16 or a tensor is off the 16-byte grid).
+
+    From csrc/tools/sweep_k2b.py's table (PERF.md, section 6): a block that
+    fills its SM alone leaves its copy, sums and writes serial, and a
+    cluster's barrier costs more the more blocks wait at it. So Model L's
+    sites take blocks of 256 with 128-byte rows, two an SM, in clusters of
+    1 (16x16), 4 (32x32x256) and 16 (64x64x128); 128x128x64 keeps K1b's 16
+    blocks of 512 with 64-byte rows. K1b keeps its own rule
+    (`instance_norm.bwd_cluster_plan`). The ragged shapes of
+    chip_smoke.py's K2_SITES, whose channels give rows of 32 bytes at
+    most, take two phases."""
+    found = bwd_cluster_candidates(n, s, c, itemsize, aligned)
+    for least in (128, 64):  # bytes a row of the tile
+        for plan in found:  # by block and cluster size, widest tile first
+            if plan["wcc"] * 16 >= least:
+                return plan
+    return {"form": "two-phase",
+            **instance_norm.bwd_plan(n, s, c, itemsize, aligned)}
+
+
 def in_prelu_bwd(g, xhat, rsinv, alpha):
     """K2b: (dy, dalpha) of PReLU(InstanceNorm(y)) from the saved xhat and
     rsinv, for the cotangent g. g, xhat: (N, H, W, C) of one dtype; rsinv:
-    (N, C) float32. On CUDA, launches the kernel (dalpha summed from
-    per-block partials with torch.sum, a fixed order) or raises."""
+    (N, C) float32. On CUDA, launches the kernels of `bwd_plan`'s form
+    (dalpha summed from the workspace's partials with torch.sum, a fixed
+    order) or raises."""
     if g.device.type == "cpu":
         return in_prelu_bwd_plain(g, xhat, rsinv, alpha)
     if g.device.type != "cuda":
@@ -333,17 +418,34 @@ def in_prelu_bwd(g, xhat, rsinv, alpha):
 
     lib = _build.library()
     dy = torch.empty_like(g)
-    parts = torch.empty((n, -(-c // _TILE_C)), dtype=torch.float32,
+    s = h * wd
+    aligned = all(t.data_ptr() % 16 == 0 for t in (g, xhat, dy))
+    plan = bwd_plan(n, s, c, g.element_size(), aligned)
+    parts = torch.empty(plan["workspace"], dtype=torch.float32,
                         device=g.device)
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    err = lib.ctseg_in_prelu_bwd_saved(
-        g.data_ptr(), xhat.data_ptr(), rsinv.data_ptr(), alpha.data_ptr(),
-        dy.data_ptr(), parts.data_ptr(), n, h * wd, c,
-        _DTYPE_CODES[g.dtype], g.device.index, stream,
-    )
+    if plan["form"] == "cluster":
+        err = lib.ctseg_in_prelu_bwd_saved_cluster(
+            g.data_ptr(), xhat.data_ptr(), rsinv.data_ptr(),
+            alpha.data_ptr(), dy.data_ptr(), parts.data_ptr(), n, s, c,
+            plan["wcc"], plan["size"], plan["threads"],
+            _DTYPE_CODES[g.dtype], g.device.index, stream,
+        )
+    else:
+        means = torch.empty((n, 2, c), dtype=torch.float32, device=g.device)
+        err = lib.ctseg_in_prelu_bwd_saved(
+            g.data_ptr(), xhat.data_ptr(), rsinv.data_ptr(),
+            alpha.data_ptr(), dy.data_ptr(), parts.data_ptr(),
+            means.data_ptr(), n, s, c, plan["vec"], plan["chunks"],
+            plan["rows_per_chunk"], _DTYPE_CODES[g.dtype], g.device.index,
+            stream,
+        )
     lib.check(err, "in_prelu_bwd")
     in_prelu_bwd.launches += 1
-    return dy, parts.sum().reshape(1)
+    # Plane 2 of either workspace holds dalpha's partials. Summed by rows
+    # first: torch's one reduction of the strided plane took 10-20 us on the
+    # card, these two 7 (csrc/tools/sweep_k2b.py prints both).
+    return dy, parts[:, :, 2].sum(dim=-1).sum().reshape(1)
 
 
 class _ConvINPReLU(torch.autograd.Function):

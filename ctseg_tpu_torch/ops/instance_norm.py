@@ -230,6 +230,16 @@ def fwd_cluster_plan(n: int, s: int, c: int, itemsize: int,
     return found[0]
 
 
+def bwd_cluster_smem_bytes(rows_per_cta: int, wcc: int, vec: int,
+                           threads: int = CLUSTER_THREADS) -> int:
+    """Shared memory of a block of `threads` of the read-once backward
+    kernel (csrc/instance_norm.cu::cluster_smem_bytes): its rows of x and g,
+    the block's reduction buffer, its three sums and the two means, in
+    float32."""
+    return 2 * rows_per_cta * wcc * 16 + 4 * (
+        3 * threads * vec + 5 * wcc * vec)
+
+
 def bwd_cluster_plan(n: int, s: int, c: int, itemsize: int,
                      aligned: bool = True):
     """The read-once form of K1b, or None where it does not apply.
@@ -239,7 +249,8 @@ def bwd_cluster_plan(n: int, s: int, c: int, itemsize: int,
     block r the pixels [r * rows_per_cta, (r + 1) * rows_per_cta), so x and
     g are read from device memory once. It applies when the channels are
     whole vectors (c % vec == 0) and some power-of-two tile width that
-    divides c / vec fits a block's share of x and g into CLUSTER_TILE_BYTES:
+    divides c / vec fits a block's share of x and g into CLUSTER_TILE_BYTES
+    (and, with the sums beside it, SMEM_BYTES):
     with 8 blocks and rows of at least 128 bytes (wcc >= 8) where that
     fits, else with 16 blocks and rows of at least 64 bytes. Model L's
     64x64x128, 32x32x256 and 16x16x512 sites take clusters of 8, 128x128x64
@@ -254,7 +265,9 @@ def bwd_cluster_plan(n: int, s: int, c: int, itemsize: int,
         wcc = CLUSTER_THREADS
         while wcc >= least:
             if q % wcc == 0 and \
-                    2 * rows_per_cta * wcc * 16 <= CLUSTER_TILE_BYTES:
+                    2 * rows_per_cta * wcc * 16 <= CLUSTER_TILE_BYTES and \
+                    bwd_cluster_smem_bytes(rows_per_cta, wcc, vec) \
+                    <= SMEM_BYTES:
                 return {
                     "vec": vec, "q": q, "wcc": wcc, "size": size,
                     "rr": CLUSTER_THREADS // wcc, "coltiles": q // wcc,

@@ -1,14 +1,15 @@
 """CT Hounsfield-unit windowing on tensors (port of
 ctseg_tpu/transforms/windowing.py).
 
-apply_window clips to [level - width//2, level + width//2] and shifts to
-[0, 1] dividing by (max - min + 1e-8) (reference transforms_2d.py:97-107);
-windowed_channels stacks the brain/soft-tissue/bone windows as a trailing
-channel axis. Shape-polymorphic over leading dims.
+apply_window clips to [level - width//2, level + width//2] and (optionally)
+shifts to [0, 1] dividing by (max - min + 1e-8) (reference
+transforms_2d.py:97-107); windowed_channels stacks several windows (by
+default brain, soft tissue, bone) as a trailing channel axis.
+Shape-polymorphic over leading dims.
 """
 
 import functools
-from typing import Tuple, Union
+from typing import Sequence, Tuple, Union
 
 import torch
 
@@ -37,9 +38,10 @@ def _constant(values: Union[float, Tuple[float, ...]], dtype: torch.dtype,
 
 
 def apply_window(
-    image: torch.Tensor, window_width: int, window_level: int
+    image: torch.Tensor, window_width: int, window_level: int,
+    shift: bool = True,
 ) -> torch.Tensor:
-    """Clip to a HU window and rescale it to [0, 1].
+    """Clip to a HU window; with `shift`, rescale it to [0, 1].
 
     The divisor is a tensor on the image's device: torch's CUDA division by
     a Python scalar multiplies by its reciprocal (one rounding more), while
@@ -47,19 +49,29 @@ def apply_window(
     """
     min_ = window_level - (window_width // 2)
     max_ = window_level + (window_width // 2)
+    clipped = torch.clamp(image, min_, max_)
+    if not shift:
+        return clipped
     den = _constant(max_ - min_ + 1e-8, image.dtype, image.device)
-    return (torch.clamp(image, min_, max_) - min_) / den
+    return (clipped - min_) / den
 
 
-def windowed_channels(image: torch.Tensor) -> torch.Tensor:
-    """(..., H, W) raw HU -> (..., H, W, 3): brain, soft tissue, bone."""
-    chans = [apply_window(image, *WINDOWING_CONFIG[w]) for w in WINDOW_ORDER]
+def windowed_channels(
+    image: torch.Tensor,
+    windows: Sequence[str] = WINDOW_ORDER,
+    shift: bool = True,
+) -> torch.Tensor:
+    """(..., H, W) raw HU -> (..., H, W, len(windows)), by default brain,
+    soft tissue, bone."""
+    chans = [apply_window(image, *WINDOWING_CONFIG[w], shift=shift)
+             for w in windows]
     return torch.stack(chans, dim=-1)
 
 
-def soft_tissue_window(image: torch.Tensor) -> torch.Tensor:
+def soft_tissue_window(image: torch.Tensor, shift: bool = True) -> torch.Tensor:
     """Single soft-tissue window with a trailing channel axis of 1."""
-    return apply_window(image, *WINDOWING_CONFIG["soft_tissue"])[..., None]
+    return apply_window(image, *WINDOWING_CONFIG["soft_tissue"],
+                        shift=shift)[..., None]
 
 
 def normalize(

@@ -178,6 +178,24 @@ def window_parallel(rank, world, tmp, model_file, volume, patch):
     return {"logits": logits, "result": json.dumps(result)}
 
 
+def window_inference(rank, world, tmp, volume, patch, weights,
+                     batch_size):
+    """sliding_window_inference(mesh=) of a channel mix (tanh(p @ w)),
+    every rank given the same volume, and the same call without a mesh."""
+    from ctseg_tpu_torch.inference.sliding_window import (
+        sliding_window_inference,
+    )
+    from ctseg_tpu_torch.parallel.mesh import make_mesh
+
+    vol = torch.from_numpy(np.load(tmp / volume))
+    w = torch.from_numpy(np.load(tmp / weights))
+    fn = lambda p: torch.tanh(p @ w)  # noqa: E731
+    on_mesh = sliding_window_inference(vol, fn, patch, batch_size=batch_size,
+                                       mesh=make_mesh(world))
+    alone = sliding_window_inference(vol, fn, patch, batch_size=batch_size)
+    return {"mesh": on_mesh, "alone": alone}
+
+
 def dp_train(rank, world, tmp, config, inputs, steps):
     """`steps` data-parallel train steps of a Trainer on make_mesh(world):
     each rank's rows of the global batch and of its draws (the transform's

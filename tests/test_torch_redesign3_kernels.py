@@ -51,7 +51,7 @@ from ctseg_tpu_torch.transforms.pipelines import get_transform
 
 BIG32 = float(np.float32(1e12))
 CSRC = Path(edt.__file__).resolve().parent.parent / "csrc"
-ROADMAP = Path(__file__).resolve().parent.parent / "ROADMAP.md"
+CHANGES = Path(__file__).resolve().parent.parent / "CHANGES.md"
 
 
 def _rng(seed):
@@ -366,9 +366,10 @@ def test_k4_constants_are_the_kernels():
 
 # --------------------------------------------------- the repaired faults
 @pytest.mark.parametrize("degree", [0, 1, 3, 4])
-def test_other_train_degrees_name_their_roadmap_item(degree):
+def test_other_train_degrees_name_their_changes_entry(degree):
     """The train transforms of degrees 0, 1, 3 and 4 are ported, and the
-    roadmap's item says so."""
+    CHANGES.md entry that ported them (append-only, where ROADMAP.md is
+    rewritten) says so."""
     transform = get_transform(degree, train=True, size=(16, 16))
     images = torch.zeros((2, 20, 20))
     draws = transform.draw(torch.Generator().manual_seed(0), images.shape)
@@ -376,8 +377,9 @@ def test_other_train_degrees_name_their_roadmap_item(degree):
                          draws)
     assert img.shape == (2, 16, 16, 1 if degree == 0 else 3)
     assert lab.shape == (2, 16, 16)
-    assert re.search(r"3\. \*\*Done \(PR \d+\): the train transforms of "
-                     r"degrees 0, 1, 3 and 4\*\*", ROADMAP.read_text())
+    assert re.search(r"^- PR \d+ \(bring_up\): .*Train transforms of degrees "
+                     r"0, 1, 3 and 4 \(`transforms/augment\.py`",
+                     CHANGES.read_text(), re.MULTILINE)
 
 
 def test_train_cli_help_says_its_degree_default_differs(capsys):
