@@ -47,7 +47,8 @@ Phases (any failure raises and the script exits non-zero):
      PackedDataset2D of 2x128 slices of 280x280 (as bench.py makes it):
      Trainer.fit for one epoch with a validation pipeline, then 2 warm-up
      and 5 timed train_steps. Each step must launch K4 once, K1 and K1b 8
-     times, K2 and K2b 9 times; the loss must be finite and fall over 5
+     times, K2 and K2b 9 times, the shallow weight gradient once (the top
+     transposed conv); the loss must be finite and fall over 5
      steps on one fixed batch (fixed draws). The trained state is saved
      with training/checkpoint.py and SegmentationService serves one scan
      from it. Then the step's parts, each alone (CUDA events), and its
@@ -83,8 +84,9 @@ Phases (any failure raises and the script exits non-zero):
      exclude_missing, batch 128) on phase 9's synthetic split: Trainer.fit
      for one epoch with validation, then 2 warm-up and 5 timed train_steps
      on one fixed batch with fixed draws. Each step must launch K4 once, K1
-     and K1b 8 times, K2 and K2b 4 times and the row scan, K5 and the signed
-     map once each; the loss must be finite and fall. The step's parts are
+     and K1b 8 times, K2 and K2b 4 times and the row scan, K5, the signed
+     map and the shallow weight gradient once each; the loss must be finite
+     and fall. The step's parts are
      timed one by one.
  15. Evaluate: the trained Model M checkpoint through evaluate_2d with HD95
      on 300 slices of 280x280 with per-slice spacings (batches of 64, the
@@ -97,6 +99,19 @@ Phases (any failure raises and the script exits non-zero):
      bfloat16, against their plain versions as in phase 6; per site the
      training forward's and K1b's time beside their bytes' bound and the
      plain version's, and F.instance_norm alone (a yardstick).
+ 16b. The shallow weight gradient (csrc/shallow_dw.cu, ops/shallow_grad.py)
+     at the four routed sites (bench_3d's 10 -> 10 conv and 128 -> 10
+     transposed conv at batch 128, Model L's 2D 128 -> 10 transposed conv
+     at batch 128, model_3d's transposed conv at batch 1), float32 and
+     bfloat16, and at the SHALLOW_ROUTED convs the rule routes beyond them
+     (k = 5 and k = 1, a transposed input 400 deep, odd channels), each at
+     its own batch: the kernel and its plain version on the same tensors
+     against a float64 referee (aten.convolution_backward), each error
+     relative to the sum of its terms' magnitudes, the kernel's within
+     SHALLOW_FACTOR of the plain version's (dW and db); two runs
+     torch.equal and the kernel's time beside its bound, the plain
+     version's and cuDNN's weight-only time on contiguous and channels_last
+     input (the `SHALLOW_SITES` JSON line).
  17. Train 3D, bench.py's second line: the 3D UNet (filters 64..1024, 2
      residual units, 1 -> 10 channels), CrossEntropy+Dice, patch mode
      (soft-tissue window, H and W flips) on 4 synthetic volumes of
@@ -104,13 +119,18 @@ Phases (any failure raises and the script exits non-zero):
      (128, 128, 16): Trainer.fit for one epoch (2 steps and a validation
      batch), then 5 timed steps on fresh sampled batches, in float32 (at
      the largest batch up to 128 that fits) and bfloat16. Each step must
-     launch K1 and K1b 17 times and no other kernel. Patch sampling alone,
-     peak memory, the float32 step by part and by group of kernels.
+     launch K1 and K1b 17 times, the shallow weight gradient twice (the top
+     transposed conv and the 10 -> 10 conv) and no other kernel. Patch
+     sampling alone, peak memory, the float32 step by part and by group of
+     kernels; its profile may hold at most 2 launches of cuDNN's
+     wgrad2d_grouped_direct_kernel a step (the stems; the routed sites none).
  18. Gradient parity of the 3D step, as phase 11, at a reduced width
      (filters 16..256, 2 patches of 64x64x16).
  19. The model_3d preset (resize mode, batch 1, volumes resized to
      256x256x96, raw HU, CrossEntropy): Trainer.fit for one epoch of 2
-     volumes, then 3 timed steps; the same launches per step. K1's training
+     volumes, then 3 timed steps; the same launches per step but one of the
+     shallow weight gradient (the 10 -> 10 conv runs at depth 96, beyond the
+     routed 64). K1's training
      forward and K1b held to their plain versions, as in phase 16, at each
      shape the step gave K1 (recorded at the call in a warm-up step: batch
      1 x 128x128x48x64 down to 16x16x6x1024, and 256x256x96x10).
@@ -162,7 +182,7 @@ Phases (any failure raises and the script exits non-zero):
      float32 and bfloat16, and portable (aten ops only); each loaded with
      load_exported and run on 32 and on 1 cropped slices of phase 4's scan:
      8 K1 and 9 K2 launches a call for the kernel artifacts, none for the
-     portable one; labels against predict_labels_2d's forward and each
+     portable one, no shallow weight gradient; labels against predict_labels_2d's forward and each
      other within 0.1%; every K1 and K2 shape of a call at batch 1, in both
      types, held to its plain version; the portable one also in a process
      that cannot import the port; ms a batch of 32 beside the eager
@@ -172,7 +192,8 @@ Phases (any failure raises and the script exits non-zero):
  28. GradCAM: run_interpretability with phase 4's checkpoint on phase 22's
      test split, 16 samples in batches of 8 at feat_down1: K1b and K2b 9
      times the K1 and K2 sites after the layer (from the model's topology)
-     a batch, finite non-negative maps, the .npy files; every K1 and K2
+     a batch, no shallow weight gradient (the parameters are frozen),
+     finite non-negative maps, the .npy files; every K1 and K2
      shape of a batch of 8 held to its plain version, those after the layer
      in their training forms with K1b and K2b; 2 slices' maps against a
      float64 CPU referee and a CPU copy's plain path; ms a batch.
@@ -1108,10 +1129,11 @@ def _model_l_config(dtype="float32"):
 
 def _counters():
     from ctseg_tpu_torch.ops import (
-        conv_block, edt, instance_norm, min_plus, preprocess,
+        conv_block, edt, instance_norm, min_plus, preprocess, shallow_grad,
     )
 
     return {
+        "shallow": shallow_grad.shallow_dw,
         "scan": edt.row_scan,
         "signed": edt.signed_map,
         "k4": preprocess.window_normalize_degree2,
@@ -1140,12 +1162,12 @@ def read_launches():
 
 
 PER_STEP = {"k4": 1, "k1": 8, "k1b": 8, "k2": 9, "k2b": 9, "k5": 0,
-            "scan": 0, "signed": 0}
+            "scan": 0, "signed": 0, "shallow": 1}
 # Model M: 1 residual unit leaves 4 stride-1 units (the bottom's and the 3
 # non-top decoder levels'); one launch each of the row scan, K5 and the
 # signed-map kernel makes both signs of all 128 x 9 distance maps.
 PER_STEP_M = {"k4": 1, "k1": 8, "k1b": 8, "k2": 4, "k2b": 4, "k5": 1,
-              "scan": 1, "signed": 1}
+              "scan": 1, "signed": 1, "shallow": 1}
 
 
 # Kernel-name fragments -> the group a train step's device time is summed
@@ -1160,6 +1182,7 @@ KERNEL_GROUPS = (
     ("in_prelu_fwd_", "K1"),
     ("window_normalize_kernel", "K4"),
     ("min_plus_kernel", "K5"),
+    ("shallow_dw_", "shallow dW"),
     ("row_scan_kernel", "EDT row scan"),
     ("signed_map_kernel", "EDT signed map"),
     ("dgrad", "library conv dgrad"),
@@ -1174,7 +1197,7 @@ KERNEL_GROUPS = (
 def profile_step(label, what, step, steps=2):
     """Device time of `step()` by group of kernels, from torch.profiler's
     kernel events (the host-side operator events carry the same time again
-    and are left out)."""
+    and are left out); returns {kernel name: (ms, launches)} a step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1184,11 +1207,12 @@ def profile_step(label, what, step, steps=2):
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-    groups, others = {}, []
+    groups, others, kernels = {}, [], {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         ms = e.self_device_time_total / 1e3 / steps
+        kernels[e.key] = (ms, e.count / steps)
         name = next((g for frag, g in KERNEL_GROUPS if frag in e.key),
                     "other library and torch kernels")
         t, n = groups.get(name, (0.0, 0))
@@ -1198,13 +1222,14 @@ def profile_step(label, what, step, steps=2):
     total = sum(t for t, _ in groups.values())
     if total == 0.0:
         print(f"[{label}] {what} by kernel: the trace holds no device time")
-        return
+        return kernels
     rows = sorted(groups.items(), key=lambda kv: -kv[1][0])
     print(f"[{label}] {what} by kernel (torch.profiler, {steps} steps), ms a "
           f"step (launches): "
           + "; ".join(f"{k} {t:.3f} ({n:g})" for k, (t, n) in rows)
           + f"; all kernels {total:.3f}; the largest of the others: "
           + ", ".join(f"{k} {t:.3f}" for t, k in sorted(others)[:-5:-1]))
+    return kernels
 
 
 def phase_train(label, workdir: Path, scan: Path):
@@ -1915,7 +1940,8 @@ def phase_evaluate(label, ckpt_path: Path):
     launches = read_launches()
     k5_launches = launches["k5"]
     want = {"k4": 0, "k1": 8 * batches, "k1b": 0, "k2": 4 * batches,
-            "k2b": 0, "k5": batches, "scan": batches, "signed": 0}
+            "k2b": 0, "k5": batches, "scan": batches, "signed": 0,
+            "shallow": 0}
     if launches != want:
         raise AssertionError(f"evaluate_2d launched {launches} over "
                              f"{batches} batches; want {want}")
@@ -2049,7 +2075,11 @@ K1_SITES_3D = {
     (128, 128, 16, 10): 1,  # up0 transposed conv
 }
 PER_STEP_3D = {"k4": 0, "k1": 17, "k1b": 17, "k2": 0, "k2b": 0, "k5": 0,
-               "scan": 0, "signed": 0}
+               "scan": 0, "signed": 0, "shallow": 2}
+# model_3d: its 10 -> 10 conv runs at depth 96, beyond the routed depths
+# (ops/shallow_grad.py::SMALLC_MERGED_MAX_DEPTH), so only the top transposed
+# conv launches the shallow weight gradient.
+PER_STEP_RESIZE_3D = dict(PER_STEP_3D, shallow=1)
 GRAD_FILTERS_3D = (16, 32, 64, 128, 256)  # phase 18's reduced width
 GRAD_PATCH_3D = (64, 64, 16)
 RESIZE_STEPS = 3        # phase 19's timed steps of the model_3d preset
@@ -2191,6 +2221,184 @@ def phase_k1_3d(label, gen):
     return tot, worst
 
 
+# Phase 16b: csrc/shallow_dw.cu at the routed sites of the main paths:
+# (name, transposed, batch, x's spatial extents, Cin, Cout).
+SHALLOW_SITES = (
+    ("bench_3d up0 residual unit, 10 -> 10 conv", False, TRAIN_BATCH,
+     (128, 128, 16), 10, 10),
+    ("bench_3d up0 transposed conv, 128 -> 10", True, TRAIN_BATCH,
+     (64, 64, 8), 128, 10),
+    ("Model L up0 transposed conv, 128 -> 10 (2D)", True, TRAIN_BATCH,
+     (128, 128), 128, 10),
+    ("model_3d up0 transposed conv, 128 -> 10", True, 1, (128, 128, 48),
+     128, 10),
+)
+# Convs the routing rule (ops/shallow_grad.py::smallc_supported) sends to
+# the kernel beyond the main paths' sites, in both types: other odd k, a
+# transposed input deeper than one strip (depth tiles), and odd channels
+# (bfloat16 widens them to the float32 kernel). (name, transposed, batch,
+# x's spatial extents, Cin, Cout, k)
+SHALLOW_ROUTED = (
+    ("k=5 conv 10 -> 10 at depth 64", False, 2, (32, 32, 64), 10, 10, 5),
+    ("k=1 conv 16 -> 8 at depth 64", False, 2, (32, 32, 64), 16, 8, 1),
+    ("transposed conv 32 -> 10 from depth 400", True, 1, (8, 8, 400), 32,
+     10, 3),
+    ("transposed conv 16 -> 7 (odd channels)", True, 2, (16, 16, 8), 16, 7,
+     3),
+    ("k=3 conv 7 -> 7 (odd channels)", False, 2, (16, 16, 8), 7, 7, 3),
+)
+# The kernel's dW (and db) may be no farther from the float64 referee than
+# SHALLOW_FACTOR times the plain version's, on the same tensors at the
+# site's own batch, each error taken relative to the sum of its terms'
+# magnitudes (sum |x| |dy| over the output's pairs; sum |dy| for db; both
+# from the plain version on |x| and |dy| in float32). Both sum float32
+# products (bfloat16's are exact in float32) in other orders, and bfloat16
+# rounds the result once.
+SHALLOW_FACTOR = 2.0
+
+
+def _shallow_referee(x, dy, transposed, k):
+    """dW, db by aten.convolution_backward in float64 on contiguous
+    copies."""
+    import torch
+
+    nd = x.ndim - 2
+    s = 2 if transposed else 1
+    shape = (x.shape[1], dy.shape[1], *(k,) * nd) if transposed else \
+        (dy.shape[1], x.shape[1], *(k,) * nd)
+    a64 = x.to(torch.float64, memory_format=torch.contiguous_format)
+    b64 = dy.to(torch.float64, memory_format=torch.contiguous_format)
+    w = a64.new_empty(1).expand(shape)
+    _, dw, db = torch.ops.aten.convolution_backward(
+        b64, a64, w, [shape[1] if transposed else shape[0]], (s,) * nd,
+        ((k - 1) // 2,) * nd, (1,) * nd, transposed, (s - 1,) * nd, 1,
+        [False, True, True])
+    return dw, db
+
+
+def _relative_err(got, ref, mag):
+    return float(((got.double() - ref).abs() / mag.double().clamp_min(
+        1e-300)).max())
+
+
+def phase_shallow_dw(label, gen):
+    """csrc/shallow_dw.cu (ops/shallow_grad.py::shallow_dw) at the four
+    routed sites of the main paths and the SHALLOW_ROUTED convs, float32
+    and bfloat16, each at its own batch: the kernel and the plain version
+    on the same tensors against a float64 referee (SHALLOW_FACTOR), and
+    against each other; two runs torch.equal, finite; the kernel's time
+    beside its bound, the plain version's, and cuDNN's weight-only
+    aten.convolution_backward on contiguous and on channels_last input (a
+    yardstick the port never calls at a routed site)."""
+    import torch
+    from ctseg_tpu_torch.models.layers import channels_last
+    from ctseg_tpu_torch.ops import shallow_grad as sg
+
+    out = {"sites": []}
+    cases = [(True, *site, 3) for site in SHALLOW_SITES] + \
+        [(False, *site) for site in SHALLOW_ROUTED]
+    for main, name, transposed, n, spatial, cin, cout, k in cases:
+        nd = len(spatial)
+        osp = tuple(e * (2 if transposed else 1) for e in spatial)
+        flop, nbytes32 = sg.dw_work(n, spatial, cin, cout, transposed, k)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            x = channels_last(torch.randn((n, cin) + spatial, generator=gen,
+                                          device=DEVICE).to(dtype))
+            dy = channels_last(torch.randn((n, cout) + osp, generator=gen,
+                                           device=DEVICE).to(dtype))
+            dw, db = sg.shallow_dw(x, dy, transposed, k)
+            dw2, db2 = sg.shallow_dw(x, dy, transposed, k)
+            torch.cuda.synchronize()
+            if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
+                raise AssertionError(f"shallow_dw {name} {dname}: two runs "
+                                     "differ")
+            if not (bool(torch.isfinite(dw).all())
+                    and bool(torch.isfinite(db).all())):
+                raise AssertionError(f"shallow_dw {name} {dname}: not finite")
+            del dw2, db2
+            t_k = time_ms(lambda: sg.shallow_dw(x, dy, transposed, k), 5)
+            pdw, pdb = sg.shallow_dw_plain(x, dy, transposed, k)
+            t_p = time_ms(lambda: sg.shallow_dw_plain(x, dy, transposed, k),
+                          2)
+            t0 = time.perf_counter()
+            rdw, rdb = _shallow_referee(x, dy, transposed, k)
+            torch.cuda.synchronize()
+            t_ref = time.perf_counter() - t0
+            adw, adb = sg.shallow_dw_plain(x.abs().float(), dy.abs().float(),
+                                           transposed, k)
+            err = {"dw": _relative_err(dw, rdw, adw),
+                   "dw_plain": _relative_err(pdw, rdw, adw),
+                   "db": _relative_err(db, rdb, adb),
+                   "db_plain": _relative_err(pdb, rdb, adb)}
+            vs_plain = max(float((dw.float() - pdw.float()).abs().max()),
+                           float((db.float() - pdb.float()).abs().max()))
+            del pdw, pdb, rdw, rdb, adw, adb
+            torch.cuda.empty_cache()
+            # cuDNN's weight gradient alone, on both layouts.
+            shape = (cin, cout, *(k,) * nd) if transposed else \
+                (cout, cin, *(k,) * nd)
+            w = torch.zeros(shape, device=DEVICE, dtype=dtype)
+            s = 2 if transposed else 1
+
+            def library(xx, gg):
+                return torch.ops.aten.convolution_backward(
+                    gg, xx, w, None, (s,) * nd, ((k - 1) // 2,) * nd,
+                    (1,) * nd, transposed, (s - 1,) * nd, 1,
+                    [False, True, False])
+
+            t_lib = {}
+            for layout, (xx, gg) in (
+                    ("contiguous", (x.contiguous(), dy.contiguous())),
+                    ("channels_last", (x, dy))):
+                t0 = time.perf_counter()
+                library(xx, gg)
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+                t_lib[layout] = time_ms(lambda: library(xx, gg),
+                                        1 if first > 0.2 else 3)
+                del xx, gg
+            scale = x.element_size() / 4
+            b = bound_ms(flop, nbytes32 * scale,
+                         PEAK_FLOPS if dtype == torch.float32 else PEAK_BF16)
+            row = {"site": name, "main_path": main, "dtype": dname,
+                   "batch": n, "k": k, "ms": t_k, "bound_ms": b[0],
+                   "bound_by": b[1], "plain_ms": t_p,
+                   "library_ms": t_lib["contiguous"],
+                   "library_ms_channels_last": t_lib["channels_last"],
+                   "max_abs_err": vs_plain, "referee_s": t_ref,
+                   **{f"rel_err_{key}": v for key, v in err.items()}}
+            out["sites"].append(row)
+            print(f"[{label}] shallow_dw {name}, {dname}, batch {n}: "
+                  f"{t_k:.3f} ms (bound {b[0]:.3f}, {b[1]}; share "
+                  f"{b[0] / t_k:.3f}); cuDNN's weight gradient alone "
+                  f"{t_lib['contiguous']:.3f} ms contiguous, "
+                  f"{t_lib['channels_last']:.3f} channels_last; plain "
+                  f"{t_p:.3f} ms; of the terms' magnitudes from float64 "
+                  f"(referee {t_ref:.1f} s): dW {err['dw']:.3e} (plain "
+                  f"{err['dw_plain']:.3e}), db {err['db']:.3e} (plain "
+                  f"{err['db_plain']:.3e}); |kernel - plain| {vs_plain:.3e};"
+                  " two runs equal")
+            for key in ("dw", "db"):
+                if not err[key] <= SHALLOW_FACTOR * err[key + "_plain"]:
+                    raise AssertionError(
+                        f"shallow_dw {name} {dname}: {key} {err[key]:.3e} of "
+                        f"its terms' magnitudes from float64, the plain "
+                        f"version's {err[key + '_plain']:.3e} (x "
+                        f"{SHALLOW_FACTOR} allowed)")
+            del x, dy, dw, db, w
+            torch.cuda.empty_cache()
+    print("SHALLOW_SITES " + json.dumps(out["sites"]))
+    for dname in ("float32", "bfloat16"):
+        rows = [r for r in out["sites"]
+                if r["dtype"] == dname and r["main_path"]]
+        out[dname] = {k: sum(r[k] for r in rows) for k in (
+            "ms", "bound_ms", "plain_ms", "library_ms",
+            "library_ms_channels_last")}
+        out[dname]["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return out
+
+
 def _train_3d(label, trainer, state, pipe, steps):
     """Timed train steps on fresh patch batches (sampling included); returns
     (state, ms/step, launches, losses)."""
@@ -2293,8 +2501,22 @@ def phase_train_3d(label, workdir: Path):
             print(f"[{label}] 3D float32 step by part, ms: " + "; ".join(
                 f"{k} {v:.3f}" for k, v in parts.items()))
             del logits, images, labels
-            profile_step(label, "3D patch train step (float32)",
-                         lambda: trainer.train_step(state, b, generator=gen))
+            kernels = profile_step(
+                label, "3D patch train step (float32)",
+                lambda: trainer.train_step(state, b, generator=gen))
+            # cuDNN's weight gradients left in the step: the routed sites
+            # (the top transposed conv and the 10 -> 10 conv) take none;
+            # the two stride-2 stems (1 -> 64, conv and shortcut) do.
+            wgrad = {k: n for k, (_, n) in kernels.items() if "wgrad" in k}
+            grouped = sum(n for k, n in wgrad.items()
+                          if "wgrad2d_grouped_direct_kernel" in k)
+            print(f"[{label}] 3D float32 step, weight-gradient kernels a "
+                  f"step (launches): " + "; ".join(
+                      f"{k[:70]} {n:g}" for k, n in sorted(wgrad.items())))
+            if kernels and grouped > 2:
+                raise AssertionError(
+                    f"{grouped:g} wgrad2d_grouped_direct_kernel launches a "
+                    "3D step: the stems take 2, the routed sites none")
             ckpt = workdir / "patch3d.ckpt"
             trainer.save(ckpt, state)
             out["ckpt"] = ckpt
@@ -2522,7 +2744,7 @@ def phase_train_resize_3d(label):
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / RESIZE_STEPS
     launches = read_launches()
-    want = {k: v * RESIZE_STEPS for k, v in PER_STEP_3D.items()}
+    want = {k: v * RESIZE_STEPS for k, v in PER_STEP_RESIZE_3D.items()}
     if launches != want:
         raise AssertionError(f"model_3d launches {launches}; want {want}")
     losses = [float(v) for v in losses]
@@ -2539,7 +2761,8 @@ def phase_train_resize_3d(label):
     torch.cuda.empty_cache()
     _hold_k1_at(label, "the model_3d step", shapes,
                 torch.Generator(device=DEVICE).manual_seed(8), backward=True)
-    return {"ms": step_s * 1e3, "peak_gib": peak / 2**30}
+    return {"ms": step_s * 1e3, "peak_gib": peak / 2**30,
+            "launches": launches}
 
 
 def phase_evaluate_3d(label, ckpt: Path):
@@ -2573,7 +2796,7 @@ def phase_evaluate_3d(label, ckpt: Path):
         // EVAL_BATCH_3D) for d, h, w in (v.shape for v in data.images))
     n = len(data.images)
     want = {"k4": 0, "k1": 17 * batches, "k1b": 0, "k2": 0, "k2b": 0,
-            "k5": 2 * n, "scan": n, "signed": 0}
+            "k5": 2 * n, "scan": n, "signed": 0, "shallow": 0}
     if launches != want:
         raise AssertionError(f"3D evaluation launched {launches} over {n} "
                              f"volumes, {batches} window batches; want {want}")
@@ -3322,7 +3545,8 @@ def phase_export(label, workdir: Path, ckpt: Path, scan: Path, ckpt_3d: Path):
             with torch.inference_mode():
                 got = fn(x32[:n]).cpu().numpy()
             seen = read_launches()
-            if (seen["k1"], seen["k2"]) != want[kind] or got.shape != (
+            if (seen["k1"], seen["k2"]) != want[kind] or seen[
+                    "shallow"] != 0 or got.shape != (
                     n, *EXPORT_SLICE) or got.dtype != np.uint8:
                 raise AssertionError(
                     f"{kind} artifact, batch {n}: K1/K2 launches "
@@ -3394,7 +3618,8 @@ def phase_export(label, workdir: Path, ckpt: Path, scan: Path, ckpt_3d: Path):
         ref3 = model_apply_fn(m3)(apply_window(patches[..., None], 350, 20))
     err3 = float(((got3.float() - ref3.float()).abs()
                   / (1 + ref3.float().abs())).max())
-    if seen3["k1"] != PER_STEP_3D["k1"] or got3.shape != (
+    if seen3["k1"] != PER_STEP_3D["k1"] or seen3["shallow"] != 0 or \
+            got3.shape != (
             EVAL_BATCH_3D, *EVAL_PATCH_3D, 10) or not err3 <= LOGIT_TOL:
         raise AssertionError(f"3D artifact: {seen3['k1']} K1 launches, "
                              f"{tuple(got3.shape)}, error {err3:.3e}")
@@ -3489,7 +3714,10 @@ def phase_gradcam(label, workdir: Path, ckpt: Path, data_dir: Path):
     seconds = time.perf_counter() - t0
     seen = read_launches()
     batches = -(-GRADCAM_SAMPLES // GRADCAM_BATCH)
-    want = {"k1": 8, "k2": 9, "k1b": 9 * k1_sites, "k2b": 9 * k2_sites}
+    # The shallow weight gradient: none, GradCAM's parameters take no
+    # gradient (interpret/gradcam.py freezes them).
+    want = {"k1": 8, "k2": 9, "k1b": 9 * k1_sites, "k2b": 9 * k2_sites,
+            "shallow": 0}
     if done != GRADCAM_SAMPLES or any(seen[k] != v * batches
                                       for k, v in want.items()):
         raise AssertionError(f"GradCAM: {done} samples, launches {seen} "
@@ -4190,12 +4418,15 @@ def main() -> int:
         launches_eval, _ = phase_evaluate(label, ckpt_m)
         torch.cuda.empty_cache()
         k1_3d, _ = phase_k1_3d(label, gen)
+        shallow = phase_shallow_dw(label, gen)
+        torch.cuda.empty_cache()
         train_3d = phase_train_3d(label, Path(tmp))
         phase_grad_parity_3d(label)
         torch.cuda.empty_cache()
-        phase_train_resize_3d(label)
+        resize_3d = phase_train_resize_3d(label)
         torch.cuda.empty_cache()
         train_3d_launches = train_3d["float32"]["launches"]
+        train_3d_bf16_launches = train_3d["bfloat16"]["launches"]
         launches_eval_3d, hd95_3d = phase_evaluate_3d(label,
                                                       train_3d["ckpt"])
         phase_serve_3d(label, Path(tmp), train_3d["ckpt"])
@@ -4378,6 +4609,45 @@ def main() -> int:
             "ms_4_slabs": four["tot"]["ms"][key],
             "plain_ms_4_slabs": four["tot"]["plain_ms"][key],
             "bound_ms_4_slabs": four["tot"]["bound_ms"][key]})
+    # Phase 16b: the shallow weight gradient (csrc/shallow_dw.cu), one
+    # entry: ms, plain_ms, bound_ms and library_ms summed over the four
+    # routed sites of the main paths, each at its own batch; its main path
+    # is the bench_3d float32 step.
+    f32, b16 = shallow["float32"], shallow["bfloat16"]
+    kernels.append({
+        "name": "shallow_dw", "route": "cuda",
+        "source": "ctseg_tpu_torch/csrc/shallow_dw.cu",
+        "replaces": "ctseg_tpu/ops/shallow_grad.py:238, 314 (jnp custom "
+                    "VJPs, no Pallas kernel)",
+        "launches": train_3d_launches["shallow"],
+        "launches_3d_bf16": train_3d_bf16_launches["shallow"],
+        "launches_model_3d": resize_3d["launches"]["shallow"],
+        "launches_model_l": launches["shallow"],
+        "launches_model_m": launches_m["shallow"],
+        "launches_eval": launches_eval["shallow"],
+        "launches_3d_eval": launches_eval_3d["shallow"],
+        "launches_degree0": launches_d0["shallow"],
+        "launches_export": exported["launches"]["kernel"]["shallow"],
+        "launches_gradcam": cams["launches_per_batch"]["shallow"],
+        "launches_dp_nccl": dp["launches"]["shallow"],
+        "launches_dp_3d": dp["launches_3d"]["shallow"],
+        "launches_dp_gloo_rank0": gloo["launches"]["shallow"],
+        "max_abs_err": f32["max_abs_err"],
+        "max_abs_err_bf16": b16["max_abs_err"],
+        "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"], "bound_by": "operations",
+        "library_ms": f32["library_ms"],
+        "library_ms_channels_last": f32["library_ms_channels_last"],
+        "ms_bf16": b16["ms"], "plain_ms_bf16": b16["plain_ms"],
+        "bound_ms_bf16": b16["bound_ms"], "bound_by_bf16": "bytes",
+        "library_ms_bf16": b16["library_ms"],
+        "library_ms_channels_last_bf16": b16["library_ms_channels_last"],
+        "sites": {f"{r['site']} {r['dtype']}": {
+            k: r[k] for k in ("ms", "bound_ms", "plain_ms", "library_ms",
+                              "library_ms_channels_last", "rel_err_dw",
+                              "rel_err_dw_plain", "rel_err_db",
+                              "rel_err_db_plain")}
+            for r in shallow["sites"]}})
     print(f"(launches: phase 9's {TIMED_STEPS} timed Model L train steps, for "
           f"K5 and the EDT kernels phase 14's {TIMED_STEPS} Model M steps; "
           "launches_model_m: phase 14's; launches_serve: phase 4's requests; "
@@ -4421,7 +4691,13 @@ def main() -> int:
           f"{BATCH} (launches_export_portable: the portable one's, "
           "launches_export_3d: the 3D patch scorer's at batch "
           f"{EVAL_BATCH_3D}); launches_gradcam: one batch of "
-          f"{GRADCAM_BATCH} of phase 28's GradCAM)")
+          f"{GRADCAM_BATCH} of phase 28's GradCAM; shallow_dw: launches "
+          f"over phase 17's {TIMED_STEPS} timed float32 bench_3d steps, "
+          "launches_model_3d phase 19's, ms/plain_ms/bound_ms/library_ms "
+          "summed over phase 16b's four routed sites of the main paths at "
+          "their own batches (library_ms: cuDNN's weight-only "
+          "aten.convolution_backward, contiguous and channels_last), "
+          "max_abs_err |kernel - plain| there)")
     # The train transforms of degrees 0, 1, 3 and 4 replace no TPU kernel
     # (the reference's warps are jnp, outside any Pallas call); their times
     # stand on a line of their own.

@@ -10,15 +10,16 @@ One code path serves 2D and 3D, as in the reference: a module is built for
 `spatial_dims` 2 or 3 (its parameters' shapes depend on it) and each call
 takes the rank from its input. Activations are (N, C, *spatial) tensors
 stored channels_last (channels_last_3d in 3D), so `_nhwc(t)` is the
-(N, *spatial, C)-contiguous view the kernels take, with no copy (in
-float32 training, a 3D transposed conv into at most SHALLOW_CHANNELS
-channels runs contiguous: see ConvTransposeUnit). Every IN+PReLU site calls
+(N, *spatial, C)-contiguous view the kernels take, with no copy. Every IN+PReLU site calls
 ops.instance_norm.instance_norm_prelu, and every 2D stride-1 3x3
 Conv+IN+PReLU unit calls ops.conv_block.conv3x3_in_prelu;
 strided, transposed, shortcut and 1x1 convs, and the 3D stride-1 units'
 convs, stay torch convs followed by the norm kernel (the JAX package
 leaves them to XLA; its fused conv kernel is 2D only,
-ops/pallas/conv_block.py:91).
+ops/pallas/conv_block.py:91). Where the JAX units route a conv to
+ops/shallow_grad.py (a shallow stride-1 3D conv, a k=3 s=2 transposed conv
+into few channels) and a gradient is taken, the port's units call the
+same forward with the shallow weight gradient, ops/shallow_grad.py.
 
 Depth sharding: every unit's forward takes `space`, a
 parallel/collectives.py::DepthShard when x is this rank's depth slab of a
@@ -44,6 +45,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ctseg_tpu_torch.ops.conv_block import conv3x3_in_prelu
+from ctseg_tpu_torch.ops.shallow_grad import (
+    conv_smallc,
+    conv_transpose_smallc,
+    smallc_supported,
+)
 from ctseg_tpu_torch.ops.instance_norm import (
     instance_norm_prelu,
     instance_norm_prelu_split,
@@ -58,9 +64,6 @@ _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
 _CONV_T = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
 _CONV_FN = {4: F.conv2d, 5: F.conv3d}
 _CONV_T_FN = {4: F.conv_transpose2d, 5: F.conv_transpose3d}
-# Out channels up to which a float32 3D transposed conv runs on contiguous
-# input in training.
-SHALLOW_CHANNELS = 16
 
 
 def channels_last(x: torch.Tensor) -> torch.Tensor:
@@ -87,6 +90,12 @@ def conv(conv: nn.Module, x: torch.Tensor, space=None) -> torch.Tensor:
         return _CONV_FN[x.ndim](x, w, b, conv.stride, conv.padding)
     return space.conv(_CONV_FN[x.ndim], x, w, b, conv.stride, conv.padding,
                       conv.kernel_size[-1])
+
+
+def _takes_grad(x: torch.Tensor, module: nn.Module) -> bool:
+    """Whether autograd records a call of `module` on x."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in module.parameters()))
 
 
 def _norm(y: torch.Tensor, alpha: torch.Tensor, space) -> torch.Tensor:
@@ -121,29 +130,28 @@ class ConvUnit(nn.Module):
                       and spatial_dims == 2)
 
     def forward(self, x: torch.Tensor, space=None) -> torch.Tensor:
-        if self.act is None:
-            return conv(self.conv, x, space)
         if self.fused:
             w = self.conv.weight.to(x.dtype).permute(2, 3, 1, 0).contiguous()
             return _nchw(conv3x3_in_prelu(
                 _nhwc(x), w, self.conv.bias, self.act.weight
             ))
-        return _nchw(_norm(_nhwc(conv(self.conv, x, space)), self.act.weight,
-                           space))
+        y = self._conv(x, space)
+        if self.act is None:
+            return y
+        return _nchw(_norm(_nhwc(y), self.act.weight, space))
 
-
-class _ContiguousGrad(torch.autograd.Function):
-    """The identity, whose gradient is made (N, C, *spatial)-contiguous: the
-    layout cuDNN picks for a conv's backward follows its output gradient as
-    much as its input."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.contiguous()
+    def _conv(self, x: torch.Tensor, space) -> torch.Tensor:
+        """The conv; where the JAX unit routes it to conv_smallc (a shallow
+        stride-1 3D conv, ops/shallow_grad.py) and a gradient is taken, the
+        same forward with the shallow weight gradient."""
+        c = self.conv
+        if space is None and smallc_supported(
+            c.in_channels, c.out_channels, c.stride[0], c.kernel_size[0],
+            ndim=x.ndim - 2, depth=x.shape[-1] if x.ndim == 5 else None,
+        ) and _takes_grad(x, c):
+            return conv_smallc(x, c.weight.to(x.dtype), c.bias.to(x.dtype),
+                               c.stride, c.padding)
+        return conv(c, x, space)
 
 
 class ConvTransposeUnit(nn.Module):
@@ -165,27 +173,21 @@ class ConvTransposeUnit(nn.Module):
 
     def forward(self, x: torch.Tensor, space=None) -> torch.Tensor:
         c = self.conv
-        # cuDNN's FP32 weight gradient of a 3D transposed conv into few
-        # channels is about 8x slower on channels_last_3d tensors than on
-        # contiguous ones (csrc/tools/probe_conv3d_fp32.py --sites): when a
-        # gradient is taken in float32, such a conv runs on (N, C,
-        # D...)-contiguous input and output gradient (bfloat16 is faster
-        # channels_last_3d). `_nhwc` takes its output back to
-        # channels_last_3d for the norm kernel.
-        shallow = (x.ndim == 5 and c.out_channels <= SHALLOW_CHANNELS
-                   and x.dtype == torch.float32 and torch.is_grad_enabled())
-        if shallow:
-            x = x.contiguous()
         w, b = c.weight.to(x.dtype), c.bias.to(x.dtype)
-        if space is None:
+        if space is None and smallc_supported(
+            c.in_channels, c.out_channels, c.stride[0], c.kernel_size[0],
+            transpose=True, ndim=x.ndim - 2,
+        ) and _takes_grad(x, c):
+            # The top decoder level's transposed conv: the same forward,
+            # the shallow weight gradient (ops/shallow_grad.py).
+            y = conv_transpose_smallc(x, w, b, c.stride[0], c.kernel_size[0])
+        elif space is None:
             y = _CONV_T_FN[x.ndim](x, w, b, c.stride, c.padding,
                                    c.output_padding)
         else:
             y = space.conv_transpose(_CONV_T_FN[x.ndim], x, w, b, c.stride,
                                      c.padding, c.output_padding,
                                      c.kernel_size[-1])
-        if shallow:
-            y = _ContiguousGrad.apply(y)
         if self.act is None:
             return y
         return _nchw(_norm(_nhwc(y), self.act.weight, space))

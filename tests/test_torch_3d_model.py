@@ -12,9 +12,6 @@
     spatial axes), its jnp reference and jax.vjp, at 1e-5: the site shapes
     of the 3D UNet at a small size, a near-constant channel included; the
     two-phase plans' chunk cap at batch 1 and 4.
-  - The float32 training layout of the shallow 3D transposed conv
-    (contiguous input and output gradient), equal to the channels_last
-    path's.
   - `build_model`, `model_from_checkpoint` and `load_checkpoint` on 3D
     configs (the `model_3d` preset included), and the entry points' device
     defaults.
@@ -115,60 +112,6 @@ def test_3d_units_keep_channels_last_3d_and_the_2d_units_their_kernel():
     assert layers._nhwc(x).data_ptr() == x.data_ptr()
     y = unit(x)
     assert y.shape == (2, 8, 6, 6, 4)
-    assert y.is_contiguous(memory_format=torch.channels_last_3d)
-
-
-@pytest.mark.parametrize("cout,grad,dtype,contiguous", [
-    (layers.SHALLOW_CHANNELS, True, torch.float32, True),
-    (layers.SHALLOW_CHANNELS, False, torch.float32, False),
-    (layers.SHALLOW_CHANNELS + 1, True, torch.float32, False),
-    (layers.SHALLOW_CHANNELS, True, torch.bfloat16, False),
-])
-def test_shallow_3d_transposed_conv_trains_on_contiguous_tensors(
-        monkeypatch, cout, grad, dtype, contiguous):
-    """In float32 training, a 3D transposed conv into few channels gets
-    contiguous input and output gradient (cuDNN's FP32 weight gradient is
-    slow on channels_last_3d there); otherwise both stay channels_last_3d.
-    Its output and gradients are the channels_last path's, to float32
-    round-off (bfloat16: its own). The conv bias's gradient is zero in exact
-    arithmetic (the norm removes it) and the slope's a sum that nearly
-    cancels, so each gradient is held relative to the unit's largest."""
-    seen = []
-    conv_t = layers._CONV_T_FN[5]
-
-    def record(x, *args):
-        y = conv_t(x, *args)
-        seen.append(x.is_contiguous())
-        if y.requires_grad:
-            y.register_hook(lambda g: seen.append(g.is_contiguous()))
-        return y
-
-    unit = layers.reset_parameters(layers.ConvTransposeUnit(
-        8, cout, spatial_dims=3), torch.Generator().manual_seed(1))
-    x = layers.channels_last(torch.randn(2, 8, 4, 4, 2, generator=torch
-                                         .Generator().manual_seed(0))
-                             .to(dtype)).requires_grad_()
-    tol = {torch.float32: 1e-5, torch.bfloat16: 0.0}[dtype]
-    with monkeypatch.context() as m:
-        m.setattr(layers, "SHALLOW_CHANNELS", 0)  # the channels_last path
-        want = unit(x)
-        want.square().sum().backward()
-    want_grads = [x.grad] + [p.grad for p in unit.parameters()]
-    x.grad = None
-    unit.zero_grad()
-    monkeypatch.setitem(layers._CONV_T_FN, 5, record)
-    with torch.set_grad_enabled(grad):
-        y = unit(x)
-    if grad:
-        y.square().sum().backward()
-        assert seen == [contiguous, contiguous]
-        scale = max(float(r.abs().max()) for r in want_grads)
-        for got, ref in zip([x.grad] + [p.grad for p in unit.parameters()],
-                            want_grads):
-            torch.testing.assert_close(got, ref, rtol=tol, atol=tol * scale)
-    else:
-        assert seen == [contiguous]
-    torch.testing.assert_close(y, want, rtol=tol, atol=tol)
     assert y.is_contiguous(memory_format=torch.channels_last_3d)
 
 

@@ -1,0 +1,453 @@
+"""The port's shallow-channel weight gradients (ctseg_tpu_torch/ops/
+shallow_grad.py) against the JAX package's (ctseg_tpu/ops/shallow_grad.py),
+on the CPU, where `shallow_dw` runs its plain version (the JAX
+formulations in torch; the CUDA kernel runs on the card, chip_smoke.py
+phase 16b).
+
+  - `smallc_supported` equals the JAX rule over a grid of (cin, cout,
+    stride, k, transpose, ndim, depth), both sides of both thresholds.
+  - `conv_smallc` and `conv_transpose_smallc`: forward, dx, dW and db
+    against the JAX functions and `jax.vjp` at the shapes of
+    tests/test_shallow_grad.py (2D and 3D, odd extents, Cin = 1, k = 5),
+    float64 within 1e-10 relative and float32 within 1e-5 of each
+    gradient's norm; the plain versions in the JAX layout against the JAX
+    functions' own dW.
+  - The port's ConvUnit and ConvTransposeUnit route to the Functions at
+    exactly the convs where the JAX units route (each call's kind,
+    channels and input shape, counted on small 2D and 3D UNets, the depth
+    gate included), only when a gradient is taken.
+  - No weight-gradient work where the weight needs none; an exported
+    artifact still holds only aten ops.
+  - The kernel's plan at the routed sites of the main paths and at the
+    convs the rule routes beyond them (k = 1, 5, 7; a transposed input
+    deeper than one strip): a lane's float32 chain at most CHAIN, enough
+    blocks, the shared memory within an H100 block's, and what the C
+    entry checks of it. The plan's strips, depth tiles and gathered windows,
+    emulated in numpy, make the plain version's dW and db.
+"""
+
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import ctseg_tpu.ops.shallow_grad as jax_sg
+from ctseg_tpu.models import SegmentationModel as JaxSegmentationModel
+from ctseg_tpu_torch.inference import export
+from ctseg_tpu_torch.models import layers
+from ctseg_tpu_torch.models.unet import SegmentationModel
+from ctseg_tpu_torch.ops import shallow_grad as sg
+from ctseg_tpu_torch.training.config import TrainConfig
+
+CONV_CASES = [  # (N, *spatial), cin, cout, k: tests/test_shallow_grad.py's
+    ((2, 12, 10), 10, 10, 3),
+    ((2, 12, 10), 3, 10, 3),
+    ((3, 8, 10, 6), 10, 10, 3),
+    ((2, 9, 7, 5), 1, 12, 3),
+    ((2, 11, 9), 10, 4, 5),
+    ((2, 7, 5, 9), 10, 10, 5),
+]
+CONVT_CASES = [  # (N, *spatial), cin, cout
+    ((2, 8, 6), 12, 10),
+    ((2, 8, 6), 10, 10),
+    ((3, 6, 4, 3), 14, 10),
+    ((2, 5, 7, 3), 10, 2),
+    ((2, 5, 3), 1, 10),
+    ((1, 3, 5, 7), 1, 4),
+]
+DTYPES = {"float64": (np.float64, jnp.float64, torch.float64),
+          "float32": (np.float32, jnp.float32, torch.float32)}
+
+
+def _nchw(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(a).movedim(-1, 1).requires_grad_()
+
+
+def _nhwc(t: torch.Tensor) -> np.ndarray:
+    return t.detach().movedim(1, -1).numpy()
+
+
+def _assert_grad(got, want, dtype):
+    """float64: 1e-10 relative; float32: 1e-5 of the norm (the two
+    frameworks sum in other orders)."""
+    want = np.asarray(want, np.float64)
+    got = np.asarray(got, np.float64)
+    if dtype == "float64":
+        np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-10 * np.abs(
+            want).max())
+    else:
+        assert np.linalg.norm(got - want) <= 1e-5 * np.linalg.norm(want)
+
+
+@pytest.mark.parametrize("transpose,ndim", [(False, 2), (False, 3),
+                                            (True, 2), (True, 3)])
+def test_smallc_supported_equals_jax(transpose, ndim):
+    grid = itertools.product(
+        (1, 10, 15, 16, 17, 64), (1, 10, 16, 17, 128), (1, 2, 3), (1, 3, 4, 5),
+        (None, 1, 16, 63, 64, 65, 96))
+    for cin, cout, stride, k, depth in grid:
+        kw = dict(transpose=transpose, ndim=ndim, depth=depth)
+        assert sg.smallc_supported(cin, cout, stride, k, **kw) == \
+            jax_sg.smallc_supported(cin, cout, stride, k, **kw), (
+                cin, cout, stride, k, kw)
+    assert (sg.SMALLC_THRESHOLD, sg.SMALLC_MERGED_MAX_DEPTH) == (
+        jax_sg.SMALLC_THRESHOLD, jax_sg.SMALLC_MERGED_MAX_DEPTH)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape,cin,cout,k", CONV_CASES)
+def test_conv_smallc_matches_jax_vjp(shape, cin, cout, k, dtype):
+    npt, jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(0)
+    nd = len(shape) - 1
+    pad = (k - 1) // 2
+    x = rng.standard_normal(shape + (cin,)).astype(npt)
+    w = rng.standard_normal((k,) * nd + (cin, cout)).astype(npt)
+    b = rng.standard_normal((cout,)).astype(npt)
+    out, vjp = jax.vjp(lambda x_, w_, b_: jax_sg.conv_smallc(x_, w_, b_, 1,
+                                                             pad),
+                       jnp.asarray(x, jdt), jnp.asarray(w, jdt),
+                       jnp.asarray(b, jdt))
+    cot = rng.standard_normal(out.shape).astype(npt)
+    dx, dw, db = vjp(jnp.asarray(cot, jdt))
+
+    xt = _nchw(x)
+    wt = torch.from_numpy(w).permute(nd + 1, nd, *range(nd)).requires_grad_()
+    bt = torch.from_numpy(b).requires_grad_()
+    y = sg.conv_smallc(xt, wt, bt, 1, pad)
+    assert y.dtype == tdt
+    _assert_grad(_nhwc(y), out, dtype)  # the two frameworks' own convs
+    gx, gw, gb = torch.autograd.grad(y, (xt, wt, bt), _nchw(cot))
+    _assert_grad(_nhwc(gx), dx, dtype)
+    _assert_grad(gw.permute(*range(2, nd + 2), 1, 0).numpy(), dw, dtype)
+    _assert_grad(gb.numpy(), db, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape,cin,cout", CONVT_CASES)
+def test_conv_transpose_smallc_matches_jax_vjp(shape, cin, cout, dtype):
+    npt, jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(1)
+    nd = len(shape) - 1
+    x = rng.standard_normal(shape + (cin,)).astype(npt)
+    w = rng.standard_normal((3,) * nd + (cin, cout)).astype(npt)
+    b = rng.standard_normal((cout,)).astype(npt)
+    out, vjp = jax.vjp(
+        lambda x_, w_, b_: jax_sg.conv_transpose_smallc(x_, w_, b_, 2, 3),
+        jnp.asarray(x, jdt), jnp.asarray(w, jdt), jnp.asarray(b, jdt))
+    assert out.shape[1:-1] == tuple(2 * e for e in shape[1:])
+    cot = rng.standard_normal(out.shape).astype(npt)
+    dx, dw, db = vjp(jnp.asarray(cot, jdt))
+
+    # torch's (Cin, Cout, *k), the taps flipped (models/jax_import.py).
+    spatial = tuple(range(nd))
+    wt = torch.from_numpy(np.flip(w, spatial).copy()).permute(
+        nd, nd + 1, *spatial).requires_grad_()
+    xt, bt = _nchw(x), torch.from_numpy(b).requires_grad_()
+    y = sg.conv_transpose_smallc(xt, wt, bt, 2, 3)
+    assert y.dtype == tdt
+    _assert_grad(_nhwc(y), out, dtype)  # the two frameworks' own convs
+    gx, gw, gb = torch.autograd.grad(y, (xt, wt, bt), _nchw(cot))
+    _assert_grad(_nhwc(gx), dx, dtype)
+    _assert_grad(np.flip(gw.permute(*range(2, nd + 2), 0, 1).numpy(),
+                         spatial), dw, dtype)
+    _assert_grad(gb.numpy(), db, dtype)
+    # The plain version in the JAX layout is the JAX rule's dW.
+    plain = sg.convt_dw_plain(torch.from_numpy(x), torch.from_numpy(cot), 2,
+                              3).numpy()
+    _assert_grad(plain, dw, dtype)
+
+
+@pytest.mark.parametrize("shape,cin,cout,k", [c for c in CONV_CASES
+                                              if len(c[0]) == 4])
+def test_merged_fold_equals_the_jax_merged_fold(shape, cin, cout, k):
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal(shape + (cin,))
+    dy = rng.standard_normal(shape + (cout,))
+    want = jax_sg._dw_merged_3d(jnp.asarray(x), jnp.asarray(dy), (k - 1) // 2,
+                                k)
+    got = sg.dw_merged_3d_plain(torch.from_numpy(x), torch.from_numpy(dy),
+                                (k - 1) // 2, k)
+    _assert_grad(got.numpy(), want, "float64")
+
+
+# --------------------------------------------------------------- routing
+def _record_jax(monkeypatch):
+    calls = []
+    conv, convt = jax_sg.conv_smallc, jax_sg.conv_transpose_smallc
+
+    def rec_conv(x, w, b, stride, pad):
+        calls.append(("conv", x.shape[-1], w.shape[-1], tuple(x.shape[1:-1])))
+        return conv(x, w, b, stride, pad)
+
+    def rec_convt(x, w, b, stride, k, fwd_mode="native"):
+        calls.append(("convt", x.shape[-1], w.shape[-1],
+                      tuple(x.shape[1:-1])))
+        return convt(x, w, b, stride, k, fwd_mode)
+
+    monkeypatch.setattr(jax_sg, "conv_smallc", rec_conv)
+    monkeypatch.setattr(jax_sg, "conv_transpose_smallc", rec_convt)
+    return calls
+
+
+def _record_port(monkeypatch):
+    calls = []
+    conv, convt = layers.conv_smallc, layers.conv_transpose_smallc
+
+    def rec_conv(x, w, b, stride, pad):
+        calls.append(("conv", x.shape[1], w.shape[0], tuple(x.shape[2:])))
+        return conv(x, w, b, stride, pad)
+
+    def rec_convt(x, w, b, stride, k):
+        calls.append(("convt", x.shape[1], w.shape[1], tuple(x.shape[2:])))
+        return convt(x, w, b, stride, k)
+
+    monkeypatch.setattr(layers, "conv_smallc", rec_conv)
+    monkeypatch.setattr(layers, "conv_transpose_smallc", rec_convt)
+    return calls
+
+
+ROUTING = {  # name: (filters, num_res_units, (N, *spatial))
+    "2d": ((4, 8, 16), 2, (1, 16, 16)),
+    "2d_no_res_units": ((4, 8, 16), 0, (1, 16, 16)),
+    "3d": ((4, 8, 16), 2, (1, 16, 16, 8)),
+    "3d_no_res_units": ((4, 8, 16), 0, (1, 16, 16, 8)),
+    "3d_wide": ((16, 32, 64), 2, (1, 16, 16, 8)),
+    # depths 136, 68, 34: the plain convs route at the last only
+    "3d_depth_gate": ((4, 8, 16), 2, (1, 8, 8, 136)),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTING))
+def test_units_route_where_the_jax_units_route(monkeypatch, case):
+    filters, res, shape = ROUTING[case]
+    nd = len(shape) - 1
+    jcalls = _record_jax(monkeypatch)
+    jm = JaxSegmentationModel(
+        out_channels=10, channels=filters,
+        strides=(2,) * (len(filters) - 1), num_res_units=res,
+        dtype=jnp.float32, param_dtype=jnp.float32)
+    x = np.random.default_rng(3).normal(size=shape + (1,)).astype(np.float32)
+    # The JAX units route by shape at trace time: tracing alone records it.
+    params = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.asarray(x))
+    jcalls.clear()
+    jax.eval_shape(jm.apply, params, jnp.asarray(x))
+
+    pcalls = _record_port(monkeypatch)
+    model = SegmentationModel(1, 10, filters, num_res_units=res,
+                              spatial_dims=nd, device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+    xt = layers.channels_last(torch.from_numpy(x).movedim(-1, 1))
+    y = model(xt)
+    assert sorted(pcalls) == sorted(jcalls) and jcalls
+    y.square().mean().backward()  # the routed backward runs
+    assert all(p.grad is not None for p in model.parameters())
+    pcalls.clear()
+    with torch.no_grad():
+        model(xt)
+    model.requires_grad_(False)
+    model(xt)
+    assert pcalls == []  # no gradient taken: the plain calls
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_no_weight_gradient_work_without_a_weight_gradient(monkeypatch,
+                                                           transposed):
+    calls = []
+    real = sg.shallow_dw
+    monkeypatch.setattr(sg, "shallow_dw",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 6, 4, 4, 4, generator=g, dtype=torch.float64)
+    cout = 5
+    w = torch.randn((6, cout, 3, 3, 3) if transposed else (cout, 6, 3, 3, 3),
+                    generator=g, dtype=torch.float64)
+    b = torch.randn(cout, generator=g, dtype=torch.float64)
+
+    def run(x_, w_, b_):
+        if transposed:
+            return sg.conv_transpose_smallc(x_, w_, b_, 2, 3), \
+                torch.nn.functional.conv_transpose3d(x_, w_, b_, 2, 1, 1)
+        return sg.conv_smallc(x_, w_, b_, 1, 1), \
+            torch.nn.functional.conv3d(x_, w_, b_, 1, 1)
+
+    xg = x.clone().requires_grad_()
+    y, ref = run(xg, w, b)
+    (gx,) = torch.autograd.grad(y, xg, torch.ones_like(y))
+    (rx,) = torch.autograd.grad(run(xg, w, b)[1], xg, torch.ones_like(y))
+    assert calls == [] and torch.allclose(gx, rx, rtol=1e-12, atol=1e-12)
+    bg = b.clone().requires_grad_()
+    y, _ = run(x, w, bg)
+    (gb,) = torch.autograd.grad(y, bg, torch.ones_like(y))
+    assert calls == [1]
+    torch.testing.assert_close(gb, torch.full_like(gb, y[:, 0].numel()),
+                               rtol=1e-12, atol=1e-9)
+
+
+def test_export_holds_only_aten_ops(monkeypatch):
+    calls = _record_port(monkeypatch)
+    cfg = TrainConfig(filters=(4, 8, 16), num_res_units=2, spatial_dims=3,
+                      input_shape=(16, 16, 8), in_channels=1,
+                      volumetric_mode="patch", transform_degree=0)
+    model = SegmentationModel(1, 10, cfg.filters, num_res_units=2,
+                              spatial_dims=3, device="cpu",
+                              generator=torch.Generator().manual_seed(5))
+    assert all(p.requires_grad for p in model.parameters())
+    ep = export.export_patch_model(model, cfg, (16, 16, 8))
+    targets = {str(n.target) for n in ep.graph.nodes
+               if n.op == "call_function"}
+    assert all(t.startswith("aten.") or "getitem" in t for t in targets), \
+        targets
+    assert calls == []
+
+
+# The routed sites of the main paths (chip_smoke.py's SHALLOW_SITES), and
+# convs the rule routes beyond them: any odd k, a transposed input deeper
+# than one strip. (n, spatial, cin, cout, transposed, k)
+SITES = {
+    "bench_3d conv": (128, (128, 128, 16), 10, 10, False, 3),
+    "bench_3d transposed": (128, (64, 64, 8), 128, 10, True, 3),
+    "Model L transposed": (128, (128, 128), 128, 10, True, 3),
+    "model_3d transposed": (1, (128, 128, 48), 128, 10, True, 3),
+    "phase 18 conv": (2, (32, 32, 8), 16, 16, False, 3),
+    "phase 18 transposed": (2, (16, 16, 4), 64, 16, True, 3),
+    "k=1 conv at depth 64": (2, (16, 16, 64), 10, 10, False, 1),
+    "k=5 conv at depth 64": (2, (16, 16, 64), 10, 10, False, 5),
+    "k=7 conv at depth 64": (2, (16, 16, 64), 16, 16, False, 7),
+    "transposed from depth 400": (1, (8, 8, 400), 128, 10, True, 3),
+    "transposed from depth 5000": (1, (4, 4, 5000), 16, 16, True, 3),
+}
+
+
+@pytest.mark.parametrize("site", list(SITES))
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_the_kernel_plan_at_the_sites(site, itemsize):
+    n, spatial, cin, cout, transposed, k = SITES[site]
+    plan = sg.dw_plan(n, spatial, cin, cout, transposed, itemsize, k)
+    assert plan["chain"] <= sg.CHAIN
+    assert plan["blocks"] >= min(sg.MIN_BLOCKS, plan["blocks"] // plan[
+        "groups"] * n * spatial[0])
+    assert plan["smem_bytes"] <= sg.MAX_SHARED
+    s, t = sg.tiles(cin, cout, itemsize == 2)
+    assert s >= min(cout, 16) and s % 2 == 0 == t % 2
+    assert itemsize == 2 or s * t <= 128  # float32: accumulators a lane
+    flop, nbytes = sg.dw_work(n, spatial, cin, cout, transposed, k)
+    taps = k ** len(spatial)
+    assert 0 < flop <= 2 * n * np.prod(spatial) * taps * cin * cout + \
+        n * np.prod(spatial) * 2 ** len(spatial) * cout
+    _assert_plan_holds_the_kernel(plan, spatial, transposed, itemsize)
+
+
+def _assert_plan_holds_the_kernel(plan, spatial, transposed, itemsize):
+    """What csrc/shallow_dw.cu's C entry checks of the plan."""
+    nd, k, bf16 = len(spatial), plan["k"], itemsize == 2
+    e1, e2 = spatial[1], spatial[2] if nd == 3 else 1
+    s = 2 if transposed else 1
+    s2, taps2, tb0 = (s, k, 1) if nd == 3 else (1, 1, 3)
+    t1, t2 = plan["t1"], plan["t2"]
+    assert 1 <= t1 <= e1 and 1 <= t2 <= e2 and t1 * t2 <= 65536
+    assert t2 == e2 or t1 == 1  # d in tiles only one column at a time
+    tb, tg = (plan["t_tile"], plan["s_tile"]) if transposed else (
+        plan["s_tile"], plan["t_tile"])
+    if bf16:
+        assert plan["sb"] % 4 == plan["sg"] % 4 == 0 and min(
+            plan["sb"], plan["sg"]) >= 8
+    else:
+        assert plan["sb"] >= tb and plan["sg"] >= tg
+        assert plan["sb"] % 2 == plan["sg"] % 2 == 0
+    assert plan["base_words"] % 4 == plan["gath_words"] % 4 == 0
+    assert plan["base_words"] >= t1 * t2 * plan["sb"]
+    assert plan["gath_words"] >= tb0 * (s * (t1 - 1) + k) * (
+        s2 * (t2 - 1) + taps2) * plan["sg"]
+    assert 1 <= plan["groups"] <= 65535
+
+
+def _emulate(x, dy, transposed, plan):
+    """The kernel's decomposition in numpy, float64: strips of the base
+    operand (zero rows past the depth edge), each tap's gathered window
+    (zero outside the tensor and past the strip's last column), the base row
+    times the window row at s * voxel + tap, and db from the dy rows of the
+    taps csrc/shallow_dw.cu's db_tap names. x (n, *S, cin), dy (n, *S',
+    cout) -> dW (*k, cin, cout) in the kernel's unflipped tap order, db."""
+    nd = x.ndim - 2
+    if nd == 2:
+        x, dy = x[:, :, :, None], dy[:, :, :, None]
+    n, e0, e1, e2, _ = x.shape
+    k = plan["k"]
+    s, p = (2, 1) if transposed else (1, (k - 1) // 2)
+    taps2, s2, pd2 = (k, s, p) if nd == 3 else (1, 1, 0)
+    base, gath = (x, dy) if transposed else (dy, x)
+    f = gath.shape[1:4]
+    t1, t2 = plan["t1"], plan["t2"]
+    nw1, nw2 = -(-e1 // t1), -(-e2 // t2)
+    dw = np.zeros((k, k, taps2, x.shape[-1], dy.shape[-1]))
+    db = np.zeros(dy.shape[-1])
+    q = np.arange(t1 * t2)
+    r1, r2 = q // t2, q % t2
+    for qb in range(n * e0 * nw1 * nw2):
+        rest, dc = divmod(qb, nw2)
+        t, wc = divmod(rest, nw1)
+        nn, b0 = divmod(t, e0)
+        w0, d0 = wc * t1, dc * t2
+        t1c, t2c = min(t1, e1 - w0), min(t2, e2 - d0)
+        rows = np.zeros((t1 * t2, base.shape[-1]))
+        live = (r1 < t1c) & (r2 < t2c)
+        rows[live] = base[nn, b0, w0 + r1[live], d0 + r2[live]]
+        r1max, w2 = s * (t1 - 1) + k, s2 * (t2 - 1) + taps2
+        for t0 in range(k):
+            win = np.zeros((r1max, w2, gath.shape[-1]))
+            g0 = s * b0 - p + t0
+            for gl1 in range(min(r1max, s * (t1c - 1) + k)):
+                for gl2 in range(w2):
+                    g1, g2 = s * w0 - p + gl1, s2 * d0 - pd2 + gl2
+                    if 0 <= g0 < f[0] and 0 <= g1 < f[1] and 0 <= g2 < f[2]:
+                        win[gl1, gl2] = gath[nn, g0, g1, g2]
+            nq = t1c * t2
+            for ta in range(k):
+                for tb in range(taps2):
+                    g = win[s * r1[:nq] + ta, s2 * r2[:nq] + tb]
+                    b = rows[:nq]
+                    xs, ds = (b, g) if transposed else (g, b)
+                    dw[t0, ta, tb] += xs.T @ ds
+                    if (t0 >= 1 and ta >= 1 and (taps2 == 1 or tb >= 1)) \
+                            if transposed else t0 == ta == tb == p:
+                        db += ds.sum(0)
+    return (dw[:, :, 0] if nd == 2 else dw), db
+
+
+EMULATED = {  # (N, *spatial), cin, cout, transposed, k, strip
+    "conv k=3, whole columns": ((2, 3, 5, 4), 3, 4, False, 3, 8),
+    "conv k=3, depth tiles": ((1, 3, 4, 11), 3, 4, False, 3, 4),
+    "conv k=1, depth tiles": ((2, 2, 3, 10), 2, 3, False, 1, 4),
+    "conv k=5, depth tiles": ((1, 3, 4, 7), 2, 3, False, 5, 3),
+    "transposed 3D, whole columns": ((2, 3, 4, 3), 3, 2, True, 3, 8),
+    "transposed 3D, depth tiles": ((1, 2, 3, 10), 3, 2, True, 3, 4),
+    "transposed 2D": ((2, 5, 7), 3, 2, True, 3, 4),
+}
+
+
+@pytest.mark.parametrize("case", list(EMULATED))
+def test_the_plans_strips_and_windows_make_the_weight_gradient(monkeypatch,
+                                                               case):
+    shape, cin, cout, transposed, k, strip = EMULATED[case]
+    monkeypatch.setattr(sg, "STRIPS", {4: (strip,)})
+    rng = np.random.default_rng(6)
+    spatial = shape[1:]
+    osp = tuple(e * (2 if transposed else 1) for e in spatial)
+    x = rng.standard_normal(shape + (cin,))
+    dy = rng.standard_normal((shape[0],) + osp + (cout,))
+    plan = sg.dw_plan(shape[0], spatial, cin, cout, transposed, 4, k)
+    assert plan["strip"] == strip
+    _assert_plan_holds_the_kernel(plan, spatial, transposed, 4)
+    dw, db = _emulate(x, dy, transposed, plan)
+    pdw, pdb = sg.shallow_dw(_nchw(x).detach(), _nchw(dy).detach(),
+                             transposed, k)
+    nd = len(spatial)
+    # torch's layout -> (*k, ci, co), the taps as the kernel indexes them.
+    want = pdw.permute(*range(2, nd + 2), 0, 1) if transposed else \
+        pdw.permute(*range(2, nd + 2), 1, 0)
+    _assert_grad(dw, want.numpy(), "float64")
+    _assert_grad(db, pdb.numpy(), "float64")
