@@ -47,8 +47,9 @@ Phases (any failure raises and the script exits non-zero):
      PackedDataset2D of 2x128 slices of 280x280 (as bench.py makes it):
      Trainer.fit for one epoch with a validation pipeline, then 2 warm-up
      and 5 timed train_steps. Each step must launch K4 once, K1 and K1b 8
-     times, K2 and K2b 9 times, the shallow weight gradient once (the top
-     transposed conv); the loss must be finite and fall over 5
+     times, K2 and K2b 9 times, the transposed conv's weight gradient
+     (csrc/shallow_dwt.cu) once and the stride-1 one (csrc/shallow_dw.cu)
+     never; the loss must be finite and fall over 5
      steps on one fixed batch (fixed draws). The trained state is saved
      with training/checkpoint.py and SegmentationService serves one scan
      from it. Then the step's parts, each alone (CUDA events), and its
@@ -85,7 +86,8 @@ Phases (any failure raises and the script exits non-zero):
      for one epoch with validation, then 2 warm-up and 5 timed train_steps
      on one fixed batch with fixed draws. Each step must launch K4 once, K1
      and K1b 8 times, K2 and K2b 4 times and the row scan, K5, the signed
-     map and the shallow weight gradient once each; the loss must be finite
+     map and the transposed conv's weight gradient once each; the loss must
+     be finite
      and fall. The step's parts are
      timed one by one.
  15. Evaluate: the trained Model M checkpoint through evaluate_2d with HD95
@@ -99,19 +101,19 @@ Phases (any failure raises and the script exits non-zero):
      bfloat16, against their plain versions as in phase 6; per site the
      training forward's and K1b's time beside their bytes' bound and the
      plain version's, and F.instance_norm alone (a yardstick).
- 16b. The shallow weight gradient (csrc/shallow_dw.cu, ops/shallow_grad.py)
-     at the four routed sites (bench_3d's 10 -> 10 conv and 128 -> 10
-     transposed conv at batch 128, Model L's 2D 128 -> 10 transposed conv
-     at batch 128, model_3d's transposed conv at batch 1), float32 and
-     bfloat16, and at the SHALLOW_ROUTED convs the rule routes beyond them
-     (k = 5 and k = 1, a transposed input 400 deep, odd channels), each at
-     its own batch: the kernel and its plain version on the same tensors
-     against a float64 referee (aten.convolution_backward), each error
-     relative to the sum of its terms' magnitudes, the kernel's within
-     SHALLOW_FACTOR of the plain version's (dW and db); two runs
-     torch.equal and the kernel's time beside its bound, the plain
-     version's and cuDNN's weight-only time on contiguous and channels_last
-     input (the `SHALLOW_SITES` JSON line).
+ 16b. The shallow weight gradients (ops/shallow_grad.py): csrc/shallow_dw.cu
+     at bench_3d's 10 -> 10 conv (batch 128), csrc/shallow_dwt.cu at the
+     three routed transposed convs (bench_3d's and Model L's 2D 128 -> 10
+     at batch 128, model_3d's at batch 1), float32 and bfloat16, and at the
+     SHALLOW_ROUTED convs the rule routes beyond them (k = 5 and k = 1, a
+     transposed input 400 deep, odd channels), each at its own batch: one
+     launch of the map's own kernel a call, the kernel and its plain
+     version on the same tensors against a float64 referee
+     (aten.convolution_backward), each error relative to the sum of its
+     terms' magnitudes, the kernel's within SHALLOW_FACTOR of the plain
+     version's (dW and db); two runs torch.equal and the kernel's time
+     beside its bound, the plain version's and cuDNN's weight-only time on
+     contiguous and channels_last input (the `SHALLOW_SITES` JSON line).
  17. Train 3D, bench.py's second line: the 3D UNet (filters 64..1024, 2
      residual units, 1 -> 10 channels), CrossEntropy+Dice, patch mode
      (soft-tissue window, H and W flips) on 4 synthetic volumes of
@@ -119,8 +121,9 @@ Phases (any failure raises and the script exits non-zero):
      (128, 128, 16): Trainer.fit for one epoch (2 steps and a validation
      batch), then 5 timed steps on fresh sampled batches, in float32 (at
      the largest batch up to 128 that fits) and bfloat16. Each step must
-     launch K1 and K1b 17 times, the shallow weight gradient twice (the top
-     transposed conv and the 10 -> 10 conv) and no other kernel. Patch
+     launch K1 and K1b 17 times, each shallow weight gradient once (the top
+     transposed conv's csrc/shallow_dwt.cu, the 10 -> 10 conv's
+     csrc/shallow_dw.cu) and no other kernel. Patch
      sampling alone, peak memory, the float32 step by part and by group of
      kernels; its profile may hold at most 2 launches of cuDNN's
      wgrad2d_grouped_direct_kernel a step (the stems; the routed sites none).
@@ -128,9 +131,9 @@ Phases (any failure raises and the script exits non-zero):
      (filters 16..256, 2 patches of 64x64x16).
  19. The model_3d preset (resize mode, batch 1, volumes resized to
      256x256x96, raw HU, CrossEntropy): Trainer.fit for one epoch of 2
-     volumes, then 3 timed steps; the same launches per step but one of the
-     shallow weight gradient (the 10 -> 10 conv runs at depth 96, beyond the
-     routed 64). K1's training
+     volumes, then 3 timed steps; the same launches per step but none of the
+     stride-1 conv's weight gradient (the 10 -> 10 conv runs at depth 96,
+     beyond the routed 64). K1's training
      forward and K1b held to their plain versions, as in phase 16, at each
      shape the step gave K1 (recorded at the call in a warm-up step: batch
      1 x 128x128x48x64 down to 16x16x6x1024, and 256x256x96x10).
@@ -1134,6 +1137,7 @@ def _counters():
 
     return {
         "shallow": shallow_grad.shallow_dw,
+        "shallow_t": shallow_grad.shallow_dwt,
         "scan": edt.row_scan,
         "signed": edt.signed_map,
         "k4": preprocess.window_normalize_degree2,
@@ -1161,13 +1165,15 @@ def read_launches():
     return {k: fn.launches for k, fn in _counters().items()}
 
 
+# shallow: csrc/shallow_dw.cu (the stride-1 3D conv), shallow_t:
+# csrc/shallow_dwt.cu (the top transposed conv).
 PER_STEP = {"k4": 1, "k1": 8, "k1b": 8, "k2": 9, "k2b": 9, "k5": 0,
-            "scan": 0, "signed": 0, "shallow": 1}
+            "scan": 0, "signed": 0, "shallow": 0, "shallow_t": 1}
 # Model M: 1 residual unit leaves 4 stride-1 units (the bottom's and the 3
 # non-top decoder levels'); one launch each of the row scan, K5 and the
 # signed-map kernel makes both signs of all 128 x 9 distance maps.
 PER_STEP_M = {"k4": 1, "k1": 8, "k1b": 8, "k2": 4, "k2b": 4, "k5": 1,
-              "scan": 1, "signed": 1, "shallow": 1}
+              "scan": 1, "signed": 1, "shallow": 0, "shallow_t": 1}
 
 
 # Kernel-name fragments -> the group a train step's device time is summed
@@ -1182,6 +1188,7 @@ KERNEL_GROUPS = (
     ("in_prelu_fwd_", "K1"),
     ("window_normalize_kernel", "K4"),
     ("min_plus_kernel", "K5"),
+    ("shallow_dwt_", "shallow dW, transposed"),
     ("shallow_dw_", "shallow dW"),
     ("row_scan_kernel", "EDT row scan"),
     ("signed_map_kernel", "EDT signed map"),
@@ -1941,7 +1948,7 @@ def phase_evaluate(label, ckpt_path: Path):
     k5_launches = launches["k5"]
     want = {"k4": 0, "k1": 8 * batches, "k1b": 0, "k2": 4 * batches,
             "k2b": 0, "k5": batches, "scan": batches, "signed": 0,
-            "shallow": 0}
+            "shallow": 0, "shallow_t": 0}
     if launches != want:
         raise AssertionError(f"evaluate_2d launched {launches} over "
                              f"{batches} batches; want {want}")
@@ -2075,11 +2082,11 @@ K1_SITES_3D = {
     (128, 128, 16, 10): 1,  # up0 transposed conv
 }
 PER_STEP_3D = {"k4": 0, "k1": 17, "k1b": 17, "k2": 0, "k2b": 0, "k5": 0,
-               "scan": 0, "signed": 0, "shallow": 2}
+               "scan": 0, "signed": 0, "shallow": 1, "shallow_t": 1}
 # model_3d: its 10 -> 10 conv runs at depth 96, beyond the routed depths
 # (ops/shallow_grad.py::SMALLC_MERGED_MAX_DEPTH), so only the top transposed
-# conv launches the shallow weight gradient.
-PER_STEP_RESIZE_3D = dict(PER_STEP_3D, shallow=1)
+# conv launches a shallow weight gradient.
+PER_STEP_RESIZE_3D = dict(PER_STEP_3D, shallow=0)
 GRAD_FILTERS_3D = (16, 32, 64, 128, 256)  # phase 18's reduced width
 GRAD_PATCH_3D = (64, 64, 16)
 RESIZE_STEPS = 3        # phase 19's timed steps of the model_3d preset
@@ -2221,8 +2228,10 @@ def phase_k1_3d(label, gen):
     return tot, worst
 
 
-# Phase 16b: csrc/shallow_dw.cu at the routed sites of the main paths:
-# (name, transposed, batch, x's spatial extents, Cin, Cout).
+# Phase 16b: the shallow weight gradients at the routed sites of the main
+# paths, csrc/shallow_dw.cu (the stride-1 conv) and csrc/shallow_dwt.cu
+# (the transposed convs): (name, transposed, batch, x's spatial extents,
+# Cin, Cout).
 SHALLOW_SITES = (
     ("bench_3d up0 residual unit, 10 -> 10 conv", False, TRAIN_BATCH,
      (128, 128, 16), 10, 10),
@@ -2234,9 +2243,10 @@ SHALLOW_SITES = (
      128, 10),
 )
 # Convs the routing rule (ops/shallow_grad.py::smallc_supported) sends to
-# the kernel beyond the main paths' sites, in both types: other odd k, a
+# the kernels beyond the main paths' sites, in both types: other odd k, a
 # transposed input deeper than one strip (depth tiles), and odd channels
-# (bfloat16 widens them to the float32 kernel). (name, transposed, batch,
+# (csrc/shallow_dwt.cu takes them in bfloat16 as they are; the stride-1
+# kernel widens bfloat16 to its float32 kernel). (name, transposed, batch,
 # x's spatial extents, Cin, Cout, k)
 SHALLOW_ROUTED = (
     ("k=5 conv 10 -> 10 at depth 64", False, 2, (32, 32, 64), 10, 10, 5),
@@ -2282,14 +2292,18 @@ def _relative_err(got, ref, mag):
 
 
 def phase_shallow_dw(label, gen):
-    """csrc/shallow_dw.cu (ops/shallow_grad.py::shallow_dw) at the four
-    routed sites of the main paths and the SHALLOW_ROUTED convs, float32
-    and bfloat16, each at its own batch: the kernel and the plain version
-    on the same tensors against a float64 referee (SHALLOW_FACTOR), and
-    against each other; two runs torch.equal, finite; the kernel's time
-    beside its bound, the plain version's, and cuDNN's weight-only
-    aten.convolution_backward on contiguous and on channels_last input (a
-    yardstick the port never calls at a routed site)."""
+    """The shallow weight gradients (ops/shallow_grad.py::shallow_dw: the
+    stride-1 conv's csrc/shallow_dw.cu, the transposed conv's
+    csrc/shallow_dwt.cu) at the four routed sites of the main paths and the
+    SHALLOW_ROUTED convs, float32 and bfloat16, each at its own batch: the
+    kernel and the plain version on the same tensors against a float64
+    referee (SHALLOW_FACTOR), and against each other; one launch of the
+    map's own kernel a call and none of the other's; two runs torch.equal,
+    finite; the kernel's time beside its bound, the plain version's, and
+    cuDNN's weight-only aten.convolution_backward on contiguous and on
+    channels_last input (a yardstick the port never calls at a routed
+    site). The transposed kernel's float32 bound is its split-TF32 work (3
+    tensor-core products a product at 495 TFLOP/s) or its bytes."""
     import torch
     from ctseg_tpu_torch.models.layers import channels_last
     from ctseg_tpu_torch.ops import shallow_grad as sg
@@ -2307,7 +2321,14 @@ def phase_shallow_dw(label, gen):
                                           device=DEVICE).to(dtype))
             dy = channels_last(torch.randn((n, cout) + osp, generator=gen,
                                            device=DEVICE).to(dtype))
+            reset_launches()
             dw, db = sg.shallow_dw(x, dy, transposed, k)
+            seen = read_launches()
+            want = {"shallow": 0, "shallow_t": 1} if transposed else \
+                {"shallow": 1, "shallow_t": 0}
+            if {key: seen[key] for key in want} != want:
+                raise AssertionError(f"shallow_dw {name} {dname}: launches "
+                                     f"{seen}; want {want}")
             dw2, db2 = sg.shallow_dw(x, dy, transposed, k)
             torch.cuda.synchronize()
             if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
@@ -2359,9 +2380,14 @@ def phase_shallow_dw(label, gen):
                                         1 if first > 0.2 else 3)
                 del xx, gg
             scale = x.element_size() / 4
-            b = bound_ms(flop, nbytes32 * scale,
-                         PEAK_FLOPS if dtype == torch.float32 else PEAK_BF16)
+            if dtype == torch.bfloat16:
+                b = bound_ms(flop, nbytes32 * scale, PEAK_BF16)
+            elif transposed:  # split TF32 on the tensor cores
+                b = bound_ms(3 * flop, nbytes32, PEAK_TF32)
+            else:
+                b = bound_ms(flop, nbytes32, PEAK_FLOPS)
             row = {"site": name, "main_path": main, "dtype": dname,
+                   "kernel": "shallow_dwt" if transposed else "shallow_dw",
                    "batch": n, "k": k, "ms": t_k, "bound_ms": b[0],
                    "bound_by": b[1], "plain_ms": t_p,
                    "library_ms": t_lib["contiguous"],
@@ -2389,13 +2415,19 @@ def phase_shallow_dw(label, gen):
             del x, dy, dw, db, w
             torch.cuda.empty_cache()
     print("SHALLOW_SITES " + json.dumps(out["sites"]))
-    for dname in ("float32", "bfloat16"):
-        rows = [r for r in out["sites"]
-                if r["dtype"] == dname and r["main_path"]]
-        out[dname] = {k: sum(r[k] for r in rows) for k in (
-            "ms", "bound_ms", "plain_ms", "library_ms",
-            "library_ms_channels_last")}
-        out[dname]["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    # Each kernel's sums over its main-path sites, by type; bound_by is that
+    # of its largest bound there.
+    for kernel in ("shallow_dw", "shallow_dwt"):
+        for dname in ("float32", "bfloat16"):
+            rows = [r for r in out["sites"] if r["dtype"] == dname
+                    and r["main_path"] and r["kernel"] == kernel]
+            tot = {k: sum(r[k] for r in rows) for k in (
+                "ms", "bound_ms", "plain_ms", "library_ms",
+                "library_ms_channels_last")}
+            tot["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+            tot["bound_by"] = max(rows, key=lambda r: r["bound_ms"])[
+                "bound_by"]
+            out[kernel, dname] = tot
     return out
 
 
@@ -2796,7 +2828,8 @@ def phase_evaluate_3d(label, ckpt: Path):
         // EVAL_BATCH_3D) for d, h, w in (v.shape for v in data.images))
     n = len(data.images)
     want = {"k4": 0, "k1": 17 * batches, "k1b": 0, "k2": 0, "k2b": 0,
-            "k5": 2 * n, "scan": n, "signed": 0, "shallow": 0}
+            "k5": 2 * n, "scan": n, "signed": 0, "shallow": 0,
+            "shallow_t": 0}
     if launches != want:
         raise AssertionError(f"3D evaluation launched {launches} over {n} "
                              f"volumes, {batches} window batches; want {want}")
@@ -3546,8 +3579,8 @@ def phase_export(label, workdir: Path, ckpt: Path, scan: Path, ckpt_3d: Path):
                 got = fn(x32[:n]).cpu().numpy()
             seen = read_launches()
             if (seen["k1"], seen["k2"]) != want[kind] or seen[
-                    "shallow"] != 0 or got.shape != (
-                    n, *EXPORT_SLICE) or got.dtype != np.uint8:
+                    "shallow"] != 0 or seen["shallow_t"] != 0 or \
+                    got.shape != (n, *EXPORT_SLICE) or got.dtype != np.uint8:
                 raise AssertionError(
                     f"{kind} artifact, batch {n}: K1/K2 launches "
                     f"{seen['k1']}/{seen['k2']} (want {want[kind]}), "
@@ -3619,6 +3652,7 @@ def phase_export(label, workdir: Path, ckpt: Path, scan: Path, ckpt_3d: Path):
     err3 = float(((got3.float() - ref3.float()).abs()
                   / (1 + ref3.float().abs())).max())
     if seen3["k1"] != PER_STEP_3D["k1"] or seen3["shallow"] != 0 or \
+            seen3["shallow_t"] != 0 or \
             got3.shape != (
             EVAL_BATCH_3D, *EVAL_PATCH_3D, 10) or not err3 <= LOGIT_TOL:
         raise AssertionError(f"3D artifact: {seen3['k1']} K1 launches, "
@@ -3717,7 +3751,7 @@ def phase_gradcam(label, workdir: Path, ckpt: Path, data_dir: Path):
     # The shallow weight gradient: none, GradCAM's parameters take no
     # gradient (interpret/gradcam.py freezes them).
     want = {"k1": 8, "k2": 9, "k1b": 9 * k1_sites, "k2b": 9 * k2_sites,
-            "shallow": 0}
+            "shallow": 0, "shallow_t": 0}
     if done != GRADCAM_SAMPLES or any(seen[k] != v * batches
                                       for k, v in want.items()):
         raise AssertionError(f"GradCAM: {done} samples, launches {seen} "
@@ -4609,45 +4643,52 @@ def main() -> int:
             "ms_4_slabs": four["tot"]["ms"][key],
             "plain_ms_4_slabs": four["tot"]["plain_ms"][key],
             "bound_ms_4_slabs": four["tot"]["bound_ms"][key]})
-    # Phase 16b: the shallow weight gradient (csrc/shallow_dw.cu), one
-    # entry: ms, plain_ms, bound_ms and library_ms summed over the four
-    # routed sites of the main paths, each at its own batch; its main path
-    # is the bench_3d float32 step.
-    f32, b16 = shallow["float32"], shallow["bfloat16"]
-    kernels.append({
-        "name": "shallow_dw", "route": "cuda",
-        "source": "ctseg_tpu_torch/csrc/shallow_dw.cu",
-        "replaces": "ctseg_tpu/ops/shallow_grad.py:238, 314 (jnp custom "
-                    "VJPs, no Pallas kernel)",
-        "launches": train_3d_launches["shallow"],
-        "launches_3d_bf16": train_3d_bf16_launches["shallow"],
-        "launches_model_3d": resize_3d["launches"]["shallow"],
-        "launches_model_l": launches["shallow"],
-        "launches_model_m": launches_m["shallow"],
-        "launches_eval": launches_eval["shallow"],
-        "launches_3d_eval": launches_eval_3d["shallow"],
-        "launches_degree0": launches_d0["shallow"],
-        "launches_export": exported["launches"]["kernel"]["shallow"],
-        "launches_gradcam": cams["launches_per_batch"]["shallow"],
-        "launches_dp_nccl": dp["launches"]["shallow"],
-        "launches_dp_3d": dp["launches_3d"]["shallow"],
-        "launches_dp_gloo_rank0": gloo["launches"]["shallow"],
-        "max_abs_err": f32["max_abs_err"],
-        "max_abs_err_bf16": b16["max_abs_err"],
-        "ms": f32["ms"], "plain_ms": f32["plain_ms"],
-        "bound_ms": f32["bound_ms"], "bound_by": "operations",
-        "library_ms": f32["library_ms"],
-        "library_ms_channels_last": f32["library_ms_channels_last"],
-        "ms_bf16": b16["ms"], "plain_ms_bf16": b16["plain_ms"],
-        "bound_ms_bf16": b16["bound_ms"], "bound_by_bf16": "bytes",
-        "library_ms_bf16": b16["library_ms"],
-        "library_ms_channels_last_bf16": b16["library_ms_channels_last"],
-        "sites": {f"{r['site']} {r['dtype']}": {
-            k: r[k] for k in ("ms", "bound_ms", "plain_ms", "library_ms",
-                              "library_ms_channels_last", "rel_err_dw",
-                              "rel_err_dw_plain", "rel_err_db",
-                              "rel_err_db_plain")}
-            for r in shallow["sites"]}})
+    # Phase 16b: the shallow weight gradients, one entry a kernel: ms,
+    # plain_ms, bound_ms and library_ms summed over the kernel's routed
+    # sites of the main paths, each at its own batch (csrc/shallow_dw.cu:
+    # bench_3d's 10 -> 10 conv; csrc/shallow_dwt.cu: the three transposed
+    # convs); launches on every path, the first of the bench_3d float32
+    # step.
+    paths = {
+        "launches": train_3d_launches,
+        "launches_3d_bf16": train_3d_bf16_launches,
+        "launches_model_3d": resize_3d["launches"],
+        "launches_model_l": launches, "launches_model_m": launches_m,
+        "launches_eval": launches_eval, "launches_3d_eval": launches_eval_3d,
+        "launches_degree0": launches_d0,
+        "launches_export": exported["launches"]["kernel"],
+        "launches_gradcam": cams["launches_per_batch"],
+        "launches_dp_nccl": dp["launches"],
+        "launches_dp_3d": dp["launches_3d"],
+        "launches_dp_gloo_rank0": gloo["launches"]}
+    for name, key, src, replaces in (
+            ("shallow_dw", "shallow", "shallow_dw.cu",
+             "ctseg_tpu/ops/shallow_grad.py:238 (jnp custom VJP "
+             "_conv_smallc_bwd, no Pallas kernel)"),
+            ("shallow_dwt", "shallow_t", "shallow_dwt.cu",
+             "ctseg_tpu/ops/shallow_grad.py:314 (jnp custom VJP "
+             "_convt_smallc_bwd, no Pallas kernel)")):
+        f32, b16 = shallow[name, "float32"], shallow[name, "bfloat16"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"ctseg_tpu_torch/csrc/{src}", "replaces": replaces,
+            **{path: seen[key] for path, seen in paths.items()},
+            "max_abs_err": f32["max_abs_err"],
+            "max_abs_err_bf16": b16["max_abs_err"],
+            "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+            "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+            "library_ms": f32["library_ms"],
+            "library_ms_channels_last": f32["library_ms_channels_last"],
+            "ms_bf16": b16["ms"], "plain_ms_bf16": b16["plain_ms"],
+            "bound_ms_bf16": b16["bound_ms"], "bound_by_bf16": b16["bound_by"],
+            "library_ms_bf16": b16["library_ms"],
+            "library_ms_channels_last_bf16": b16["library_ms_channels_last"],
+            "sites": {f"{r['site']} {r['dtype']}": {
+                k: r[k] for k in ("ms", "bound_ms", "plain_ms", "library_ms",
+                                  "library_ms_channels_last", "rel_err_dw",
+                                  "rel_err_dw_plain", "rel_err_db",
+                                  "rel_err_db_plain")}
+                for r in shallow["sites"] if r["kernel"] == name}})
     print(f"(launches: phase 9's {TIMED_STEPS} timed Model L train steps, for "
           f"K5 and the EDT kernels phase 14's {TIMED_STEPS} Model M steps; "
           "launches_model_m: phase 14's; launches_serve: phase 4's requests; "
@@ -4691,11 +4732,12 @@ def main() -> int:
           f"{BATCH} (launches_export_portable: the portable one's, "
           "launches_export_3d: the 3D patch scorer's at batch "
           f"{EVAL_BATCH_3D}); launches_gradcam: one batch of "
-          f"{GRADCAM_BATCH} of phase 28's GradCAM; shallow_dw: launches "
+          f"{GRADCAM_BATCH} of phase 28's GradCAM; shallow_dw (the "
+          "stride-1 conv) and shallow_dwt (the transposed convs): launches "
           f"over phase 17's {TIMED_STEPS} timed float32 bench_3d steps, "
           "launches_model_3d phase 19's, ms/plain_ms/bound_ms/library_ms "
-          "summed over phase 16b's four routed sites of the main paths at "
-          "their own batches (library_ms: cuDNN's weight-only "
+          "summed over phase 16b's routed sites of the kernel on the main "
+          "paths at their own batches (library_ms: cuDNN's weight-only "
           "aten.convolution_backward, contiguous and channels_last), "
           "max_abs_err |kernel - plain| there)")
     # The train transforms of degrees 0, 1, 3 and 4 replace no TPU kernel

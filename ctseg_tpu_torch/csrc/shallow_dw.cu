@@ -1,37 +1,27 @@
-// Shallow-channel weight gradients: dW and db of the convs that run with
-// few channels at the top of the decoder, from x and dy in their
-// (N, *spatial, C) channels_last views.
+// Shallow-channel weight gradient of the stride-1 3D conv: dW and db of
+// the conv that runs with few channels at the top of the decoder, from x
+// and dy in their (N, *spatial, C) channels_last views.
 //
-// Replaces: the weight-gradient halves of the custom VJPs in
-// ctseg_tpu/ops/shallow_grad.py, which are jnp formulations, not Pallas
-// kernels: `_conv_smallc_bwd` (the 3D stride-1 conv, dW through the merged
-// (D, C) fold `_dw_merged_3d`) and `_convt_smallc_bwd` (the k=3, s=2
-// transposed conv, dW as a dilated-rhs conv with the batch contracted). Both
-// compute, with t a tap (kh, kw, kd) of the kernel,
-//   dW[t, ci, co] = sum over (n, voxel) of x[n, p(voxel, t), ci] * dy[n, q(voxel, t), co]
-//   db[co]        = sum over (n, voxel) of dy[n, voxel, co]
-// with two index maps (torch's conventions, out-of-range taps read zero):
-//   - the stride-1 3D conv, any odd k, pad p = (k - 1) / 2: x at o + t - p,
-//     dy at o, over dy's voxels o;
-//   - the transposed conv, k = 3, s = 2, pad 1, output padding 1 (torch's
-//     out[o] += x[i] * w[t] for o = 2i - 1 + t): x at i, dy at 2i - 1 + t,
-//     over x's voxels i; in 2D the depth axis has one tap and stride 1.
-// These are every conv the JAX rule (`smallc_supported`) routes. The
-// layouts follow: the conv's dW is written as torch's (Cout, Cin, *k)
-// weight, the transposed conv's as (Cin, Cout, *k).
+// Replaces: the weight-gradient half of `_conv_smallc_bwd` in
+// ctseg_tpu/ops/shallow_grad.py (a jnp custom VJP, not a Pallas kernel: dW
+// through the merged (D, C) fold `_dw_merged_3d`). With t a tap (kh, kw,
+// kd) of an odd k, pad p = (k - 1) / 2 (torch's conventions, out-of-range
+// taps read zero),
+//   dW[t, ci, co] = sum over (n, o) of x[n, o + t - p, ci] * dy[n, o, co]
+//   db[co]        = sum over (n, o) of dy[n, o, co]
+// over dy's voxels o, written as torch's (Cout, Cin, *k) weight. The k = 3,
+// s = 2 transposed conv that the same rule (`smallc_supported`) routes has
+// its own kernel, csrc/shallow_dwt.cu.
 //
-// One formulation serves both maps: a "base" operand read at the voxel (dy
-// for the conv, x for the transposed conv) and a "gathered" one read at
-// s * voxel - pad + tap on each axis.
+// dy is the "base" operand, read at the voxel; x the "gathered" one, read
+// at voxel - pad + tap on each axis.
 //
-// What bounds it on an H100: in float32, operations. At the bench_3d sites
-// (batch 128) the 10 -> 10 conv does 172 GFLOP against 2.7 GB of x and dy,
-// the 128 -> 10 transposed conv 275 GFLOP against 3.5 GB: 64 and 79 FLOP a
-// byte, above the FP32 pipes' 20 (67 TFLOP/s over 3.35 TB/s), bounds of
-// 2.57 and 4.11 ms. cuDNN's FP32 weight gradient takes 511-541 ms at each
-// (4,300-4,650 ms for the transposed conv on channels_last input): with 10
-// channels its GEMM's N dimension is 10 wide. In bfloat16 the bound is the
-// bytes (0.40 and 0.52 ms at 989 TFLOP/s).
+// What bounds it on an H100: in float32, operations. At the bench_3d site
+// (batch 128) the 10 -> 10 conv does 172 GFLOP against 2.7 GB of x and dy:
+// 64 FLOP a byte, above the FP32 pipes' 20 (67 TFLOP/s over 3.35 TB/s), a
+// bound of 2.57 ms. cuDNN's FP32 weight gradient takes 511-541 ms there:
+// with 10 channels its GEMM's N dimension is 10 wide. In bfloat16 the bound
+// is the bytes (0.40 ms at 989 TFLOP/s).
 //
 // Design (a first version that is right, not yet near its bound):
 //   - float32: an implicit GEMM on the FP32 pipes, M = taps x Cin,
@@ -47,14 +37,13 @@
 //     ldmatrix.trans (rows of 16 values at a 48-byte stride: no bank
 //     conflicts), and the tensor cores' sums are added into float32
 //     registers once a strip, so their own accumulation chain is short.
-//   - A block is 9 warps on consecutive taps: in 3D the (kw, kd) taps of
-//     one kh (k * k of them, 9 at k = 3, in ceil(k * k / 9) blocks), in 2D
-//     all 9 taps, for one (Cin tile, Cout tile). It walks a strip of voxels
-//     at a time: one (n, h) row of the base operand, t1 columns of w and t2
-//     depths (all of d where a column fits, else t1 = 1 and d in tiles,
-//     the last tile's missing depths on zero rows), staged in shared memory
-//     with the gathered operand's window around it (zero where it leaves
-//     the tensor, so the inner loop has no bounds checks), double-buffered
+//   - A block is 9 warps on consecutive taps: the (kw, kd) taps of one kh
+//     (k * k of them, 9 at k = 3, in ceil(k * k / 9) blocks), for one (Cin
+//     tile, Cout tile). It walks a strip of voxels at a time: one (n, h)
+//     row of the base operand, t1 columns of w and all t2 = d depths,
+//     staged in shared memory with the gathered operand's window around it
+//     (zero where it leaves the tensor, so the inner loop has no bounds
+//     checks), double-buffered
 //     by 4-byte cp.async so a strip copies while the last one computes (the
 //     contiguous base rows word by word across the lanes, the window a
 //     thread a row). The strip is 1024 voxels or the most that fits a block
@@ -68,14 +57,13 @@
 //     Cout); db's lane sums are float32 over 4 voxels (bfloat16: a strip)
 //     and float64 from there on; the finalize launch sums the G partials in group order in
 //     float64 and writes dW (and db, from the dy rows that cover each voxel
-//     once) in w's type. The grid is sized by the outputs (the transposed
-//     site's 27 x 128 x 10 tile into 3 x 13 blocks a group in float32) and
-//     by G, not by the SMs alone.
+//     once) in w's type. The grid is sized by the outputs (27 x 10 x 10
+//     taps, Cin and Cout into 3 blocks a group in float32) and by G, not by
+//     the SMs alone.
 // Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py phase 16b and
-// csrc/tools/sweep_shallow_dw.py): float32 11.0 ms at the 10 -> 10 conv
-// and 23.1 at the bench_3d transposed conv, 0.18-0.23 of the bound (db's
-// float64 flushes every kDbChain voxels take 6-9% of it); bfloat16 7.7 and
-// 10.6. What bounds it is not settled. Not the number of
+// csrc/tools/sweep_shallow_dw.py): float32 11.0 ms at the 10 -> 10 conv,
+// 0.23 of the bound (db's float64 flushes every kDbChain voxels take 6-9%
+// of it); bfloat16 7.7. What bounds it is not settled. Not the number of
 // copy instructions: copying only a row's channel words, at 8 or 16 bytes
 // where aligned, moved the sites by -8% to +5% (PERF.md, ROADMAP.md).
 #include "common.cuh"
@@ -128,113 +116,78 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
 
 struct Geom {
   const uint32_t* x;   // (n, e0, e1, e2, cin) as 4-byte words
-  const uint32_t* dy;  // (n, f0, f1, f2, cout) for the transposed conv,
-                       // (n, e0, e1, e2, cout) for the conv
+  const uint32_t* dy;  // (n, e0, e1, e2, cout)
   float* part;         // (groups, taps, cip, cop)
   double* dbpart;      // (groups, taps, cop)
-  int n, e0, e1, e2;   // the base operand's extents
-  int f0, f1, f2;      // the gathered operand's
-  int s0, s1, s2;      // strides of the gathered index, per axis
-  int pd0, pd1, pd2;   // pads ((k - 1) / 2 on a tapped axis, 0 on 2D's depth)
-  int taps0, taps1, taps2, taps, tb0;  // tb0: taps along h in one block
+  int n, e0, e1, e2;   // x's and dy's extents
+  int k, p, taps;      // taps an axis, the pad (k - 1) / 2, k^3
   int chunks;                          // blocks for one h tap's (w, d) taps
-  int transposed;
   int cin, cout, cw_x, cw_dy;          // channels, and words a row
   int n_t, n_s, cip, cop;              // tiles and padded extents
-  int t1, t2, nw1, nw2, qtot, groups;  // a strip: t1 columns of t2 depths
+  int t1, t2, nw1, qtot, groups;       // a strip: t1 columns of t2 depths
   int w2, r1max;                       // the gathered window's extents
   int sb, sg;                          // shared row strides, words
   int base_words, gath_words;          // one buffer's words of each
-  FastDiv div_nw1, div_nw2, div_e0, div_t2, div_w2, div_r1;
+  FastDiv div_nw1, div_e0, div_t2, div_w2;
 };
-
-// Whether tap (t0, t1, t2)'s dy rows make db: every dy voxel once. The
-// conv: the centre tap reads dy at every voxel. The transposed conv: taps 1
-// and 2 of a strided axis read dy at 2i and 2i + 1 (tap 0 of 2D's depth).
-__host__ __device__ __forceinline__ bool db_tap(const Geom& g, int t0, int t1,
-                                                int t2) {
-  if (!g.transposed) return t0 == g.pd0 && t1 == g.pd1 && t2 == g.pd2;
-  return t0 >= 1 && t1 >= 1 && (g.taps2 == 1 || t2 >= 1);
-}
 
 // Strip qb: one (n, h) row of the base operand, columns w0 .. w0 + t1c and
-// depths d0 .. d0 + t2c.
+// all depths.
 struct Strip {
-  int nn, b0, w0, d0, t1c, t2c;
+  int nn, b0, w0, t1c;
 };
 
-template <bool kTiled>
 __device__ __forceinline__ Strip strip_at(const Geom& g, int qb) {
   Strip s;
-  const int rest = kTiled ? fdiv(qb, g.div_nw2) : qb;
-  const int dc = kTiled ? qb - rest * g.nw2 : 0;
-  const int t = fdiv(rest, g.div_nw1);
-  const int wc = rest - t * g.nw1;
+  const int t = fdiv(qb, g.div_nw1);
+  const int wc = qb - t * g.nw1;
   s.nn = fdiv(t, g.div_e0);
   s.b0 = t - s.nn * g.e0;
   s.w0 = wc * g.t1;
-  s.d0 = dc * g.t2;
   s.t1c = min(g.t1, g.e1 - s.w0);
-  s.t2c = min(g.t2, g.e2 - s.d0);
   return s;
 }
 
 // Stage one strip (qb) into the buffers: t1c x t2 base rows, one
-// contiguous run of device memory when a strip takes all of d (kTiled
-// false), which the block's lanes walk word by word, else t1c runs of t2c
-// rows and zero rows past the depth edge; the gathered window (tb0 x r1max
-// x w2 rows, zero outside the tensor) goes a thread a row. The rows a depth
-// tile's missing voxels would read stay as they are: those voxels' base
-// rows are zero, and a db tap's dy rows past the edge lie outside dy.
-template <int kTWb, int kTWg, bool kGatherX, bool kTiled>
-__device__ __forceinline__ void stage(const Geom& g, int qb, int t0base,
-                                      int c0x, int c0dy, uint32_t* sb_buf,
+// contiguous run of device memory, which the block's lanes walk word by
+// word; the gathered window of h tap kh (r1max x w2 rows, zero outside the
+// tensor) goes a thread a row.
+template <int kTWb, int kTWg>
+__device__ __forceinline__ void stage(const Geom& g, int qb, int kh, int c0x,
+                                      int c0dy, uint32_t* sb_buf,
                                       uint32_t* sg_buf) {
-  const Strip st = strip_at<kTiled>(g, qb);
-  const uint32_t* bsrc = kGatherX ? g.dy : g.x;
-  const uint32_t* gsrc = kGatherX ? g.x : g.dy;
-  const int cwb = kGatherX ? g.cw_dy : g.cw_x;
-  const int cwg = kGatherX ? g.cw_x : g.cw_dy;
-  const int c0b = kGatherX ? c0dy : c0x;
-  const int c0g = kGatherX ? c0x : c0dy;
+  const Strip st = strip_at(g, qb);
+  const uint32_t* bsrc = g.dy;
+  const uint32_t* gsrc = g.x;
+  const int cwb = g.cw_dy, cwg = g.cw_x;
+  const int c0b = c0dy, c0g = c0x;
   const int tid = threadIdx.x;
 
   const int nb = st.t1c * g.t2;
   const size_t row0 =
       ((static_cast<size_t>(st.nn) * g.e0 + st.b0) * g.e1 + st.w0) *
-          static_cast<size_t>(g.e2) + st.d0;
+      static_cast<size_t>(g.e2);
   for (int e = tid; e < nb * kTWb; e += blockDim.x) {
     const int r = e / kTWb, k = e - r * kTWb;
-    if (kTiled) {  // row r is (column r / t2, depth r % t2)
-      const int r1 = fdiv(r, g.div_t2);
-      const int r2 = r - r1 * g.t2;
-      const bool ok = c0b + k < cwb && r2 < st.t2c;
-      cp_async4(sb_buf + r * g.sb + k,
-                ok ? bsrc + (row0 + r1 * g.e2 + r2) * cwb + c0b + k : bsrc,
-                ok);
-    } else {
-      const bool ok = c0b + k < cwb;
-      cp_async4(sb_buf + r * g.sb + k,
-                ok ? bsrc + (row0 + r) * cwb + c0b + k : bsrc, ok);
-    }
+    const bool ok = c0b + k < cwb;
+    cp_async4(sb_buf + r * g.sb + k,
+              ok ? bsrc + (row0 + r) * cwb + c0b + k : bsrc, ok);
   }
-  const int rows = g.tb0 * g.r1max * g.w2;
+  const int rows = g.r1max * g.w2;
   for (int r = tid; r < rows; r += blockDim.x) {
-    const int j = fdiv(r, g.div_w2);  // j0 * r1max + gl1
-    const int gl2 = r - j * g.w2;
-    const int j0 = fdiv(j, g.div_r1);
-    const int gl1 = j - j0 * g.r1max;
-    const int g0 = g.s0 * st.b0 - g.pd0 + t0base + j0;
-    const int g1 = g.s1 * st.w0 - g.pd1 + gl1;
-    const int g2 = (kTiled ? g.s2 * st.d0 : 0) - g.pd2 + gl2;
-    const bool in = static_cast<unsigned>(g0) < static_cast<unsigned>(g.f0) &&
-                    static_cast<unsigned>(g1) < static_cast<unsigned>(g.f1) &&
-                    static_cast<unsigned>(g2) < static_cast<unsigned>(g.f2) &&
-                    gl1 < g.s1 * (st.t1c - 1) + g.taps1;
+    const int gl1 = fdiv(r, g.div_w2);
+    const int gl2 = r - gl1 * g.w2;
+    const int g0 = st.b0 - g.p + kh;
+    const int g1 = st.w0 - g.p + gl1;
+    const int g2 = gl2 - g.p;
+    const bool in = static_cast<unsigned>(g0) < static_cast<unsigned>(g.e0) &&
+                    static_cast<unsigned>(g1) < static_cast<unsigned>(g.e1) &&
+                    static_cast<unsigned>(g2) < static_cast<unsigned>(g.e2) &&
+                    gl1 < st.t1c - 1 + g.k;
     const uint32_t* src =
         gsrc +
-        (((static_cast<size_t>(st.nn) * g.f0 + (in ? g0 : 0)) * g.f1 +
-          (in ? g1 : 0)) * g.f2 + (in ? g2 : 0)) * cwg + c0g;
+        (((static_cast<size_t>(st.nn) * g.e0 + (in ? g0 : 0)) * g.e1 +
+          (in ? g1 : 0)) * g.e2 + (in ? g2 : 0)) * cwg + c0g;
     uint32_t* dst = sg_buf + r * g.sg;
 #pragma unroll
     for (int k = 0; k < kTWg; ++k) {
@@ -245,36 +198,33 @@ __device__ __forceinline__ void stage(const Geom& g, int qb, int t0base,
 }
 
 // The block's walk over its strips: strip qb + G is staged while strip qb
-// is handed to `fn(base rows, this warp's gathered window, voxels)`; the
-// voxels are t1c x t2, those past the depth edge on zero base rows.
-template <int kTWb, int kTWg, bool kGatherX, bool kTiled, typename Fn>
-__device__ __forceinline__ void walk(const Geom& g, int t0base, int c0x,
-                                     int c0dy, int j0, bool live, Fn&& fn) {
+// is handed to `fn(base rows, gathered window, voxels)`; the voxels are
+// t1c x t2.
+template <int kTWb, int kTWg, typename Fn>
+__device__ __forceinline__ void walk(const Geom& g, int kh, int c0x,
+                                     int c0dy, bool live, Fn&& fn) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int buf_words = g.base_words + g.gath_words;
   int it = 0;
   if (blockIdx.y < g.qtot) {
-    stage<kTWb, kTWg, kGatherX, kTiled>(g, blockIdx.y, t0base, c0x, c0dy,
-                                        smem, smem + g.base_words);
+    stage<kTWb, kTWg>(g, blockIdx.y, kh, c0x, c0dy, smem,
+                      smem + g.base_words);
   }
   cp_async_commit();
   for (int qb = blockIdx.y; qb < g.qtot; qb += g.groups, ++it) {
     const int qn = qb + g.groups;
     if (qn < g.qtot) {
       uint32_t* next = smem + ((it + 1) & 1) * buf_words;
-      stage<kTWb, kTWg, kGatherX, kTiled>(g, qn, t0base, c0x, c0dy, next,
-                                          next + g.base_words);
+      stage<kTWb, kTWg>(g, qn, kh, c0x, c0dy, next, next + g.base_words);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
     if (live) {
       const uint32_t* sb_buf = smem + (it & 1) * buf_words;
-      const int rest = kTiled ? fdiv(qb, g.div_nw2) : qb;
-      const int t = fdiv(rest, g.div_nw1);
-      const int w0 = (rest - t * g.nw1) * g.t1;
-      fn(sb_buf, sb_buf + g.base_words + j0 * g.r1max * g.w2 * g.sg,
-         min(g.t1, g.e1 - w0) * g.t2);
+      const int t = fdiv(qb, g.div_nw1);
+      const int w0 = (qb - t * g.nw1) * g.t1;
+      fn(sb_buf, sb_buf + g.base_words, min(g.t1, g.e1 - w0) * g.t2);
     }
     __syncthreads();  // the buffer is staged again two strips on
   }
@@ -282,10 +232,11 @@ __device__ __forceinline__ void walk(const Geom& g, int t0base, int c0x,
 }
 
 // Where a block's warp sits: its tap, tiles and whether it makes db. A
-// block's warps take consecutive taps of one h tap's (w, d) plane (all 9
-// of the 2D kernel's taps), `chunks` blocks covering a plane of more than 9.
+// block's warps take consecutive taps of one h tap kh's (w, d) plane,
+// `chunks` blocks covering a plane of more than 9; the centre tap's dy rows
+// (dy at every voxel) make db.
 struct WarpTap {
-  int cs, ct, t0base, warp, lane, j0, t1, t2, tap;
+  int cs, ct, kh, warp, lane, t1, t2, tap;
   bool live, db;
 };
 
@@ -294,18 +245,15 @@ __device__ __forceinline__ WarpTap warp_tap(const Geom& g) {
   w.cs = blockIdx.x % g.n_s;
   w.ct = (blockIdx.x / g.n_s) % g.n_t;
   const int rest = blockIdx.x / (g.n_s * g.n_t);
-  const int chunk = rest % g.chunks;
-  w.t0base = rest / g.chunks * g.tb0;
+  w.kh = rest / g.chunks;
   w.warp = threadIdx.x >> 5;
   w.lane = threadIdx.x & 31;
-  const int plane = g.taps1 * g.taps2;
-  const int l = chunk * kWarps + w.warp;
-  w.j0 = l / plane;
-  w.t1 = (l / g.taps2) % g.taps1;
-  w.t2 = l % g.taps2;
-  w.tap = ((w.t0base + w.j0) * g.taps1 + w.t1) * g.taps2 + w.t2;
-  w.live = w.j0 < g.tb0;
-  w.db = w.live && w.ct == 0 && db_tap(g, w.t0base + w.j0, w.t1, w.t2);
+  const int l = (rest % g.chunks) * kWarps + w.warp;
+  w.t1 = l / g.k;
+  w.t2 = l % g.k;
+  w.tap = (w.kh * g.k + w.t1) * g.k + w.t2;
+  w.live = l < g.k * g.k;
+  w.db = w.live && w.ct == 0 && w.tap == g.taps / 2;
   return w;
 }
 
@@ -314,11 +262,11 @@ __device__ __forceinline__ const uint32_t* gathered_row(
     const Geom& g, const uint32_t* sg_buf, int q, int t1, int t2) {
   const int r1 = fdiv(q, g.div_t2);
   const int r2 = q - r1 * g.t2;
-  return sg_buf + ((g.s1 * r1 + t1) * g.w2 + g.s2 * r2 + t2) * g.sg;
+  return sg_buf + ((r1 + t1) * g.w2 + r2 + t2) * g.sg;
 }
 
 // float32 on the FP32 pipes: a lane's T x S outer product a voxel.
-template <int S, int T, bool kGatherX, bool kTiled>
+template <int S, int T>
 __global__ void __launch_bounds__(kWarps * 32)
     shallow_dw_kernel(const Geom g) {
   extern __shared__ __align__(16) uint32_t smem[];
@@ -338,8 +286,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
     for (int j = 0; j < S; ++j) dba[j] = 0.0;
   }
-  walk<kGatherX ? S : T, kGatherX ? T : S, kGatherX, kTiled>(
-      g, w.t0base, w.ct * T, w.cs * S, w.j0, w.live,
+  walk<S, T>(
+      g, w.kh, w.ct * T, w.cs * S, w.live,
       [&](const uint32_t* sb_buf, const uint32_t* sg_buf, int nq) {
         float dbs[S];
 #pragma unroll
@@ -348,10 +296,8 @@ __global__ void __launch_bounds__(kWarps * 32)
         for (int q = w.lane; q < nq; q += 32) {
           const uint32_t* brow = sb_buf + q * g.sb;
           const uint32_t* grow = gathered_row(g, sg_buf, q, w.t1, w.t2);
-          const float2* xr =
-              reinterpret_cast<const float2*>(kGatherX ? grow : brow);
-          const float2* dr =
-              reinterpret_cast<const float2*>(kGatherX ? brow : grow);
+          const float2* xr = reinterpret_cast<const float2*>(grow);
+          const float2* dr = reinterpret_cast<const float2*>(brow);
           float xv[T], dv[S];
 #pragma unroll
           for (int i = 0; i < T / 2; ++i) {
@@ -448,7 +394,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4],
 // its own row, and a quarter-warp's rows fall on distinct banks. Voxels
 // past the strip read a zero row. The tensor cores' sums are added into
 // float32 registers once a strip.
-template <bool kGatherX, bool kTiled>
 __global__ void __launch_bounds__(kWarps * 32)
     shallow_dw_mma_kernel(const Geom g) {
   extern __shared__ __align__(16) uint32_t smem[];
@@ -469,22 +414,16 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
     for (int j = 0; j < 8; ++j) dba[j] = 0.0;
   }
-  walk<8, 8, kGatherX, kTiled>(
-      g, w.t0base, w.ct * 8, w.cs * 8, w.j0, w.live,
+  walk<8, 8>(
+      g, w.kh, w.ct * 8, w.cs * 8, w.live,
       [&](const uint32_t* sb_buf, const uint32_t* sg_buf, int nq) {
         float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
         float dbs[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
         for (int q0 = 0; q0 < nq; q0 += 16) {
           const int qa = q0 + ra, qb = q0 + rb;
           const uint32_t* xa =
-              qa >= nq ? zero
-                       : (kGatherX ? gathered_row(g, sg_buf, qa, w.t1, w.t2)
-                                   : sb_buf + qa * g.sb) + ha;
-          const uint32_t* dyb =
-              qb >= nq ? zero
-                       : (kGatherX ? sb_buf + qb * g.sb
-                                   : gathered_row(g, sg_buf, qb, w.t1, w.t2)) +
-                             hb;
+              qa >= nq ? zero : gathered_row(g, sg_buf, qa, w.t1, w.t2) + ha;
+          const uint32_t* dyb = qb >= nq ? zero : sb_buf + qb * g.sb + hb;
           uint32_t a[4], b[4];
           ldmatrix_x4_trans(xa, a);
           ldmatrix_x4_trans(dyb, b);
@@ -536,8 +475,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 // One thread an output, enumerated in the partials' (tap, ci, co) order so
-// that a warp's reads are contiguous; the last cout threads make db. Sums
-// in float64, in group order (db: each db tap's groups, tap by tap).
+// that a warp's reads are contiguous; the last cout threads make db from
+// the centre tap's partials. Sums in float64, in group order.
 template <typename Sto>
 __global__ void shallow_dw_finalize(const Geom g, Sto* dw, Sto* db) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
@@ -551,19 +490,14 @@ __global__ void shallow_dw_finalize(const Geom g, Sto* dw, Sto* db) {
     const size_t step = static_cast<size_t>(g.taps) * g.cip * g.cop;
     const float* p = g.part + (static_cast<size_t>(tap) * g.cip + ci) * g.cop + co;
     for (int y = 0; y < g.groups; ++y) s += p[y * step];
-    const int at = g.transposed ? (ci * g.cout + co) * g.taps + tap
-                              : (co * g.cin + ci) * g.taps + tap;
-    dw[at] = from_float<Sto>(static_cast<float>(s));
+    dw[(co * g.cin + ci) * g.taps + tap] =
+        from_float<Sto>(static_cast<float>(s));
   } else if (idx < outs + g.cout) {
     const int co = idx - outs;
     double s = 0.0;
-    for (int tap = 0; tap < g.taps; ++tap) {
-      const int t2 = tap % g.taps2, t01 = tap / g.taps2;
-      if (!db_tap(g, t01 / g.taps1, t01 % g.taps1, t2)) continue;
-      const double* p = g.dbpart + static_cast<size_t>(tap) * g.cop + co;
-      const size_t step = static_cast<size_t>(g.taps) * g.cop;
-      for (int y = 0; y < g.groups; ++y) s += p[y * step];
-    }
+    const double* p = g.dbpart + static_cast<size_t>(g.taps / 2) * g.cop + co;
+    const size_t step = static_cast<size_t>(g.taps) * g.cop;
+    for (int y = 0; y < g.groups; ++y) s += p[y * step];
     db[co] = from_float<Sto>(static_cast<float>(s));
   }
 }
@@ -573,65 +507,46 @@ cudaError_t launch(K kernel, const Geom& g, size_t smem, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxShared);
   if (err != cudaSuccess) return err;
-  const dim3 grid(g.taps0 / g.tb0 * g.chunks * g.n_t * g.n_s, g.groups);
+  const dim3 grid(g.k * g.chunks * g.n_t * g.n_s, g.groups);
   kernel<<<grid, kWarps * 32, smem, st>>>(g);
   return cudaGetLastError();
 }
 
-template <bool kGatherX, bool kTiled>
-cudaError_t launch_f32(const Geom& g, int s_tile, size_t smem,
-                       cudaStream_t st) {
-  switch (s_tile) {
-    case 4:
-      return launch(shallow_dw_kernel<4, 16, kGatherX, kTiled>, g, smem, st);
-    case 8:
-      return launch(shallow_dw_kernel<8, 12, kGatherX, kTiled>, g, smem, st);
-    case 10:
-      return launch(shallow_dw_kernel<10, 10, kGatherX, kTiled>, g, smem, st);
-    case 16:
-      return launch(shallow_dw_kernel<16, 8, kGatherX, kTiled>, g, smem, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// The kernel for the type, the map and whether d is in tiles.
-template <bool kTiled>
+// The kernel for the type and the Cout tile.
 cudaError_t launch_main(const Geom& g, bool bf16, int s_tile, size_t smem,
                         cudaStream_t st) {
-  if (bf16) {
-    return g.transposed
-               ? launch(shallow_dw_mma_kernel<false, kTiled>, g, smem, st)
-               : launch(shallow_dw_mma_kernel<true, kTiled>, g, smem, st);
+  if (bf16) return launch(shallow_dw_mma_kernel, g, smem, st);
+  switch (s_tile) {
+    case 4: return launch(shallow_dw_kernel<4, 16>, g, smem, st);
+    case 8: return launch(shallow_dw_kernel<8, 12>, g, smem, st);
+    case 10: return launch(shallow_dw_kernel<10, 10>, g, smem, st);
+    case 16: return launch(shallow_dw_kernel<16, 8>, g, smem, st);
+    default: return cudaErrorInvalidValue;
   }
-  return g.transposed ? launch_f32<false, kTiled>(g, s_tile, smem, st)
-                      : launch_f32<true, kTiled>(g, s_tile, smem, st);
 }
 
 long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 
 }  // namespace
 
-// dW and db of a conv from x and dy, both (n, *spatial, C) contiguous of
-// one type (float32, or bfloat16 with even cin and cout), on the device:
-// the stride-1 3D conv with an odd kernel k and pad (k - 1) / 2
-// (`transposed` = 0; dy has x's extents), or the k = 3, s = 2 transposed
-// conv in 2D or 3D (dy twice x's extents). (e0, e1, e2) are x's spatial
-// extents (e2 = 1 in 2D). The geometry is the wrapper's plan
-// (ops/shallow_grad.py::dw_plan, its one copy): strips of t1 columns by t2
-// depths, `groups` of them, the Cout and Cin tiles (s_tile, t_tile; float32
-// (4, 16), (8, 12), (10, 10) or (16, 8), bfloat16 (16, 16)), the shared row
-// strides sb and sg in words, one buffer's base and gathered words, the
-// shared memory, and the workspaces part (float32, groups x taps x cip x
-// cop) and dbpart (float64, groups x taps x cop); this entry only checks
-// that they hold what the kernels index. dw is torch's weight layout in
-// x's type, db (cout,). Launches on `stream`, allocates nothing.
+// dW and db of the stride-1 3D conv with an odd kernel k and pad (k - 1) /
+// 2 from x and dy, both (n, e0, e1, e2, C) contiguous of one type (float32,
+// or bfloat16 with even cin and cout), on the device. The geometry is the
+// wrapper's plan (ops/shallow_grad.py::dw_plan, its one copy): strips of t1
+// columns by all t2 = e2 depths, `groups` of them, the Cout and Cin tiles
+// (s_tile, t_tile; float32 (4, 16), (8, 12), (10, 10) or (16, 8), bfloat16
+// (16, 16)), the shared row strides sb and sg in words, one buffer's base
+// and gathered words, the shared memory, and the workspaces part (float32,
+// groups x taps x cip x cop) and dbpart (float64, groups x taps x cop);
+// this entry only checks that they hold what the kernels index. dw is
+// torch's (cout, cin, k, k, k) in x's type, db (cout,). Launches on
+// `stream`, allocates nothing.
 extern "C" int ctseg_shallow_dw(const void* x, const void* dy, void* part,
                                 void* dbpart, void* dw, void* db, int n,
                                 int e0, int e1, int e2, int cin, int cout,
-                                int ndim, int transposed, int k, int t1,
-                                int t2, int groups, int s_tile, int t_tile,
-                                int sb, int sg, int base_words, int gath_words,
-                                int smem, long long part_elems,
+                                int k, int t1, int t2, int groups, int s_tile,
+                                int t_tile, int sb, int sg, int base_words,
+                                int gath_words, int smem, long long part_elems,
                                 long long dbpart_elems, int dtype, int device,
                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -641,12 +556,10 @@ extern "C" int ctseg_shallow_dw(const void* x, const void* dy, void* part,
       bf16 ? s_tile == 16 && t_tile == 16
            : (s_tile == 4 && t_tile == 16) || (s_tile == 8 && t_tile == 12) ||
                  (s_tile == 10 && t_tile == 10) || (s_tile == 16 && t_tile == 8);
-  if ((dtype != ctseg::kFloat32 && !bf16) || (ndim != 2 && ndim != 3) ||
-      (transposed ? k != 3 : (ndim != 3 || k < 1 || k % 2 == 0)) ||
-      (ndim == 2 && e2 != 1) || n <= 0 || e0 <= 0 || e1 <= 0 || e2 <= 0 ||
-      cin <= 0 || cout <= 0 || t1 <= 0 || t1 > e1 || t2 <= 0 || t2 > e2 ||
-      groups <= 0 || groups > 65535 || (bf16 && (cin % 2 || cout % 2)) ||
-      !tiles_ok) {
+  if ((dtype != ctseg::kFloat32 && !bf16) || k < 1 || k % 2 == 0 || n <= 0 ||
+      e0 <= 0 || e1 <= 0 || e2 <= 0 || cin <= 0 || cout <= 0 || t1 <= 0 ||
+      t1 > e1 || t2 != e2 || groups <= 0 || groups > 65535 ||
+      (bf16 && (cin % 2 || cout % 2)) || !tiles_ok) {
     return cudaErrorInvalidValue;
   }
   Geom g{};
@@ -658,20 +571,10 @@ extern "C" int ctseg_shallow_dw(const void* x, const void* dy, void* part,
   g.e0 = e0;
   g.e1 = e1;
   g.e2 = e2;
-  const int s = transposed ? 2 : 1;
-  g.s0 = g.s1 = s;
-  g.s2 = ndim == 3 ? s : 1;
-  g.pd0 = g.pd1 = (k - 1) / 2;
-  g.pd2 = ndim == 3 ? (k - 1) / 2 : 0;
-  g.taps0 = g.taps1 = k;
-  g.taps2 = ndim == 3 ? k : 1;
-  g.taps = g.taps0 * g.taps1 * g.taps2;
-  g.tb0 = ndim == 3 ? 1 : 3;  // the 2D kernel's 9 taps in one block
-  g.chunks = static_cast<int>(ceil_div(g.tb0 * g.taps1 * g.taps2, kWarps));
-  g.transposed = transposed;
-  g.f0 = s * e0;
-  g.f1 = s * e1;
-  g.f2 = g.s2 * e2;
+  g.k = k;
+  g.p = (k - 1) / 2;
+  g.taps = k * k * k;
+  g.chunks = static_cast<int>(ceil_div(k * k, kWarps));
   g.cin = cin;
   g.cout = cout;
   g.cw_x = bf16 ? cin / 2 : cin;
@@ -683,35 +586,30 @@ extern "C" int ctseg_shallow_dw(const void* x, const void* dy, void* part,
   g.t1 = t1;
   g.t2 = t2;
   g.nw1 = static_cast<int>(ceil_div(e1, t1));
-  g.nw2 = static_cast<int>(ceil_div(e2, t2));
-  const long long qtot = static_cast<long long>(n) * e0 * g.nw1 * g.nw2;
+  const long long qtot = static_cast<long long>(n) * e0 * g.nw1;
   if (qtot > 2147483647LL || static_cast<long long>(t1) * t2 > 65536) {
     return cudaErrorInvalidValue;
   }
   g.qtot = static_cast<int>(qtot);
   g.groups = groups;
-  g.w2 = g.s2 * (t2 - 1) + g.taps2;
-  g.r1max = g.s1 * (t1 - 1) + g.taps1;
+  g.w2 = t2 - 1 + k;
+  g.r1max = t1 - 1 + k;
   g.sb = sb;
   g.sg = sg;
   g.base_words = base_words;
   g.gath_words = gath_words;
   g.div_nw1 = make_fastdiv(g.nw1);
-  g.div_nw2 = make_fastdiv(g.nw2);
   g.div_e0 = make_fastdiv(e0);
   g.div_t2 = make_fastdiv(t2);
   g.div_w2 = make_fastdiv(g.w2);
-  g.div_r1 = make_fastdiv(g.r1max);
   // Rows hold their tile (float32 rows read as float2: an even stride;
   // bfloat16 rows of 16 values read by ldmatrix: 16-byte aligned), the
   // buffers start 16-byte aligned and hold their rows, and the shared
   // memory holds the two buffers, then (bfloat16) a zero row of 12 words,
   // then db's float64 lane sums.
-  const int tile_b = transposed ? t_tile : s_tile;
-  const int tile_g = transposed ? s_tile : t_tile;
   const bool rows_ok =
       bf16 ? sb >= 8 && sb % 4 == 0 && sg >= 8 && sg % 4 == 0
-           : sb >= tile_b && sb % 2 == 0 && sg >= tile_g && sg % 2 == 0;
+           : sb >= s_tile && sb % 2 == 0 && sg >= t_tile && sg % 2 == 0;
   const long long need_smem =
       2 * (static_cast<long long>(base_words) + gath_words) * 4 +
       (bf16 ? 12 * 4 : 0) + static_cast<long long>(kWarps) * 32 *
@@ -720,14 +618,13 @@ extern "C" int ctseg_shallow_dw(const void* x, const void* dy, void* part,
   const long long need_db = static_cast<long long>(groups) * g.taps * g.cop;
   if (!rows_ok || base_words % 4 || gath_words % 4 ||
       base_words < static_cast<long long>(t1) * t2 * sb ||
-      gath_words < static_cast<long long>(g.tb0) * g.r1max * g.w2 * sg ||
+      gath_words < static_cast<long long>(g.r1max) * g.w2 * sg ||
       smem < need_smem || smem > kMaxShared || part_elems < need ||
       dbpart_elems < need_db) {
     return cudaErrorInvalidValue;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = g.nw2 > 1 ? launch_main<true>(g, bf16, s_tile, smem, st)
-                  : launch_main<false>(g, bf16, s_tile, smem, st);
+  err = launch_main(g, bf16, s_tile, smem, st);
   if (err != cudaSuccess) return err;
   const int outs = g.taps * g.cin * g.cout + g.cout;
   if (bf16) {

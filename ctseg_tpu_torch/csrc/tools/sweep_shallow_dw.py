@@ -1,20 +1,33 @@
-"""Time csrc/shallow_dw.cu at chip_smoke.py's four routed sites (phase 16b)
-for each strip size the kernel's plan could take (ops/shallow_grad.py::
-STRIPS: voxels of the base operand a block stages at a time), float32 and
-bfloat16, each result held to the plan's own strip's within float32
-round-off (bfloat16: one rounding). Not part of the library: run it alone
-on the card, from the repository root,
+"""Time the shallow weight-gradient kernels at chip_smoke.py's four routed
+sites (phase 16b): csrc/shallow_dw.cu at the stride-1 conv for each strip
+its plan could take (ops/shallow_grad.py::STRIPS), csrc/shallow_dwt.cu at
+the transposed convs for each of its strips (DWT_STRIPS), for each ring
+depth (--dwt-stages: the kernel's kStages, each other than DWT_STAGES
+built from a copy of csrc/ with that one constant changed) and each count
+of groups (--dwt-groups-per-sm: the plan's groups for that many blocks an
+SM, by SMS), float32 and bfloat16, each result held to the plan's own
+strip's within float32 round-off (bfloat16: one rounding). With --parent,
+the parent tree's kernel too, built from that checkout's csrc/ and called
+through its own ops/shallow_grad.py, on the same tensors, in turns with
+this tree's plan: parent, this, this, parent. Not part of the library: run
+it alone on the card, from the repository root,
 
-    python3 ctseg_tpu_torch/csrc/tools/sweep_shallow_dw.py [--strips 128 256 512 1024]
+    python3 ctseg_tpu_torch/csrc/tools/sweep_shallow_dw.py
+        [--strips 128 256 512 1024] [--dwt-strips 16 32 64 128]
+        [--dwt-stages 3] [--dwt-groups-per-sm 1] [--parent DIR]
 
 A strip whose shared memory exceeds a block's is skipped. The last line is
-one JSON object: {"card", "rows": [{"site", "dtype", "strip", "t1",
-"groups", "smem_bytes", "ms"}]}.
+one JSON object: {"card", "rows": [{"site", "dtype", "kernel", "strip",
+"stages", "groups_per_sm", "t1", "t2", "groups", "smem_bytes", "ms"}],
+"parent": [{"site", "dtype", "ms_parent", "ms_this"}]}.
 """
 
 import argparse
+import importlib.util
 import json
+import re
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[3]
@@ -23,62 +36,142 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
 
+def _load(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def load_parent(root: Path):
+    """The parent checkout's ops/shallow_grad.py, launching from its own
+    kernel library (its ops/_build.py, built from its csrc/)."""
+    pkg = root / "ctseg_tpu_torch" / "ops"
+    build = _load("parent_build", pkg / "_build.py")
+    build.library()
+    sg = _load("parent_shallow_grad", pkg / "shallow_grad.py")
+    sg._build = build
+    return sg
+
+
+def stage_libraries(stages, default):
+    """{ring depth: kernel library}: this tree's for `default`, else one
+    built from a copy of csrc/ whose shallow_dwt.cu has that kStages."""
+    variants = _load("variants_shallow_dw",
+                     Path(__file__).with_name("variants_shallow_dw.py"))
+    text = (variants._build.CSRC / variants.DWT_SOURCE).read_text()
+    line = re.search(r"constexpr int kStages = \d+;", text).group(0)
+
+    def one(s):
+        if s == default:
+            return variants.build("this tree", None)
+        return variants.build(f"stages {s}", text.replace(
+            line, f"constexpr int kStages = {s};"))
+
+    with ThreadPoolExecutor(len(stages)) as pool:
+        return dict(zip(stages, pool.map(one, stages)))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--strips", type=int, nargs="+",
                         default=[128, 256, 512, 1024])
+    parser.add_argument("--dwt-strips", type=int, nargs="+",
+                        default=[16, 32, 64, 128])
+    parser.add_argument("--dwt-stages", type=int, nargs="+", default=None)
+    parser.add_argument("--dwt-groups-per-sm", type=int, nargs="+",
+                        default=[1])
+    parser.add_argument("--parent", type=Path, default=None)
     args = parser.parse_args()
 
     import torch
     from ctseg_tpu_torch.models.layers import channels_last
+    from ctseg_tpu_torch.ops import _build
     from ctseg_tpu_torch.ops import shallow_grad as sg
 
     if not torch.cuda.is_available():
         sys.exit("sweep_shallow_dw: no CUDA card")
     label = chip_smoke.card_label()
     print(label)
-    default = dict(sg.STRIPS)
+    parent = load_parent(args.parent.resolve()) if args.parent else None
+    default, default_t = dict(sg.STRIPS), dict(sg.DWT_STRIPS)
+    default_stages, sms = sg.DWT_STAGES, sg.SMS
+    libs = stage_libraries(args.dwt_stages or [default_stages],
+                           default_stages)
     gen = torch.Generator(device=chip_smoke.DEVICE).manual_seed(0)
-    rows = []
+    rows, vs_parent = [], []
     for name, transposed, n, spatial, cin, cout in chip_smoke.SHALLOW_SITES:
         osp = tuple(e * (2 if transposed else 1) for e in spatial)
         for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
             x = channels_last(torch.randn((n, cin) + spatial, generator=gen,
                                           device=chip_smoke.DEVICE).to(dtype))
             dy = channels_last(torch.randn((n, cout) + osp, generator=gen,
                                            device=chip_smoke.DEVICE).to(dtype))
-            sg.STRIPS = dict(default)
+            sg.STRIPS, sg.DWT_STRIPS = dict(default), dict(default_t)
             ref, _ = sg.shallow_dw(x, dy, transposed)
             scale = float(ref.float().abs().max())
-            for strip in args.strips:
-                sg.STRIPS = {2: (strip,), 4: (strip,)}
-                plan = sg.dw_plan(n, spatial, cin, cout, transposed,
-                                  x.element_size())
-                if plan["smem_bytes"] > sg.MAX_SHARED:
-                    print(f"[{label}] {name} {dtype} strip {strip}: "
-                          f"{plan['smem_bytes']} bytes of shared memory, "
-                          "skipped")
-                    continue
-                dw, _ = sg.shallow_dw(x, dy, transposed)
+            tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * scale
+
+            def held(dw, what):
                 err = float((dw.float() - ref.float()).abs().max())
-                tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * scale
                 if not err <= tol:
-                    raise AssertionError(f"{name} {dtype} strip {strip}: "
-                                         f"{err} from the default strip's")
+                    raise AssertionError(f"{name} {dname} {what}: {err} from "
+                                         "this tree's default plan")
+
+            if parent is not None:
+                held(parent.shallow_dw(x, dy, transposed)[0], "parent")
+                t = [chip_smoke.time_ms(lambda: fn(x, dy, transposed), 5)
+                     for fn in (parent.shallow_dw, sg.shallow_dw,
+                                sg.shallow_dw, parent.shallow_dw)]
+                vs_parent.append({"site": name, "dtype": dname,
+                                  "ms_parent": [t[0], t[3]],
+                                  "ms_this": [t[1], t[2]]})
+                print(f"[{label}] {name} {dname}: parent {t[0]:.3f} ms, "
+                      f"this {t[1]:.3f}, this {t[2]:.3f}, parent {t[3]:.3f}",
+                      flush=True)
+            # The stride-1 kernel has one ring depth and group rule.
+            geoms = [(s, f) for s in libs for f in args.dwt_groups_per_sm] \
+                if transposed else [(default_stages, 1)]
+            for (stages, per_sm), strip in [
+                    (gm, s) for gm in geoms
+                    for s in (args.dwt_strips if transposed
+                              else args.strips)]:
+                _build.use(libs[stages])
+                sg.DWT_STAGES, sg.SMS = stages, per_sm * sms
+                if transposed:
+                    sg.DWT_STRIPS = {2: (strip,), 4: (strip,)}
+                    plan = sg.dwt_plan(n, spatial, cin, cout,
+                                       x.element_size())
+                else:
+                    sg.STRIPS = {2: (strip,), 4: (strip,)}
+                    plan = sg.dw_plan(n, spatial, cin, cout,
+                                      x.element_size())
+                what = (f"{name} {dname} strip {strip}, {stages} stages, "
+                        f"{per_sm} a SM")
+                if plan["smem_bytes"] > sg.MAX_SHARED:
+                    print(f"[{label}] {what}: {plan['smem_bytes']} bytes of "
+                          "shared memory, skipped")
+                    continue
+                held(sg.shallow_dw(x, dy, transposed)[0], what)
                 ms = chip_smoke.time_ms(
                     lambda: sg.shallow_dw(x, dy, transposed), 5)
-                row = {"site": name, "dtype": str(dtype).removeprefix(
-                    "torch."), "strip": strip, "t1": plan["t1"],
-                    "groups": plan["groups"],
-                    "smem_bytes": plan["smem_bytes"], "ms": ms}
+                row = {"site": name, "dtype": dname,
+                       "kernel": "shallow_dwt" if transposed else "shallow_dw",
+                       "strip": strip, "stages": stages,
+                       "groups_per_sm": per_sm, "t1": plan["t1"],
+                       "t2": plan["t2"], "groups": plan["groups"],
+                       "smem_bytes": plan["smem_bytes"], "ms": ms}
                 rows.append(row)
-                print(f"[{label}] {name} {row['dtype']} strip {strip} (t1 "
-                      f"{plan['t1']}, {plan['groups']} groups, "
-                      f"{plan['smem_bytes']} bytes): {ms:.3f} ms")
+                print(f"[{label}] {what} (t1 {plan['t1']}, t2 {plan['t2']}, "
+                      f"{plan['groups']} groups, {plan['smem_bytes']} bytes):"
+                      f" {ms:.3f} ms", flush=True)
+            sg.STRIPS, sg.DWT_STRIPS = default, default_t
+            sg.DWT_STAGES, sg.SMS = default_stages, sms
+            _build.use(None)
             del x, dy, ref
             torch.cuda.empty_cache()
-    sg.STRIPS = default
-    print(json.dumps({"card": label, "rows": rows}))
+    print(json.dumps({"card": label, "rows": rows, "parent": vs_parent}))
 
 
 if __name__ == "__main__":

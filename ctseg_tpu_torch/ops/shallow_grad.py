@@ -15,10 +15,12 @@ csrc/tools/probe_conv3d_fp32.py --sites). Here the same two convs are
   - dx: cuDNN's (`aten.convolution_backward` with the input's mask only),
     as the JAX rule leaves dx to XLA;
   - dW and db: `shallow_dw`, one pass over x and dy. On a CUDA tensor it
-    launches csrc/shallow_dw.cu (or raises); on a CPU tensor it runs the
-    JAX formulations in torch, `dw_merged_3d_plain` (the merged (D, C)
-    fold and its band) and `convt_dw_plain` (the dilated-rhs conv with the
-    batch contracted, then the spatial flip), and db as a float32 sum;
+    launches csrc/shallow_dw.cu for the stride-1 conv and, through
+    `shallow_dwt`, csrc/shallow_dwt.cu for the transposed conv (or
+    raises); on a CPU tensor it runs the JAX formulations in torch,
+    `dw_merged_3d_plain` (the merged (D, C) fold and its band) and
+    `convt_dw_plain` (the dilated-rhs conv with the batch contracted, then
+    the spatial flip), and db as a float32 sum;
   - each gradient only where `ctx.needs_input_grad` asks for it.
 
 The 2D plain conv keeps the library's weight gradient, as the JAX rule
@@ -50,9 +52,9 @@ SMALLC_MERGED_MAX_DEPTH = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CONV_FN = {4: F.conv2d, 5: F.conv3d}
 _CONV_T_FN = {4: F.conv_transpose2d, 5: F.conv_transpose3d}
-# The kernel's plan (`dw_plan`; csrc/shallow_dw.cu checks it). STRIPS:
-# voxels of the base operand a block stages at a time, the first that fits
-# a block's shared memory, by itemsize (csrc/tools/sweep_shallow_dw.py:
+# The stride-1 kernel's plan (`dw_plan`; csrc/shallow_dw.cu checks it).
+# STRIPS: voxels of dy a block stages at a time, the first that fits a
+# block's shared memory, by itemsize (csrc/tools/sweep_shallow_dw.py:
 # bfloat16's tensor-core blocks gain from more blocks an SM, float32's from
 # longer strips).
 STRIPS = {2: (128,), 4: (1024, 512, 256, 128)}
@@ -62,6 +64,20 @@ MAX_SHARED = 232448
 # The plan's entries csrc/shallow_dw.cu takes, in its argument order.
 _PLAN_ARGS = ("t1", "t2", "groups", "s_tile", "t_tile", "sb", "sg",
               "base_words", "gath_words", "smem_bytes")
+# The transposed kernel's plan (`dwt_plan`; csrc/shallow_dwt.cu checks it).
+# DWT_STRIPS: x voxels a block stages at a time, the first that fits a
+# block's shared memory, by itemsize (csrc/tools/sweep_shallow_dw.py:
+# bfloat16 gains from the longest strip, float32's 2D site from 32).
+DWT_STRIPS = {2: (128, 64, 32, 16), 4: (32, 16)}
+DWT_STAGES = 3      # strips in flight (csrc/shallow_dwt.cu's kStages; the
+                    # sweep's --dwt-stages: 2 slower by 6-44%, 4 by 1-16%)
+DWT_WARPS = 8       # Cin tiles of 16 a block (kWarps), beside 4 staging warps
+DWT_SPLIT_WORDS = 40  # a split float32 window row (kSplitWords)
+SMS = 132           # an H100's SMs: one block each (its 384 threads take
+                    # the register file; 2 a SM: 0.3-11% slower, the
+                    # sweep's --dwt-groups-per-sm)
+_DWT_PLAN_ARGS = ("n_ct", "t1", "t2", "groups", "sx", "sdy", "x_words",
+                  "stage_words", "smem_bytes", "part_elems", "dbpart_elems")
 
 
 def smallc_supported(cin: int, cout: int, stride: int, kernel_size: int,
@@ -159,10 +175,10 @@ def _torch_layout(dw_jax: torch.Tensor, transposed: bool) -> torch.Tensor:
     return dw_jax.permute(nd + 1, nd, *range(nd))
 
 
-# ------------------------------------------------------------ the kernel
+# ------------------------------------------------------------ the kernels
 def tiles(cin: int, cout: int, bf16: bool = False):
-    """(S, T): the kernel's Cout and Cin tiles (csrc/shallow_dw.cu): in
-    float32 S is Cout rounded up to 4, 8, 10 or 16 and T * S <= 128
+    """(S, T): the stride-1 kernel's Cout and Cin tiles (csrc/shallow_dw.cu):
+    in float32 S is Cout rounded up to 4, 8, 10 or 16 and T * S <= 128
     accumulators a lane; bfloat16 takes 16 x 16 on the tensor cores."""
     if bf16:
         return 16, 16
@@ -180,52 +196,42 @@ def _row_words(tile: int, bf16: bool) -> int:
     return tile + 2 if tile % 4 == 0 else tile
 
 
-def dw_plan(n: int, spatial, cin: int, cout: int, transposed: bool,
-            itemsize: int = 4, k: int = 3) -> dict:
-    """The kernel's geometry for x of (n, *spatial, cin) and a k-tap kernel,
-    its one copy (csrc/shallow_dw.cu checks it): strips of t1 columns of w
-    by t2 depths (all of d where a column fits) about STRIPS[itemsize]
-    voxels (the first whose shared memory fits a block), G groups of strips
-    (enough that a lane's float32 chain is at most CHAIN voxels and the grid
-    has MIN_BLOCKS), the tiles, the shared rows and buffers, the workspaces'
+def dw_plan(n: int, spatial, cin: int, cout: int, itemsize: int = 4,
+            k: int = 3) -> dict:
+    """The stride-1 kernel's geometry for x of (n, *spatial, cin) and a
+    k-tap kernel, its one copy (csrc/shallow_dw.cu checks it): strips of t1
+    columns of w by all t2 = d depths about STRIPS[itemsize] voxels (the
+    first whose shared memory fits a block), G groups of strips (enough that
+    a lane's float32 chain is at most CHAIN voxels and the grid has
+    MIN_BLOCKS), the tiles, the shared rows and buffers, the workspaces'
     element counts (dW's partials float32, db's float64) and the shared
-    memory a block takes."""
+    memory a block takes (more than a block has where one column of d does
+    not fit: the wrapper then raises)."""
     for strip in STRIPS[itemsize]:
-        plan = _plan(n, spatial, cin, cout, transposed, itemsize, strip, k)
+        plan = _plan(n, spatial, cin, cout, itemsize, strip, k)
         if plan["smem_bytes"] <= MAX_SHARED:
             break
     return plan
 
 
-def _plan(n, spatial, cin, cout, transposed, itemsize, strip, k):
-    nd = len(spatial)
-    e0, e1 = spatial[0], spatial[1]
-    e2 = spatial[2] if nd == 3 else 1
-    s = 2 if transposed else 1
-    s2 = s if nd == 3 else 1
+def _plan(n, spatial, cin, cout, itemsize, strip, k):
+    e0, e1, e2 = spatial
     bf16 = itemsize == 2
     s_tile, t_tile = tiles(cin, cout, bf16)
     n_s, n_t = -(-cout // s_tile), -(-cin // t_tile)
-    taps1, taps2 = k, (k if nd == 3 else 1)
-    taps = k * taps1 * taps2
-    tb0 = 1 if nd == 3 else 3
-    chunks = -(-tb0 * taps1 * taps2 // 9)  # blocks of 9 warps an h tap
-    if e2 <= strip:
-        t2, t1 = e2, max(1, min(e1, strip // e2))
-    else:  # a column of d does not fit: d in equal tiles
-        t1, t2 = 1, -(-e2 // -(-e2 // strip))
-    qtot = n * e0 * -(-e1 // t1) * -(-e2 // t2)
+    taps = k ** 3
+    chunks = -(-k * k // 9)  # blocks of 9 warps an h tap
+    t2, t1 = e2, max(1, min(e1, strip // e2))
+    qtot = n * e0 * -(-e1 // t1)
     per_lane = -(-t1 * t2 // 32)  # voxels a lane takes from one strip
-    blocks_x = k // tb0 * chunks * n_t * n_s
+    blocks_x = k * chunks * n_t * n_s
     groups = max(-(-qtot // max(1, CHAIN // per_lane)),
                  -(-MIN_BLOCKS // blocks_x))
     groups = min(groups, qtot, 65535)
-    w2 = s2 * (t2 - 1) + taps2
-    r1max = s * (t1 - 1) + taps1
-    tile_b, tile_g = (t_tile, s_tile) if transposed else (s_tile, t_tile)
-    sb, sg = _row_words(tile_b, bf16), _row_words(tile_g, bf16)
+    w2, r1max = t2 - 1 + k, t1 - 1 + k
+    sb, sg = _row_words(s_tile, bf16), _row_words(t_tile, bf16)
     base_words = -(-t1 * t2 * sb // 4) * 4
-    gath_words = -(-tb0 * r1max * w2 * sg // 4) * 4
+    gath_words = -(-r1max * w2 * sg // 4) * 4
     cip, cop = n_t * t_tile, n_s * s_tile
     return {"strip": strip, "k": k, "s_tile": s_tile, "t_tile": t_tile,
             "t1": t1, "t2": t2, "groups": groups, "sb": sb, "sg": sg,
@@ -235,6 +241,66 @@ def _plan(n, spatial, cin, cout, transposed, itemsize, strip, k):
             "dbpart_elems": groups * taps * cop,
             "smem_bytes": 2 * (base_words + gath_words) * 4
             + (48 if bf16 else 0) + 9 * 32 * (8 if bf16 else s_tile) * 8}
+
+
+def dwt_plan(n: int, spatial, cin: int, cout: int,
+             itemsize: int = 4) -> dict:
+    """The transposed kernel's geometry for x of (n, *spatial, cin), its one
+    copy (csrc/shallow_dwt.cu checks it): a block's Cin chunk (n_ct tiles of
+    16, the warps left over taking every other k-step: `slices`), its Cout
+    tile of 16 and, in 3D, its kh (`roles` blocks a group); strips of t1
+    columns of w by t2 depths (all of d where a column fits, else one
+    column in tiles of d) about DWT_STRIPS[itemsize] voxels, the first
+    whose DWT_STAGES buffers fit a block; the dy window's rows; the row
+    strides (sx, sdy) and a buffer's words in 4-byte words; G groups of
+    strips, one block for each SM; the workspaces' element counts (dW's
+    partials float32, db's float64) and the shared memory a block takes."""
+    for strip in DWT_STRIPS[itemsize]:
+        plan = _dwt_plan(n, spatial, cin, cout, itemsize, strip)
+        if plan["smem_bytes"] <= MAX_SHARED:
+            break
+    return plan
+
+
+def _dwt_plan(n, spatial, cin, cout, itemsize, strip):
+    nd = len(spatial)
+    e0, e1 = spatial[0], spatial[1]
+    e2 = spatial[2] if nd == 3 else 1
+    bf16 = itemsize == 2
+    n_ct = min(8, 1 << (-(-cin // 16) - 1).bit_length())
+    cin_c = 16 * n_ct
+    nkh = 3 if nd == 3 else 1
+    roles = -(-cin // cin_c) * -(-cout // 16) * nkh
+    slices = DWT_WARPS // n_ct
+    if e2 <= strip:
+        t2, t1 = e2, max(1, min(e1, strip // e2))
+    else:  # a column of d does not fit: one column, d in tiles
+        t1, t2 = 1, strip
+    qtot = n * e0 * -(-e1 // t1) * -(-e2 // t2)
+    ew, ed = t1 + 1, (t2 + 1 if nd == 3 else 1)
+    rows = (1 if nd == 3 else 3) * 2 * (2 if nd == 3 else 1) * ew * ed
+    # x rows: an odd number of 16-byte units (bfloat16, ldmatrix) or 8
+    # words past a multiple of 32 (float32's 32-bit fragment loads); dy
+    # rows of 16 channels likewise (48 or 96 bytes).
+    sx = (2 * n_ct + 1) * 4 if bf16 else cin_c + 8
+    sdy = 12 if bf16 else 24
+    x_words = -(-t1 * t2 // 16) * 16 * sx
+    stage_words = x_words + -(-rows * sdy // 4) * 4
+    # float32: the staging warpgroup splits each strip's window once into
+    # tf32 (big, small) pairs for all warps, DWT_STAGES - 1 split windows of
+    # rows of DWT_SPLIT_WORDS words after the buffers; then a full and an
+    # empty barrier (8 bytes each) a buffer.
+    split_words = 0 if bf16 else rows * DWT_SPLIT_WORDS
+    smem = (DWT_STAGES * stage_words + (DWT_STAGES - 1) * split_words) * 4 \
+        + 16 * DWT_STAGES
+    groups = max(1, min(qtot, -(-SMS // roles)))
+    blocks = groups * roles
+    return {"strip": strip, "n_ct": n_ct, "cin_c": cin_c, "roles": roles,
+            "slices": slices, "t1": t1, "t2": t2, "qtot": qtot,
+            "window_rows": rows, "sx": sx, "sdy": sdy, "x_words": x_words,
+            "stage_words": stage_words, "groups": groups, "blocks": blocks,
+            "part_elems": blocks * slices * 9 * cin_c * 16,
+            "dbpart_elems": blocks * 16, "smem_bytes": smem}
 
 
 def dw_work(n: int, spatial, cin: int, cout: int, transposed: bool,
@@ -273,14 +339,25 @@ def shallow_dw_plain(x: torch.Tensor, dy: torch.Tensor, transposed: bool,
     return _torch_layout(dw, transposed).to(x.dtype), _bias_grad_plain(dv)
 
 
+def _check_pair(x: torch.Tensor, dy: torch.Tensor):
+    if x.dtype != dy.dtype or x.device != dy.device:
+        raise TypeError(f"x {x.dtype} on {x.device}, dy {dy.dtype} on "
+                        f"{dy.device}")
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernel wants float32 or bfloat16, got {x.dtype}")
+
+
 def shallow_dw(x: torch.Tensor, dy: torch.Tensor, transposed: bool,
                kernel_size: int = 3, stride=None, pad=None):
     """(dW, db) of a routed conv from its input x (N, Cin, *S) and output
     gradient dy (N, Cout, *S'), dW in torch's weight layout and x's type,
     db in dy's. A CPU tensor takes `shallow_dw_plain`; a CUDA tensor
-    launches csrc/shallow_dw.cu (every conv `smallc_supported` routes: the
-    stride-1 3D conv with an odd kernel and pad (k-1)//2, the k=3, s=2
-    transposed conv in 2D and 3D) or raises."""
+    launches a kernel (every conv `smallc_supported` routes) or raises: the
+    k=3, s=2 transposed conv in 2D and 3D csrc/shallow_dwt.cu
+    (`shallow_dwt`), the stride-1 3D conv with an odd kernel and pad (k-1)//2
+    csrc/shallow_dw.cu."""
     nd = x.ndim - 2
     if x.dtype != dy.dtype or x.device != dy.device:
         raise TypeError(f"x {x.dtype} on {x.device}, dy {dy.dtype} on "
@@ -290,19 +367,18 @@ def shallow_dw(x: torch.Tensor, dy: torch.Tensor, transposed: bool,
     k = kernel_size
     s = (2 if transposed else 1) if stride is None else stride
     p = (k - 1) // 2 if pad is None else pad
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"kernel wants float32 or bfloat16, got {x.dtype}")
+    if transposed:
+        if (k, s, p) != (3, 2, 1):
+            raise ValueError("kernel takes k=3 s=2 pad 1 transposed convs; "
+                             f"got k={k}, stride {s}, pad {p}")
+        return shallow_dwt(x, dy)
+    _check_pair(x, dy)
     n, cin, *spatial = x.shape
     cout = dy.shape[1]
-    want = [e * (2 if transposed else 1) for e in spatial]
-    routed = (k == 3 and s == 2 and p == 1 and nd in (2, 3)) if transposed \
-        else (nd == 3 and s == 1 and k % 2 == 1 and p == (k - 1) // 2)
-    if not routed or list(dy.shape[2:]) != want or dy.shape[0] != n:
+    if nd != 3 or s != 1 or k % 2 == 0 or p != (k - 1) // 2 or \
+            dy.shape[0] != n or list(dy.shape[2:]) != spatial:
         raise ValueError(
-            "kernel takes k=3 s=2 transposed convs and stride-1 3D convs of "
-            f"odd k, pad (k-1)//2; got {'transposed ' if transposed else ''}"
+            "the stride-1 kernel takes 3D convs of odd k, pad (k-1)//2; got "
             f"k={k}, stride {s}, pad {p}, x {tuple(x.shape)}, dy "
             f"{tuple(dy.shape)}")
     xv, dv = _nhwc(x), _nhwc(dy)
@@ -311,16 +387,56 @@ def shallow_dw(x: torch.Tensor, dy: torch.Tensor, transposed: bool,
         # The kernel reads bfloat16 rows by 4-byte pairs. A bfloat16
         # product is exact in float32, so the float32 kernel on the widened
         # values computes the same sums.
-        dw, db = shallow_dw(x.float(), dy.float(), transposed, k)
+        dw, db = shallow_dw(x.float(), dy.float(), False, k)
         return dw.to(x.dtype), db.to(x.dtype)
-    plan = dw_plan(n, spatial, cin, cout, transposed, x.element_size(), k)
+    plan = dw_plan(n, spatial, cin, cout, x.element_size(), k)
     if plan["smem_bytes"] > MAX_SHARED:
         raise ValueError(f"kernel does not take x {tuple(x.shape)}, k={k}: a "
                          f"strip needs {plan['smem_bytes']} bytes of shared "
                          "memory")
-    w_shape = (cin, cout, *(k,) * nd) if transposed else \
-        (cout, cin, *(k,) * nd)
-    dw = torch.empty(w_shape, dtype=x.dtype, device=x.device)
+    dw = torch.empty((cout, cin, k, k, k), dtype=x.dtype, device=x.device)
+    db = torch.empty(cout, dtype=x.dtype, device=x.device)
+    part = torch.empty(plan["part_elems"], dtype=torch.float32,
+                       device=x.device)
+    dbpart = torch.empty(plan["dbpart_elems"], dtype=torch.float64,
+                         device=x.device)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.ctseg_shallow_dw(
+        xv.data_ptr(), dv.data_ptr(), part.data_ptr(), dbpart.data_ptr(),
+        dw.data_ptr(), db.data_ptr(), n, *spatial, cin, cout, k,
+        *(plan[key] for key in _PLAN_ARGS), plan["part_elems"],
+        plan["dbpart_elems"], _DTYPE_CODES[x.dtype], x.device.index, stream)
+    lib.check(err, "shallow_dw")
+    shallow_dw.launches += 1
+    return dw, db
+
+
+# csrc/shallow_dw.cu's calls (main + finalize launch) since reset: the
+# stride-1 conv's; the transposed conv's count on `shallow_dwt`.
+shallow_dw.launches = 0
+
+
+def shallow_dwt(x: torch.Tensor, dy: torch.Tensor):
+    """(dW, db) of the k=3, s=2, pad 1, output padding 1 transposed conv from
+    x (N, Cin, *S) and dy (N, Cout, *2S) on the card, 2D or 3D, float32 or
+    bfloat16, any channel counts: one launch of csrc/shallow_dwt.cu (and
+    its finalize). dW is torch's (Cin, Cout, 3, 3[, 3]) in x's type, db
+    (Cout,). Raises on anything else; there is no other route."""
+    _check_pair(x, dy)
+    nd = x.ndim - 2
+    n, cin, *spatial = x.shape
+    cout = dy.shape[1]
+    if nd not in (2, 3) or dy.ndim != x.ndim or dy.shape[0] != n or \
+            list(dy.shape[2:]) != [2 * e for e in spatial]:
+        raise ValueError("kernel takes a k=3 s=2 transposed conv in 2D or "
+                         f"3D; got x {tuple(x.shape)}, dy {tuple(dy.shape)}")
+    plan = dwt_plan(n, spatial, cin, cout, x.element_size())
+    if plan["smem_bytes"] > MAX_SHARED:
+        raise ValueError(f"kernel does not take x {tuple(x.shape)}: a strip "
+                         f"needs {plan['smem_bytes']} bytes of shared memory")
+    xv, dv = _nhwc(x), _nhwc(dy)
+    dw = torch.empty((cin, cout) + (3,) * nd, dtype=x.dtype, device=x.device)
     db = torch.empty(cout, dtype=x.dtype, device=x.device)
     part = torch.empty(plan["part_elems"], dtype=torch.float32,
                        device=x.device)
@@ -329,18 +445,17 @@ def shallow_dw(x: torch.Tensor, dy: torch.Tensor, transposed: bool,
     e = list(spatial) + [1] * (3 - nd)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.ctseg_shallow_dw(
+    err = lib.ctseg_shallow_dwt(
         xv.data_ptr(), dv.data_ptr(), part.data_ptr(), dbpart.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), n, e[0], e[1], e[2], cin, cout, nd,
-        int(transposed), k, *(plan[key] for key in _PLAN_ARGS),
-        plan["part_elems"], plan["dbpart_elems"], _DTYPE_CODES[x.dtype],
+        dw.data_ptr(), db.data_ptr(), n, *e, cin, cout, nd,
+        *(plan[key] for key in _DWT_PLAN_ARGS), _DTYPE_CODES[x.dtype],
         x.device.index, stream)
-    lib.check(err, "shallow_dw")
-    shallow_dw.launches += 1
+    lib.check(err, "shallow_dwt")
+    shallow_dwt.launches += 1
     return dw, db
 
 
-shallow_dw.launches = 0  # kernel calls (main + finalize launch) since reset
+shallow_dwt.launches = 0  # csrc/shallow_dwt.cu's calls since reset
 
 
 # ------------------------------------------------------------ the Functions

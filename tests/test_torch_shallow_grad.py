@@ -18,12 +18,15 @@ phase 16b).
     gate included), only when a gradient is taken.
   - No weight-gradient work where the weight needs none; an exported
     artifact still holds only aten ops.
-  - The kernel's plan at the routed sites of the main paths and at the
+  - The kernels' plans at the routed sites of the main paths and at the
     convs the rule routes beyond them (k = 1, 5, 7; a transposed input
-    deeper than one strip): a lane's float32 chain at most CHAIN, enough
-    blocks, the shared memory within an H100 block's, and what the C
-    entry checks of it. The plan's strips, depth tiles and gathered windows,
-    emulated in numpy, make the plain version's dW and db.
+    deeper than one strip): the stride-1 plan (`dw_plan`, csrc/
+    shallow_dw.cu) with a lane's float32 chain at most CHAIN, enough blocks,
+    the shared memory within an H100 block's, and what the C entry checks
+    of it; the transposed sites take csrc/shallow_dwt.cu's plan
+    (`dwt_plan`, tests/test_torch_shallow_dwt.py has its own cases). The
+    plans' strips and windows, emulated in numpy, make the plain version's
+    dW and db.
 """
 
 import itertools
@@ -36,6 +39,8 @@ import torch
 
 import ctseg_tpu.ops.shallow_grad as jax_sg
 from ctseg_tpu.models import SegmentationModel as JaxSegmentationModel
+from test_torch_shallow_dwt import assert_dwt_plan_holds_the_kernel, \
+    emulate_dwt
 from ctseg_tpu_torch.inference import export
 from ctseg_tpu_torch.models import layers
 from ctseg_tpu_torch.models.unet import SegmentationModel
@@ -326,7 +331,16 @@ SITES = {
 @pytest.mark.parametrize("itemsize", [4, 2])
 def test_the_kernel_plan_at_the_sites(site, itemsize):
     n, spatial, cin, cout, transposed, k = SITES[site]
-    plan = sg.dw_plan(n, spatial, cin, cout, transposed, itemsize, k)
+    if transposed:  # csrc/shallow_dwt.cu's plan
+        plan = sg.dwt_plan(n, spatial, cin, cout, itemsize)
+        assert plan["smem_bytes"] <= sg.MAX_SHARED
+        assert_dwt_plan_holds_the_kernel(plan, n, spatial, cin, cout,
+                                         itemsize)
+        flop, _ = sg.dw_work(n, spatial, cin, cout, True)
+        assert 0 < flop <= 2 * n * np.prod(spatial) * 3 ** len(spatial) * \
+            cin * cout + n * np.prod(spatial) * 2 ** len(spatial) * cout
+        return
+    plan = sg.dw_plan(n, spatial, cin, cout, itemsize, k)
     assert plan["chain"] <= sg.CHAIN
     assert plan["blocks"] >= min(sg.MIN_BLOCKS, plan["blocks"] // plan[
         "groups"] * n * spatial[0])
@@ -338,20 +352,16 @@ def test_the_kernel_plan_at_the_sites(site, itemsize):
     taps = k ** len(spatial)
     assert 0 < flop <= 2 * n * np.prod(spatial) * taps * cin * cout + \
         n * np.prod(spatial) * 2 ** len(spatial) * cout
-    _assert_plan_holds_the_kernel(plan, spatial, transposed, itemsize)
+    _assert_plan_holds_the_kernel(plan, spatial, itemsize)
 
 
-def _assert_plan_holds_the_kernel(plan, spatial, transposed, itemsize):
-    """What csrc/shallow_dw.cu's C entry checks of the plan."""
-    nd, k, bf16 = len(spatial), plan["k"], itemsize == 2
-    e1, e2 = spatial[1], spatial[2] if nd == 3 else 1
-    s = 2 if transposed else 1
-    s2, taps2, tb0 = (s, k, 1) if nd == 3 else (1, 1, 3)
+def _assert_plan_holds_the_kernel(plan, spatial, itemsize):
+    """What csrc/shallow_dw.cu's C entry checks of the stride-1 plan."""
+    k, bf16 = plan["k"], itemsize == 2
+    e1, e2 = spatial[1], spatial[2]
     t1, t2 = plan["t1"], plan["t2"]
-    assert 1 <= t1 <= e1 and 1 <= t2 <= e2 and t1 * t2 <= 65536
-    assert t2 == e2 or t1 == 1  # d in tiles only one column at a time
-    tb, tg = (plan["t_tile"], plan["s_tile"]) if transposed else (
-        plan["s_tile"], plan["t_tile"])
+    assert 1 <= t1 <= e1 and t2 == e2 and t1 * t2 <= 65536
+    tb, tg = plan["s_tile"], plan["t_tile"]
     if bf16:
         assert plan["sb"] % 4 == plan["sg"] % 4 == 0 and min(
             plan["sb"], plan["sg"]) >= 8
@@ -360,69 +370,57 @@ def _assert_plan_holds_the_kernel(plan, spatial, transposed, itemsize):
         assert plan["sb"] % 2 == plan["sg"] % 2 == 0
     assert plan["base_words"] % 4 == plan["gath_words"] % 4 == 0
     assert plan["base_words"] >= t1 * t2 * plan["sb"]
-    assert plan["gath_words"] >= tb0 * (s * (t1 - 1) + k) * (
-        s2 * (t2 - 1) + taps2) * plan["sg"]
+    assert plan["gath_words"] >= (t1 - 1 + k) * (t2 - 1 + k) * plan["sg"]
     assert 1 <= plan["groups"] <= 65535
 
 
-def _emulate(x, dy, transposed, plan):
-    """The kernel's decomposition in numpy, float64: strips of the base
-    operand (zero rows past the depth edge), each tap's gathered window
-    (zero outside the tensor and past the strip's last column), the base row
-    times the window row at s * voxel + tap, and db from the dy rows of the
-    taps csrc/shallow_dw.cu's db_tap names. x (n, *S, cin), dy (n, *S',
-    cout) -> dW (*k, cin, cout) in the kernel's unflipped tap order, db."""
-    nd = x.ndim - 2
-    if nd == 2:
-        x, dy = x[:, :, :, None], dy[:, :, :, None]
+def _emulate(x, dy, plan):
+    """csrc/shallow_dw.cu's decomposition in numpy, float64: strips of t1
+    whole columns of dy, each kh tap's window of x (zero outside the tensor
+    and past the strip's last column), the dy row times the window row at
+    voxel + tap, and db from the dy rows of the centre tap. x (n, *S, cin),
+    dy (n, *S, cout) -> dW (k, k, k, cin, cout), db."""
     n, e0, e1, e2, _ = x.shape
     k = plan["k"]
-    s, p = (2, 1) if transposed else (1, (k - 1) // 2)
-    taps2, s2, pd2 = (k, s, p) if nd == 3 else (1, 1, 0)
-    base, gath = (x, dy) if transposed else (dy, x)
-    f = gath.shape[1:4]
+    p = (k - 1) // 2
     t1, t2 = plan["t1"], plan["t2"]
-    nw1, nw2 = -(-e1 // t1), -(-e2 // t2)
-    dw = np.zeros((k, k, taps2, x.shape[-1], dy.shape[-1]))
+    dw = np.zeros((k, k, k, x.shape[-1], dy.shape[-1]))
     db = np.zeros(dy.shape[-1])
     q = np.arange(t1 * t2)
     r1, r2 = q // t2, q % t2
-    for qb in range(n * e0 * nw1 * nw2):
-        rest, dc = divmod(qb, nw2)
-        t, wc = divmod(rest, nw1)
+    r1max, w2 = t1 - 1 + k, t2 - 1 + k
+    nw1 = -(-e1 // t1)
+    for qb in range(n * e0 * nw1):
+        t, wc = divmod(qb, nw1)
         nn, b0 = divmod(t, e0)
-        w0, d0 = wc * t1, dc * t2
-        t1c, t2c = min(t1, e1 - w0), min(t2, e2 - d0)
-        rows = np.zeros((t1 * t2, base.shape[-1]))
-        live = (r1 < t1c) & (r2 < t2c)
-        rows[live] = base[nn, b0, w0 + r1[live], d0 + r2[live]]
-        r1max, w2 = s * (t1 - 1) + k, s2 * (t2 - 1) + taps2
-        for t0 in range(k):
-            win = np.zeros((r1max, w2, gath.shape[-1]))
-            g0 = s * b0 - p + t0
-            for gl1 in range(min(r1max, s * (t1c - 1) + k)):
+        w0 = wc * t1
+        t1c = min(t1, e1 - w0)
+        nq = t1c * t2
+        rows = dy[nn, b0, w0 + r1[:nq], r2[:nq]]
+        for kh in range(k):
+            win = np.zeros((r1max, w2, x.shape[-1]))
+            g0 = b0 - p + kh
+            for gl1 in range(min(r1max, t1c - 1 + k)):
                 for gl2 in range(w2):
-                    g1, g2 = s * w0 - p + gl1, s2 * d0 - pd2 + gl2
-                    if 0 <= g0 < f[0] and 0 <= g1 < f[1] and 0 <= g2 < f[2]:
-                        win[gl1, gl2] = gath[nn, g0, g1, g2]
-            nq = t1c * t2
-            for ta in range(k):
-                for tb in range(taps2):
-                    g = win[s * r1[:nq] + ta, s2 * r2[:nq] + tb]
-                    b = rows[:nq]
-                    xs, ds = (b, g) if transposed else (g, b)
-                    dw[t0, ta, tb] += xs.T @ ds
-                    if (t0 >= 1 and ta >= 1 and (taps2 == 1 or tb >= 1)) \
-                            if transposed else t0 == ta == tb == p:
-                        db += ds.sum(0)
-    return (dw[:, :, 0] if nd == 2 else dw), db
+                    g1, g2 = w0 - p + gl1, gl2 - p
+                    if 0 <= g0 < e0 and 0 <= g1 < e1 and 0 <= g2 < e2:
+                        win[gl1, gl2] = x[nn, g0, g1, g2]
+            for kw in range(k):
+                for kd in range(k):
+                    dw[kh, kw, kd] += win[r1[:nq] + kw, r2[:nq] + kd].T @ rows
+                    if kh == kw == kd == p:
+                        db += rows.sum(0)
+    return dw, db
 
 
 EMULATED = {  # (N, *spatial), cin, cout, transposed, k, strip
+    # The stride-1 kernel takes whole columns of d: a strip of t1 columns
+    # (the last one ragged) or one column where a column is over a strip.
     "conv k=3, whole columns": ((2, 3, 5, 4), 3, 4, False, 3, 8),
-    "conv k=3, depth tiles": ((1, 3, 4, 11), 3, 4, False, 3, 4),
-    "conv k=1, depth tiles": ((2, 2, 3, 10), 2, 3, False, 1, 4),
-    "conv k=5, depth tiles": ((1, 3, 4, 7), 2, 3, False, 5, 3),
+    "conv k=3, column over a strip": ((1, 3, 4, 11), 3, 4, False, 3, 4),
+    "conv k=1, column over a strip": ((2, 2, 3, 10), 2, 3, False, 1, 4),
+    "conv k=5, column over a strip": ((1, 3, 4, 7), 2, 3, False, 5, 3),
+    # csrc/shallow_dwt.cu's strips: whole columns, depth tiles, 2D rows.
     "transposed 3D, whole columns": ((2, 3, 4, 3), 3, 2, True, 3, 8),
     "transposed 3D, depth tiles": ((1, 2, 3, 10), 3, 2, True, 3, 4),
     "transposed 2D": ((2, 5, 7), 3, 2, True, 3, 4),
@@ -433,21 +431,32 @@ EMULATED = {  # (N, *spatial), cin, cout, transposed, k, strip
 def test_the_plans_strips_and_windows_make_the_weight_gradient(monkeypatch,
                                                                case):
     shape, cin, cout, transposed, k, strip = EMULATED[case]
-    monkeypatch.setattr(sg, "STRIPS", {4: (strip,)})
     rng = np.random.default_rng(6)
     spatial = shape[1:]
     osp = tuple(e * (2 if transposed else 1) for e in spatial)
     x = rng.standard_normal(shape + (cin,))
     dy = rng.standard_normal((shape[0],) + osp + (cout,))
-    plan = sg.dw_plan(shape[0], spatial, cin, cout, transposed, 4, k)
-    assert plan["strip"] == strip
-    _assert_plan_holds_the_kernel(plan, spatial, transposed, 4)
-    dw, db = _emulate(x, dy, transposed, plan)
     pdw, pdb = sg.shallow_dw(_nchw(x).detach(), _nchw(dy).detach(),
                              transposed, k)
-    nd = len(spatial)
-    # torch's layout -> (*k, ci, co), the taps as the kernel indexes them.
-    want = pdw.permute(*range(2, nd + 2), 0, 1) if transposed else \
-        pdw.permute(*range(2, nd + 2), 1, 0)
+    if transposed:
+        monkeypatch.setattr(sg, "DWT_STRIPS", {4: (strip,)})
+        plan = sg.dwt_plan(shape[0], spatial, cin, cout, 4)
+        assert plan["strip"] == strip
+        assert_dwt_plan_holds_the_kernel(plan, shape[0], spatial, cin, cout,
+                                         4)
+        dw, db = emulate_dwt(x, dy, plan)  # torch's layout
+        want = pdw
+    else:
+        monkeypatch.setattr(sg, "STRIPS", {4: (strip,)})
+        plan = sg.dw_plan(shape[0], spatial, cin, cout, 4, k)
+        assert plan["strip"] == strip
+        # A column of d over a strip: the plan asks for more shared memory
+        # than the strip would (the wrapper raises on what does not fit).
+        assert plan["t2"] == spatial[2]
+        _assert_plan_holds_the_kernel(plan, spatial, 4)
+        dw, db = _emulate(x, dy, plan)
+        # torch's layout -> (*k, ci, co), the taps as the kernel indexes
+        # them.
+        want = pdw.permute(2, 3, 4, 1, 0)
     _assert_grad(dw, want.numpy(), "float64")
     _assert_grad(db, pdb.numpy(), "float64")
