@@ -106,7 +106,8 @@ Phases (any failure raises and the script exits non-zero):
      three routed transposed convs (bench_3d's and Model L's 2D 128 -> 10
      at batch 128, model_3d's at batch 1), float32 and bfloat16, and at the
      SHALLOW_ROUTED convs the rule routes beyond them (k = 5 and k = 1, a
-     transposed input 400 deep, odd channels), each at its own batch: one
+     transposed input 400 deep, odd channels, taken in bfloat16 as they
+     are by both kernels), each at its own batch: one
      launch of the map's own kernel a call, the kernel and its plain
      version on the same tensors against a float64 referee
      (aten.convolution_backward), each error relative to the sum of its
@@ -2245,9 +2246,9 @@ SHALLOW_SITES = (
 # Convs the routing rule (ops/shallow_grad.py::smallc_supported) sends to
 # the kernels beyond the main paths' sites, in both types: other odd k, a
 # transposed input deeper than one strip (depth tiles), and odd channels
-# (csrc/shallow_dwt.cu takes them in bfloat16 as they are; the stride-1
-# kernel widens bfloat16 to its float32 kernel). (name, transposed, batch,
-# x's spatial extents, Cin, Cout, k)
+# (both kernels take them in bfloat16 as they are, copying rows of an odd
+# count 2 bytes at a time). (name, transposed, batch, x's spatial extents,
+# Cin, Cout, k)
 SHALLOW_ROUTED = (
     ("k=5 conv 10 -> 10 at depth 64", False, 2, (32, 32, 64), 10, 10, 5),
     ("k=1 conv 16 -> 8 at depth 64", False, 2, (32, 32, 64), 16, 8, 1),

@@ -13,73 +13,110 @@
 // s = 2 transposed conv that the same rule (`smallc_supported`) routes has
 // its own kernel, csrc/shallow_dwt.cu.
 //
-// dy is the "base" operand, read at the voxel; x the "gathered" one, read
-// at voxel - pad + tap on each axis.
-//
 // What bounds it on an H100: in float32, operations. At the bench_3d site
-// (batch 128) the 10 -> 10 conv does 172 GFLOP against 2.7 GB of x and dy:
-// 64 FLOP a byte, above the FP32 pipes' 20 (67 TFLOP/s over 3.35 TB/s), a
-// bound of 2.57 ms. cuDNN's FP32 weight gradient takes 511-541 ms there:
-// with 10 channels its GEMM's N dimension is 10 wide. In bfloat16 the bound
-// is the bytes (0.40 ms at 989 TFLOP/s).
+// (batch 128) the 10 -> 10 conv does 172 GFLOP against 2.7 GB of x and dy,
+// 64 FLOP a byte: on the FP32 pipes (67 TFLOP/s) a bound of 2.57 ms. In
+// bfloat16 the bytes (1.34 GB, 0.40 ms at 3.35 TB/s).
 //
-// Design (a first version that is right, not yet near its bound):
-//   - float32: an implicit GEMM on the FP32 pipes, M = taps x Cin,
-//     N = Cout, K = the voxels. Each warp owns one tap and a tile of T input
-//     by S output channels (S = Cout rounded up to 4, 8, 10 or 16; T = 16,
-//     12, 10 or 8 with it); its 32 lanes take 32 voxels at a time, each lane
-//     a T x S outer product a voxel: T + S loads from shared memory feed
-//     T * S FMAs (100 at the sites), reduced across the warp by a fixed
-//     butterfly at the end.
-//   - bfloat16: the tensor cores, mma.sync m16n8k16 (bf16 x bf16 -> f32;
-//     the products are exact), the warp's tap by a 16 x 16 (Cin, Cout) tile,
-//     16 voxels a step; both fragments come from voxel-major shared rows by
-//     ldmatrix.trans (rows of 16 values at a 48-byte stride: no bank
-//     conflicts), and the tensor cores' sums are added into float32
-//     registers once a strip, so their own accumulation chain is short.
-//   - A block is 9 warps on consecutive taps: the (kw, kd) taps of one kh
-//     (k * k of them, 9 at k = 3, in ceil(k * k / 9) blocks), for one (Cin
-//     tile, Cout tile). It walks a strip of voxels at a time: one (n, h)
-//     row of the base operand, t1 columns of w and all t2 = d depths,
-//     staged in shared memory with the gathered operand's window around it
-//     (zero where it leaves the tensor, so the inner loop has no bounds
-//     checks), double-buffered
-//     by 4-byte cp.async so a strip copies while the last one computes (the
-//     contiguous base rows word by word across the lanes, the window a
-//     thread a row). The strip is 1024 voxels or the most that fits a block
-//     in float32, 128 in bfloat16 (ops/shallow_grad.py::STRIPS, from
-//     csrc/tools/sweep_shallow_dw.py). The plan is computed once, by
-//     ops/shallow_grad.py::dw_plan; the C entry checks it.
-//   - Deterministic, no atomics, in two launches: the grid's second
-//     dimension is G groups of strips, each block's lanes keep their sums in
-//     registers over its strips (at most 512 voxels a lane in float32, so a
-//     float32 chain stays short) and write one partial per (group, tap, Cin,
-//     Cout); db's lane sums are float32 over 4 voxels (bfloat16: a strip)
-//     and float64 from there on; the finalize launch sums the G partials in group order in
-//     float64 and writes dW (and db, from the dy rows that cover each voxel
-//     once) in w's type. The grid is sized by the outputs (27 x 10 x 10
-//     taps, Cin and Cout into 3 blocks a group in float32) and by G, not by
-//     the SMs alone.
-// Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py phase 16b and
-// csrc/tools/sweep_shallow_dw.py): float32 11.0 ms at the 10 -> 10 conv,
-// 0.23 of the bound (db's float64 flushes every kDbChain voxels take 6-9%
-// of it); bfloat16 7.7. What bounds it is not settled. Not the number of
-// copy instructions: copying only a row's channel words, at 8 or 16 bytes
-// where aligned, moved the sites by -8% to +5% (PERF.md, ROADMAP.md).
+// What held the first version of this kernel back, from its variants
+// (csrc/tools/variants_shallow_dw.py --map step0; PERF.md): each strip was
+// staged by the 3 blocks of its kh (9 warps a block, one tap each), a
+// thread a row, by the same warps that computed, with a ring of 2, so
+// staging and products did not overlap (3.6 + 7.3 of 10.7 ms in float32)
+// and two thirds of the staging was repeated (one kh block staging: -20%);
+// its bfloat16 products alone took 4.9 ms (12x the bound), db 1.3 of them;
+// its float32 warps spilled (140-192 bytes) and divided for every voxel, 9
+// warps on 4 schedulers.
+//
+// Design:
+//   - A block owns one run of t1 columns of w (all of d) of one sample and a
+//     segment of h, and walks h. Each step stages one dy plane (the run at
+//     row h: one contiguous run of device memory) and one x plane (row
+//     h + p, the run widened by p columns each side), so that every x plane
+//     serves the k kh taps of k steps and every dy plane all taps: each byte
+//     of x and dy is staged once a block (a role, below). The planes go into
+//     a ring of `stages` slots (2p + 2 or more: the k planes a step reads and
+//     the one being staged); planes above or below the tensor are staged as
+//     zeros, and the d halo (p rows at each end of a column), the columns
+//     outside the tensor, the channels past a tile and the dy rows past the
+//     strip are zeroed once, when the block starts, and never written, so
+//     the products test no bounds.
+//   - Warp-specialised, 384 threads, one block an SM: a staging warpgroup (4
+//     warps) copies the planes by cp.async (4 bytes a copy, a thread a row,
+//     each row into a padded shared row; bfloat16 rows with an odd channel
+//     count by 2-byte loads and stores) and signals each slot's full
+//     mbarrier by cp.async.mbarrier.arrive; 8 computing warps (two a
+//     scheduler) release a slot's empty mbarrier when its x plane has
+//     served its last step. setmaxnreg gives the stagers 40 registers and
+//     the computing warps 232. (Two blocks of 4 computing warps an SM held
+//     every thread to 128 registers: 7.0 ms in float32 where this takes
+//     6.6 with the same loop, unrolled by 2.)
+//   - float32, on the FP32 pipes (split TF32's 3 products a product on the
+//     padded 16 x 16 tile bound it at 4.1 ms at mma.sync's measured rate,
+//     over the FP32 pipes' 2.57): a lane owns one tap and a T x S tile of
+//     (Cin, Cout) accumulators (10 x 10 at the sites; S = Cout rounded to 4,
+//     8, 10 or 16, T = 16, 12, 10 or 8 with it), so the taps of a role (up
+//     to 32: all 27 at k = 3, lanes 27-31 idle) are the lanes of every
+//     warp, and the warps take turns over the step's voxels (the loop
+//     unrolled by 8, which keeps several voxels' loads in flight: 6.6 ms at
+//     2, 5.9 at 8 and at 16): per voxel a lane loads its tap's x row (T
+//     values) and the voxel's dy row (S values, one broadcast for the warp)
+//     and does T * S FMAs. Where a role has fewer than 16 taps (k = 1) the lanes
+//     also split the voxels (`slots`). A voxel's 27 x loads fall on up to 3
+//     rows of a bank (6 wavefronts a float2 load, not 2); a lane order and
+//     padding that put them on distinct banks (a ring of 8) was built and
+//     dropped: a 512-voxel strip without it, which its ring could not hold,
+//     was as fast.
+//   - bfloat16, on the tensor cores: mma.sync m16n8k16 (bf16 x bf16 -> f32,
+//     products exact) over 16 voxels a k-step, A = x (Cin tile of 16 x
+//     voxels), B = dy (voxels x Cout tile of 16), both from 48-byte shared
+//     rows by ldmatrix.trans without bank conflicts. A warp owns up to 7
+//     taps of the role (7, 7, 7, 6 at k = 3; the warps 4-7 take the odd
+//     k-steps) and loads dy's fragment once a k-step for all of them.
+//     Padding: Cin 10 -> 16 and Cout 10 -> 16 (2.56x the products at the
+//     sites). db is one more tap, in the last warp's spare slot, whose A
+//     comes from 16 shared rows of ones, so every warp runs its 7 slots
+//     without a branch (a branch for it cost 1.65 of 4.7 ms). The tensor
+//     cores add by truncation, so each step's products go into fresh
+//     accumulators (at most 16 k-steps at the sites) added to running sums
+//     on the FP32 pipes.
+//   - Roles: a role is a group of taps (up to 32 float32, 27 bfloat16), a
+//     Cin tile and a Cout tile; every role of a run is its own block, the
+//     roles of a run neighbours in the grid.
+//   - Deterministic, no atomics: at its end a block sums its warps (and
+//     slots or k-step slices) in a fixed order in float64 through shared
+//     memory and writes one float32 partial per (tap, Cin, Cout) of its
+//     role; the finalize launch sums the blocks' partials in a fixed order
+//     in float64 and writes dW (and db) in x's type. float32 db: the
+//     computing threads of the first Cin tile's blocks sum the staged dy
+//     rows, float32 over kDbChain values loaded together, then float64 (a
+//     float32 chain of 32 was 2.9x torch's float32 sum's error).
+// Registers (ptxas -v, sm_90a; csrc/tools/variants_shallow_dw.py prints
+// them): every instance 168 a thread (the launch-bounds cap at 384
+// threads; setmaxnreg moves the stagers' registers to the computing warps)
+// and no spills. The geometry (strip, segments, roles, ring, row strides,
+// slot words, shared memory) is ops/shallow_grad.py::dw_plan's, its one
+// copy; the C entry checks it.
 #include "common.cuh"
 
 namespace {
 
-using ctseg::cp_async_commit;
-using ctseg::cp_async_wait;
 using ctseg::from_float;
 
 constexpr int kMaxShared = 232448;  // bytes a block may use on sm_90
-constexpr int kWarps = 9;           // taps a block
-// Voxels a lane sums db over in float32 before its float64 sum: a float32
-// chain of a strip's 32 was 2.9x torch's float32 sum's error (phase 16b).
+constexpr int kWarps = 8;           // computing warps, two a scheduler
+constexpr int kConsumers = kWarps * 32;
+constexpr int kStagers = 128;       // the staging warpgroup
+constexpr int kThreads = kConsumers + kStagers;
+constexpr int kStagerRegs = 40;     // setmaxnreg: 128 x 40 + 256 x 232
+constexpr int kConsumerRegs = 232;  // <= 65536 registers an SM
+constexpr int kTapsPerWarp = 7;     // bfloat16: taps a computing warp holds
+constexpr int kMaxTapsF32 = 32;     // float32: taps a role (its lanes)
+constexpr int kMaxTapsBf16 = 27;    // bfloat16: leaves the last warp a slot
+constexpr int kRowWordsBf16 = 12;   // 16 values at a 48-byte stride
+// Values a thread sums db over in float32 before its float64 sum.
 constexpr int kDbChain = 4;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kOnesBf16 = 0x3F803F80u;  // two bfloat16 1.0s
 
 // n / d for 0 <= n < 2^31 by one multiply-high (CUTLASS's FastDivmod).
 struct FastDiv {
@@ -104,272 +141,61 @@ __device__ __forceinline__ int fdiv(int n, const FastDiv& f) {
                                                 f.mul) >> f.shr);
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 // 4 bytes global -> shared, or 4 zero bytes when !pred.
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
                                           bool pred) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int bytes = pred ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(bytes)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem), "r"(pred ? 4 : 0)
                : "memory");
 }
 
-struct Geom {
-  const uint32_t* x;   // (n, e0, e1, e2, cin) as 4-byte words
-  const uint32_t* dy;  // (n, e0, e1, e2, cout)
-  float* part;         // (groups, taps, cip, cop)
-  double* dbpart;      // (groups, taps, cop)
-  int n, e0, e1, e2;   // x's and dy's extents
-  int k, p, taps;      // taps an axis, the pad (k - 1) / 2, k^3
-  int chunks;                          // blocks for one h tap's (w, d) taps
-  int cin, cout, cw_x, cw_dy;          // channels, and words a row
-  int n_t, n_s, cip, cop;              // tiles and padded extents
-  int t1, t2, nw1, qtot, groups;       // a strip: t1 columns of t2 depths
-  int w2, r1max;                       // the gathered window's extents
-  int sb, sg;                          // shared row strides, words
-  int base_words, gath_words;          // one buffer's words of each
-  FastDiv div_nw1, div_e0, div_t2, div_w2;
-};
-
-// Strip qb: one (n, h) row of the base operand, columns w0 .. w0 + t1c and
-// all depths.
-struct Strip {
-  int nn, b0, w0, t1c;
-};
-
-__device__ __forceinline__ Strip strip_at(const Geom& g, int qb) {
-  Strip s;
-  const int t = fdiv(qb, g.div_nw1);
-  const int wc = qb - t * g.nw1;
-  s.nn = fdiv(t, g.div_e0);
-  s.b0 = t - s.nn * g.e0;
-  s.w0 = wc * g.t1;
-  s.t1c = min(g.t1, g.e1 - s.w0);
-  return s;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
 }
 
-// Stage one strip (qb) into the buffers: t1c x t2 base rows, one
-// contiguous run of device memory, which the block's lanes walk word by
-// word; the gathered window of h tap kh (r1max x w2 rows, zero outside the
-// tensor) goes a thread a row.
-template <int kTWb, int kTWg>
-__device__ __forceinline__ void stage(const Geom& g, int qb, int kh, int c0x,
-                                      int c0dy, uint32_t* sb_buf,
-                                      uint32_t* sg_buf) {
-  const Strip st = strip_at(g, qb);
-  const uint32_t* bsrc = g.dy;
-  const uint32_t* gsrc = g.x;
-  const int cwb = g.cw_dy, cwg = g.cw_x;
-  const int c0b = c0dy, c0g = c0x;
-  const int tid = threadIdx.x;
-
-  const int nb = st.t1c * g.t2;
-  const size_t row0 =
-      ((static_cast<size_t>(st.nn) * g.e0 + st.b0) * g.e1 + st.w0) *
-      static_cast<size_t>(g.e2);
-  for (int e = tid; e < nb * kTWb; e += blockDim.x) {
-    const int r = e / kTWb, k = e - r * kTWb;
-    const bool ok = c0b + k < cwb;
-    cp_async4(sb_buf + r * g.sb + k,
-              ok ? bsrc + (row0 + r) * cwb + c0b + k : bsrc, ok);
-  }
-  const int rows = g.r1max * g.w2;
-  for (int r = tid; r < rows; r += blockDim.x) {
-    const int gl1 = fdiv(r, g.div_w2);
-    const int gl2 = r - gl1 * g.w2;
-    const int g0 = st.b0 - g.p + kh;
-    const int g1 = st.w0 - g.p + gl1;
-    const int g2 = gl2 - g.p;
-    const bool in = static_cast<unsigned>(g0) < static_cast<unsigned>(g.e0) &&
-                    static_cast<unsigned>(g1) < static_cast<unsigned>(g.e1) &&
-                    static_cast<unsigned>(g2) < static_cast<unsigned>(g.e2) &&
-                    gl1 < st.t1c - 1 + g.k;
-    const uint32_t* src =
-        gsrc +
-        (((static_cast<size_t>(st.nn) * g.e0 + (in ? g0 : 0)) * g.e1 +
-          (in ? g1 : 0)) * g.e2 + (in ? g2 : 0)) * cwg + c0g;
-    uint32_t* dst = sg_buf + r * g.sg;
-#pragma unroll
-    for (int k = 0; k < kTWg; ++k) {
-      const bool ok = in && c0g + k < cwg;
-      cp_async4(dst + k, ok ? src + k : gsrc, ok);
-    }
-  }
+// Arrive, releasing this thread's shared-memory accesses before it.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
 }
 
-// The block's walk over its strips: strip qb + G is staged while strip qb
-// is handed to `fn(base rows, gathered window, voxels)`; the voxels are
-// t1c x t2.
-template <int kTWb, int kTWg, typename Fn>
-__device__ __forceinline__ void walk(const Geom& g, int kh, int c0x,
-                                     int c0dy, bool live, Fn&& fn) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int buf_words = g.base_words + g.gath_words;
-  int it = 0;
-  if (blockIdx.y < g.qtot) {
-    stage<kTWb, kTWg>(g, blockIdx.y, kh, c0x, c0dy, smem,
-                      smem + g.base_words);
-  }
-  cp_async_commit();
-  for (int qb = blockIdx.y; qb < g.qtot; qb += g.groups, ++it) {
-    const int qn = qb + g.groups;
-    if (qn < g.qtot) {
-      uint32_t* next = smem + ((it + 1) & 1) * buf_words;
-      stage<kTWb, kTWg>(g, qn, kh, c0x, c0dy, next, next + g.base_words);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (live) {
-      const uint32_t* sb_buf = smem + (it & 1) * buf_words;
-      const int t = fdiv(qb, g.div_nw1);
-      const int w0 = (qb - t * g.nw1) * g.t1;
-      fn(sb_buf, sb_buf + g.base_words, min(g.t1, g.e1 - w0) * g.t2);
-    }
-    __syncthreads();  // the buffer is staged again two strips on
-  }
-  cp_async_wait<0>();
+// Arrive once this thread's cp.async copies issued so far have landed.
+__device__ __forceinline__ void mbar_arrive_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
 }
 
-// Where a block's warp sits: its tap, tiles and whether it makes db. A
-// block's warps take consecutive taps of one h tap kh's (w, d) plane,
-// `chunks` blocks covering a plane of more than 9; the centre tap's dy rows
-// (dy at every voxel) make db.
-struct WarpTap {
-  int cs, ct, kh, warp, lane, t1, t2, tap;
-  bool live, db;
-};
-
-__device__ __forceinline__ WarpTap warp_tap(const Geom& g) {
-  WarpTap w;
-  w.cs = blockIdx.x % g.n_s;
-  w.ct = (blockIdx.x / g.n_s) % g.n_t;
-  const int rest = blockIdx.x / (g.n_s * g.n_t);
-  w.kh = rest / g.chunks;
-  w.warp = threadIdx.x >> 5;
-  w.lane = threadIdx.x & 31;
-  const int l = (rest % g.chunks) * kWarps + w.warp;
-  w.t1 = l / g.k;
-  w.t2 = l % g.k;
-  w.tap = (w.kh * g.k + w.t1) * g.k + w.t2;
-  w.live = l < g.k * g.k;
-  w.db = w.live && w.ct == 0 && w.tap == g.taps / 2;
-  return w;
+// Wait (acquiring) for the completion of the phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
 }
 
-// The gathered row of voxel q of the strip for the warp's tap.
-__device__ __forceinline__ const uint32_t* gathered_row(
-    const Geom& g, const uint32_t* sg_buf, int q, int t1, int t2) {
-  const int r1 = fdiv(q, g.div_t2);
-  const int r2 = q - r1 * g.t2;
-  return sg_buf + ((r1 + t1) * g.w2 + r2 + t2) * g.sg;
+// Named barrier `id` (0 is __syncthreads') over `count` threads.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-// float32 on the FP32 pipes: a lane's T x S outer product a voxel.
-template <int S, int T>
-__global__ void __launch_bounds__(kWarps * 32)
-    shallow_dw_kernel(const Geom g) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const WarpTap w = warp_tap(g);
-  float acc[T][S];
-#pragma unroll
-  for (int i = 0; i < T; ++i) {
-#pragma unroll
-    for (int j = 0; j < S; ++j) acc[i][j] = 0.f;
-  }
-  // db's lane sums: float32 over kDbChain of a lane's voxels in registers,
-  // float64 from there on in shared memory, after the two buffers.
-  double* dba = reinterpret_cast<double*>(
-                    smem + 2 * (g.base_words + g.gath_words)) +
-                (w.warp * 32 + w.lane) * S;
-  if (w.db) {
-#pragma unroll
-    for (int j = 0; j < S; ++j) dba[j] = 0.0;
-  }
-  walk<S, T>(
-      g, w.kh, w.ct * T, w.cs * S, w.live,
-      [&](const uint32_t* sb_buf, const uint32_t* sg_buf, int nq) {
-        float dbs[S];
-#pragma unroll
-        for (int j = 0; j < S; ++j) dbs[j] = 0.f;
-        int chain = 0;
-        for (int q = w.lane; q < nq; q += 32) {
-          const uint32_t* brow = sb_buf + q * g.sb;
-          const uint32_t* grow = gathered_row(g, sg_buf, q, w.t1, w.t2);
-          const float2* xr = reinterpret_cast<const float2*>(grow);
-          const float2* dr = reinterpret_cast<const float2*>(brow);
-          float xv[T], dv[S];
-#pragma unroll
-          for (int i = 0; i < T / 2; ++i) {
-            const float2 f = xr[i];
-            xv[2 * i] = f.x;
-            xv[2 * i + 1] = f.y;
-          }
-#pragma unroll
-          for (int j = 0; j < S / 2; ++j) {
-            const float2 f = dr[j];
-            dv[2 * j] = f.x;
-            dv[2 * j + 1] = f.y;
-          }
-#pragma unroll
-          for (int i = 0; i < T; ++i) {
-#pragma unroll
-            for (int j = 0; j < S; ++j) {
-              acc[i][j] = fmaf(xv[i], dv[j], acc[i][j]);
-            }
-          }
-          if (w.db) {
-#pragma unroll
-            for (int j = 0; j < S; ++j) dbs[j] += dv[j];
-            if (++chain == kDbChain) {
-#pragma unroll
-              for (int j = 0; j < S; ++j) {
-                dba[j] += dbs[j];
-                dbs[j] = 0.f;
-              }
-              chain = 0;
-            }
-          }
-        }
-        if (w.db) {
-#pragma unroll
-          for (int j = 0; j < S; ++j) dba[j] += dbs[j];
-        }
-      });
-  if (!w.live) return;
-
-  // Every lane ends with the warp's sum (a + b == b + a: the butterfly's
-  // lanes agree), the same bits on every run.
-#pragma unroll
-  for (int i = 0; i < T; ++i) {
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        acc[i][j] += __shfl_xor_sync(kFull, acc[i][j], o);
-      }
-    }
-  }
-  const size_t slot = static_cast<size_t>(blockIdx.y) * g.taps + w.tap;
-  float* out = g.part + (slot * g.cip + w.ct * T) * g.cop + w.cs * S;
-#pragma unroll
-  for (int k = 0; k < T * S; ++k) {
-    if ((k & 31) == w.lane) out[(k / S) * g.cop + k % S] = acc[k / S][k % S];
-  }
-  if (w.db) {
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      double v = dba[j];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-      if (j == w.lane) g.dbpart[slot * g.cop + w.cs * S + j] = v;
-    }
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(const uint32_t* p,
+// ldmatrix .x4 .trans from the shared address `a` (bytes).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t a,
                                                   uint32_t (&r)[4]) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
@@ -377,108 +203,423 @@ __device__ __forceinline__ void ldmatrix_x4_trans(const uint32_t* p,
       : "r"(a));
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4],
+// d += a * b (m16n8k16, bf16 x bf16 -> f32).
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// bfloat16 on the tensor cores: the warp's 16 x 16 tile of (Cin, Cout)
-// for its tap as mma.sync m16n8k16 products (bf16 x bf16 -> float32) over
-// 16 voxels at a time. Shared rows are voxel-major, 16 channels (8 words)
-// at a stride of 12 words, so `ldmatrix.trans` gives both fragments
-// (A = x as Cin x voxels, B = dy as voxels x Cout) with every lane naming
-// its own row, and a quarter-warp's rows fall on distinct banks. Voxels
-// past the strip read a zero row. The tensor cores' sums are added into
-// float32 registers once a strip.
-__global__ void __launch_bounds__(kWarps * 32)
-    shallow_dw_mma_kernel(const Geom g) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const WarpTap w = warp_tap(g);
-  uint32_t* zero = smem + 2 * (g.base_words + g.gath_words);
-  double* dba = reinterpret_cast<double*>(zero + 12) +
-                (w.warp * 32 + w.lane) * 8;
-  if (threadIdx.x < 12) zero[threadIdx.x] = 0u;
-  __syncthreads();
-  // A's matrices: voxels 0-7 | 8-15 (lane bit 4) x Cin 0-7 | 8-15 (bit 3);
-  // B's: voxels 0-7 | 8-15 (bit 3) x Cout 0-7 | 8-15 (bit 4).
-  const int ra = (w.lane & 7) + ((w.lane >> 4) << 3);
-  const int ha = ((w.lane >> 3) & 1) * 4;
-  const int rb = (w.lane & 7) + (((w.lane >> 3) & 1) << 3);
-  const int hb = (w.lane >> 4) * 4;
-  float tot[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (w.db) {
+struct Geom {
+  const unsigned char* x;   // (n, e0, e1, e2, cin)
+  const unsigned char* dy;  // (n, e0, e1, e2, cout)
+  float* part;              // (blocks, tg, tt, st)
+  double* dbpart;           // (blocks, st)
+  int isz;                  // bytes an element
+  int n, e0, e1, e2, cin, cout;
+  int k, p, taps;           // taps an axis, the pad (k - 1) / 2, k^3
+  int tg, tt, st;           // a role's taps, its Cin and Cout tile
+  int n_ct, n_cot, roles;   // Cin tiles, Cout tiles, roles a run
+  int t1, nw1, hs, nseg;    // a step's columns, runs of w, h segments
+  int dp;                   // rows a column of an x plane: e2 + 2p
+  int sx, sdy;              // x and dy row strides, words
+  int x_words, slot_words;  // a slot's x plane, and all its words
+  int stages, bar_words;    // the ring's slots, the barriers' offset
+  int ones_words;           // bfloat16: the rows of ones, after the ring
+  FastDiv div_e2;
+};
+
+// What a block owns: a run of t1c columns from w0 (all of d) of sample nn,
+// rows h_lo .. of h (n_items ring items: the segment's rows and the 2p
+// planes around them), and a role: tap group tgi (tgr taps), Cin tile ct,
+// Cout tile cot.
+struct Unit {
+  int nn, h_lo, n_items, w0, t1c, nq;
+  int role, tgi, ct, cot, ci0, co0, cinw, cow, tgr;
+  bool db;
+};
+
+__device__ __forceinline__ Unit unit_of(const Geom& g) {
+  Unit u;
+  u.role = static_cast<int>(blockIdx.x % g.roles);
+  int rest = static_cast<int>(blockIdx.x / g.roles);
+  const int wc = rest % g.nw1;
+  rest /= g.nw1;
+  const int seg = rest % g.nseg;
+  u.nn = rest / g.nseg;
+  u.cot = u.role % g.n_cot;
+  u.ct = (u.role / g.n_cot) % g.n_ct;
+  u.tgi = u.role / (g.n_cot * g.n_ct);
+  u.w0 = wc * g.t1;
+  u.t1c = min(g.t1, g.e1 - u.w0);
+  u.nq = u.t1c * g.e2;
+  u.h_lo = seg * g.hs;
+  u.n_items = min(g.hs, g.e0 - u.h_lo) + 2 * g.p;
+  u.ci0 = u.ct * g.tt;
+  u.co0 = u.cot * g.st;
+  u.cinw = min(g.tt, g.cin - u.ci0);
+  u.cow = min(g.st, g.cout - u.co0);
+  u.tgr = min(g.tg, g.taps - u.tgi * g.tg);
+  // db: the blocks of the first tap group and Cin tile.
+  u.db = u.role < g.n_cot;
+  return u;
+}
+
+// One row's `bytes` (at most kWords words) of channels from global `src`
+// into shared `dst`, or zeros when !in: 4-byte cp.asyncs (kVec), else
+// 2-byte loads and stores.
+template <bool kVec, int kWords>
+__device__ __forceinline__ void copy_row(uint32_t* dst,
+                                         const unsigned char* src, int bytes,
+                                         bool in, const unsigned char* any) {
+  if constexpr (kVec) {
+    const int words = bytes >> 2;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) dba[j] = 0.0;
+    for (int j = 0; j < kWords; ++j) {
+      if (j < words) cp_async4(dst + j, in ? src + 4 * j : any, in);
+    }
+  } else {
+    uint16_t* d16 = reinterpret_cast<uint16_t*>(dst);
+    const uint16_t* s16 = reinterpret_cast<const uint16_t*>(src);
+    for (int j = 0; j < (bytes >> 1); ++j) d16[j] = in ? s16[j] : uint16_t{0};
   }
-  walk<8, 8>(
-      g, w.kh, w.ct * 8, w.cs * 8, w.live,
-      [&](const uint32_t* sb_buf, const uint32_t* sg_buf, int nq) {
-        float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        float dbs[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        for (int q0 = 0; q0 < nq; q0 += 16) {
-          const int qa = q0 + ra, qb = q0 + rb;
-          const uint32_t* xa =
-              qa >= nq ? zero : gathered_row(g, sg_buf, qa, w.t1, w.t2) + ha;
-          const uint32_t* dyb = qb >= nq ? zero : sb_buf + qb * g.sb + hb;
-          uint32_t a[4], b[4];
-          ldmatrix_x4_trans(xa, a);
-          ldmatrix_x4_trans(dyb, b);
-          mma_bf16(acc, a, b[0], b[1]);
-          mma_bf16(acc + 4, a, b[2], b[3]);
-          if (w.db) {  // this lane's 8 values of Cout for voxel qb
-            const uint4 v = *reinterpret_cast<const uint4*>(dyb);
-            const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+}
+
+// Ring item i of the block's unit into `slot`: x plane h_lo - p + i (zeros
+// outside the tensor) over the run's columns widened by p that lie inside
+// the tensor, each column's e2 rows after its p halo rows; then, from item
+// 2p on, dy plane h_lo + i - 2p: the run's nq rows. A row holds at most
+// kXW (x) and kDW (dy) words.
+template <bool kVec, int kXW, int kDW>
+__device__ __forceinline__ void stage_item(const Geom& g, const Unit& u,
+                                           int i, uint32_t* slot, int tid) {
+  const int m = u.h_lo - g.p + i;
+  const bool in = static_cast<unsigned>(m) < static_cast<unsigned>(g.e0);
+  const int c_lo = max(0, g.p - u.w0);
+  const int c_hi = min(u.t1c + 2 * g.p, g.e1 - u.w0 + g.p);
+  const int rows = (c_hi - c_lo) * g.e2;
+  const size_t vox0 =
+      ((static_cast<size_t>(u.nn) * g.e0 + (in ? m : 0)) * g.e1 + u.w0 -
+       g.p + c_lo) * static_cast<size_t>(g.e2);
+#pragma unroll 1
+  for (int r = tid; r < rows; r += kStagers) {
+    const int c = fdiv(r, g.div_e2);
+    const int d = r - c * g.e2;
+    copy_row<kVec, kXW>(slot + ((c_lo + c) * g.dp + g.p + d) * g.sx,
+                        g.x + ((vox0 + r) * g.cin + u.ci0) * g.isz,
+                        u.cinw * g.isz, in, g.x);
+  }
+  if (i < 2 * g.p) return;
+  const size_t v0 =
+      ((static_cast<size_t>(u.nn) * g.e0 + u.h_lo + i - 2 * g.p) * g.e1 +
+       u.w0) * static_cast<size_t>(g.e2);
+  uint32_t* dys = slot + g.x_words;
+#pragma unroll 1
+  for (int r = tid; r < u.nq; r += kStagers) {
+    copy_row<kVec, kDW>(dys + r * g.sdy,
+                        g.dy + ((v0 + r) * g.cout + u.co0) * g.isz,
+                        u.cow * g.isz, true, g.dy);
+  }
+}
+
+// The word offset of strip voxel v's x row (column v / e2, depth v % e2)
+// in a plane, from the tap (0, 0) row.
+__device__ __forceinline__ int x_row(const Geom& g, int v) {
+  const int c = fdiv(v, g.div_e2);
+  return (c * g.dp + v - c * g.e2) * g.sx;
+}
+
+// N floats of a shared row (8-byte aligned) into registers, as float2s.
+template <int N>
+__device__ __forceinline__ void load_row(const float* row, float (&r)[N]) {
+  const float2* p = reinterpret_cast<const float2*>(row);
 #pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const float2 f = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(&u[k]));
-              dbs[2 * k] += f.x;
-              dbs[2 * k + 1] += f.y;
-            }
-          }
+  for (int a = 0; a < N / 2; ++a) {
+    const float2 f = p[a];
+    r[2 * a] = f.x;
+    r[2 * a + 1] = f.y;
+  }
+}
+
+// float32 on the FP32 pipes: lane l takes tap l % tg of the role's group
+// (a duplicate, never written, past the group's last) and voxel slot l / tg;
+// the warps take turns over the step's voxels. Returns each lane's T x S
+// sums through `red` (float, (kWarps, 32 lanes, T * S)) and db's through
+// `dbred` (float64, a thread each).
+template <int S, int T>
+__device__ __forceinline__ void consume_f32(const Geom& g, const Unit& u,
+                                            const float* ring,
+                                            uint64_t* full, uint64_t* empty,
+                                            float* red, double* dbred) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slots = 32 / g.tg;
+  const int j = min(lane / g.tg, slots - 1);
+  const int tap = u.tgi * g.tg + min(lane % g.tg, u.tgr - 1);
+  const int kh = tap / (g.k * g.k);
+  const int toff = ((tap / g.k) % g.k * g.dp + tap % g.k) * g.sx;
+  // db: thread (group dg, channel dc) sums rows dg, dg + 128 / S, ...
+  const int dgs = kConsumers / S;
+  const int dc = threadIdx.x % S, dg = threadIdx.x / S;
+  double dbacc = 0.0;
+  float acc[T][S];
+#pragma unroll
+  for (int a = 0; a < T; ++a) {
+#pragma unroll
+    for (int b = 0; b < S; ++b) acc[a][b] = 0.f;
+  }
+#pragma unroll 1
+  for (int i = 0; i < u.n_items; ++i) {
+    const int s = i % g.stages;
+    mbar_wait(full + s, (i / g.stages) & 1);
+    if (i < 2 * g.p) continue;
+    const float* xs =
+        ring + ((i - 2 * g.p + kh) % g.stages) * g.slot_words + toff;
+    const float* ds = ring + s * g.slot_words + g.x_words;
+    const int nq = u.nq;
+#pragma unroll 8
+    for (int v = warp * slots + j; v < nq; v += kWarps * slots) {
+      float xv[T], dv[S];
+      load_row<T>(xs + x_row(g, v), xv);
+      load_row<S>(ds + v * g.sdy, dv);
+#pragma unroll
+      for (int a = 0; a < T; ++a) {
+#pragma unroll
+        for (int b = 0; b < S; ++b) acc[a][b] = fmaf(xv[a], dv[b], acc[a][b]);
+      }
+    }
+    if (u.db && dg < dgs) {
+      // kDbChain rows' loads in flight, summed in float32, then float64.
+#pragma unroll 1
+      for (int v = dg; v < nq; v += kDbChain * dgs) {
+        float part = 0.f;
+#pragma unroll
+        for (int q = 0; q < kDbChain; ++q) {
+          const int vq = v + q * dgs;
+          part += vq < nq ? ds[vq * g.sdy + dc] : 0.f;
         }
+        dbacc += static_cast<double>(part);
+      }
+    }
+    mbar_arrive(empty + (i - 2 * g.p) % g.stages);
+  }
+  bar_sync(1, kConsumers);  // every computing warp is done with the ring
+  float* mine = red + threadIdx.x * (T * S);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) tot[k] += acc[k];
-        if (w.db) {
+  for (int a = 0; a < T; ++a) {
 #pragma unroll
-          for (int k = 0; k < 8; ++k) dba[k] += dbs[k];
-        }
-      });
-  if (!w.live) return;
+    for (int b = 0; b < S; ++b) mine[a * S + b] = acc[a][b];
+  }
+  dbred[threadIdx.x] = dbacc;
+}
+
+// bfloat16 on the tensor cores: warp w takes taps wt * tpw .. of the role's
+// group (wt = w % nwt) and k-steps sl, sl + slices, ... (sl = w / nwt); the
+// last tap warp also takes db, as one more tap that reads the rows of ones
+// (so does a slot past a warp's taps, never written). Every warp runs its
+// kNt slots without a branch. Returns each warp's 16 x 16 (Cin, Cout) sums
+// a slot through `red` (float, (kWarps, kTapsPerWarp + 1, 256)).
+template <int kNt>
+__device__ __forceinline__ void consume_bf16(const Geom& g, const Unit& u,
+                                             const uint32_t* ring,
+                                             uint64_t* full, uint64_t* empty,
+                                             float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwt = g.tg >= 4 ? 4 : g.tg >= 2 ? 2 : 1;
+  const int slices = kWarps / nwt;
+  const int wt = warp % nwt, sl = warp / nwt;
+  const int tpw = (g.tg + nwt - 1) / nwt;
+  const int nt = max(0, min(u.tgr - wt * tpw, tpw));
+  // ldmatrix rows: A's matrices are voxels 0-7 | 8-15 (lane bit 4) by Cin
+  // 0-7 | 8-15 (bit 3); B's voxels (bit 3) by Cout (bit 4).
+  const int ra = (lane & 7) + ((lane >> 4) << 3);
+  const int ha = ((lane >> 3) & 1) * 4;
+  const int rb = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int hb = (lane >> 4) * 4;
+  const int ones_lane = ra * kRowWordsBf16 + ha;
+  const uint32_t base = smem_addr(ring);
+  // Slot t: a tap's kh and its (kw, kd) offset, or the rows of ones.
+  int tkh[kNt], toff[kNt];
+  bool istap[kNt];
+#pragma unroll
+  for (int t = 0; t < kNt; ++t) {
+    istap[t] = t < nt;
+    const int tap = u.tgi * g.tg + wt * tpw + min(t, max(nt - 1, 0));
+    tkh[t] = tap / (g.k * g.k);
+    toff[t] = ((tap / g.k) % g.k * g.dp + tap % g.k) * kRowWordsBf16;
+  }
+  float acc[kNt][8], tot[kNt][8];
+#pragma unroll
+  for (int t = 0; t < kNt; ++t) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) tot[t][q] = 0.f;
+  }
+#pragma unroll 1
+  for (int i = 0; i < u.n_items; ++i) {
+    const int s = i % g.stages;
+    mbar_wait(full + s, (i / g.stages) & 1);
+    if (i < 2 * g.p) continue;
+    // Shared byte addresses: this lane's dy row of k-step 0, each slot's
+    // x plane at its tap's offset (or this lane's row of ones).
+    const uint32_t dya =
+        base + 4 * (s * g.slot_words + g.x_words + rb * kRowWordsBf16 + hb);
+    uint32_t xa[kNt];
+#pragma unroll
+    for (int t = 0; t < kNt; ++t) {
+      xa[t] = base + 4 * (istap[t] ? ((i - 2 * g.p + tkh[t]) % g.stages) *
+                                             g.slot_words + toff[t] + ha
+                                   : g.ones_words + ones_lane);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[t][q] = 0.f;
+    }
+    const int nk = (u.nq + 15) >> 4;
+#pragma unroll 1
+    for (int ks = sl; ks < nk; ks += slices) {
+      const int k0 = ks * 16;
+      const uint32_t rowa = 4 * x_row(g, min(k0 + ra, u.nq - 1));
+      uint32_t b[4];
+      ldmatrix_x4_trans(dya + 4 * k0 * kRowWordsBf16, b);
+#pragma unroll
+      for (int t = 0; t < kNt; ++t) {
+        uint32_t a[4];
+        ldmatrix_x4_trans(xa[t] + (istap[t] ? rowa : 0u), a);
+        mma_bf16(acc[t], a, b[0], b[1]);
+        mma_bf16(acc[t] + 4, a, b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kNt; ++t) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) tot[t][q] += acc[t][q];
+    }
+    mbar_arrive(empty + (i - 2 * g.p) % g.stages);
+  }
+  bar_sync(1, kConsumers);  // every computing warp is done with the ring
   // The accumulators' layout: rows (Cin) lane / 4 and + 8, columns (Cout)
   // 2 (lane % 4) + {0, 1}, and + 8 for the second product.
-  const size_t slot = static_cast<size_t>(blockIdx.y) * g.taps + w.tap;
-  float* out = g.part + (slot * g.cip + w.ct * 16) * g.cop + w.cs * 16;
-  const int r = w.lane >> 2, c = 2 * (w.lane & 3);
+  const int r = lane >> 2, c = 2 * (lane & 3);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    out[r * g.cop + c + 8 * h] = tot[4 * h];
-    out[r * g.cop + c + 8 * h + 1] = tot[4 * h + 1];
-    out[(r + 8) * g.cop + c + 8 * h] = tot[4 * h + 2];
-    out[(r + 8) * g.cop + c + 8 * h + 1] = tot[4 * h + 3];
-  }
-  if (w.db) {  // lanes 0-15 hold Cout 0-7, lanes 16-31 Cout 8-15
+  for (int t = 0; t < kNt; ++t) {
+    float* o = red + (warp * (kTapsPerWarp + 1) + t) * 256;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      double v = dba[k];
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-      if ((w.lane & 15) == 0) {
-        g.dbpart[slot * g.cop + w.cs * 16 + (w.lane >> 4) * 8 + k] = v;
-      }
+    for (int h = 0; h < 2; ++h) {
+      o[r * 16 + c + 8 * h] = tot[t][4 * h];
+      o[r * 16 + c + 8 * h + 1] = tot[t][4 * h + 1];
+      o[(r + 8) * 16 + c + 8 * h] = tot[t][4 * h + 2];
+      o[(r + 8) * 16 + c + 8 * h + 1] = tot[t][4 * h + 3];
     }
   }
 }
 
-// One thread an output, enumerated in the partials' (tap, ci, co) order so
-// that a warp's reads are contiguous; the last cout threads make db from
-// the centre tap's partials. Sums in float64, in group order.
+// A block: the staging warpgroup (warps 4-7) fills the ring, the computing
+// warps (0-3) take each step's products; then the computing threads sum
+// the warps' results in float64 in a fixed order into the block's
+// partials.
+template <int S, int T, bool kBf16, bool kVec, int kNt>
+__global__ void __launch_bounds__(kThreads, 1)
+    shallow_dw_kernel(const Geom g) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const Unit u = unit_of(g);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(smem + g.bar_words);
+  uint64_t* const empty = full + g.stages;
+  // Zeros everywhere (halos, channels past a tile, dy rows past the strip
+  // stay so), bfloat16's rows of ones after the ring.
+  for (int e = threadIdx.x * 4; e < g.bar_words; e += kThreads * 4) {
+    const uint32_t v =
+        g.ones_words >= 0 && e >= g.ones_words &&
+                e < g.ones_words + 16 * kRowWordsBf16
+            ? kOnesBf16
+            : 0u;
+    *reinterpret_cast<uint4*>(smem + e) = make_uint4(v, v, v, v);
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < g.stages; ++s) {
+      mbar_init(full + s, kStagers);
+      mbar_init(empty + s, kConsumers);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kStagerRegs));
+    const int tid = threadIdx.x - kConsumers;
+#pragma unroll 1
+    for (int i = 0; i < u.n_items; ++i) {
+      const int s = i % g.stages;
+      if (i >= g.stages) {
+        mbar_wait(empty + s, ((i / g.stages) - 1) & 1);
+      }
+      // A row's words: bfloat16 16 values, float32 the tiles' T and S.
+      stage_item<kVec, kBf16 ? 8 : T, kBf16 ? 8 : S>(
+          g, u, i, smem + s * g.slot_words, tid);
+      if constexpr (kVec) {
+        mbar_arrive_copies(full + s);
+      } else {
+        mbar_arrive(full + s);
+      }
+    }
+    ctseg::cp_async_wait<0>();
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const size_t blk = blockIdx.x;
+  float* red = reinterpret_cast<float*>(smem);
+  const int tid = threadIdx.x;
+  if constexpr (kBf16) {
+    consume_bf16<kNt>(g, u, smem, full, empty, red);
+    bar_sync(1, kConsumers);
+    // Each tap's sum over the k-step slices; db from the ones tap's row 0.
+    const int nwt = g.tg >= 4 ? 4 : g.tg >= 2 ? 2 : 1;
+    const int tpw = (g.tg + nwt - 1) / nwt;
+    for (int e = tid; e < u.tgr * 256; e += kConsumers) {
+      const int t = e >> 8, rest = e & 255;
+      double sum = 0.0;
+      for (int w = t / tpw; w < kWarps; w += nwt) {
+        sum += red[(w * (kTapsPerWarp + 1) + t % tpw) * 256 + rest];
+      }
+      g.part[(blk * g.tg + t) * 256 + rest] = static_cast<float>(sum);
+    }
+    if (u.db && tid < 16) {
+      const int slot = max(0, min(u.tgr - (nwt - 1) * tpw, tpw));
+      double sum = 0.0;
+      for (int w = nwt - 1; w < kWarps; w += nwt) {
+        sum += red[(w * (kTapsPerWarp + 1) + slot) * 256 + tid];
+      }
+      g.dbpart[blk * 16 + tid] = sum;
+    }
+  } else {
+    double* dbred = reinterpret_cast<double*>(red + kConsumers * T * S);
+    consume_f32<S, T>(g, u, reinterpret_cast<const float*>(smem), full,
+                      empty, red, dbred);
+    bar_sync(1, kConsumers);
+    // Each (tap, Cin, Cout) over the warps and voxel slots; db over the
+    // thread groups.
+    const int slots = 32 / g.tg;
+    for (int e = tid; e < u.tgr * T * S; e += kConsumers) {
+      const int t = e / (T * S), rest = e - t * (T * S);
+      double sum = 0.0;
+      for (int w = 0; w < kWarps; ++w) {
+        for (int j = 0; j < slots; ++j) {
+          sum += red[(w * 32 + j * g.tg + t) * (T * S) + rest];
+        }
+      }
+      g.part[(blk * g.tg + t) * (T * S) + rest] = static_cast<float>(sum);
+    }
+    if (u.db && tid < S) {
+      double sum = 0.0;
+      for (int dg = 0; dg < kConsumers / S; ++dg) sum += dbred[dg * S + tid];
+      g.dbpart[blk * S + tid] = sum;
+    }
+  }
+}
+
+// One thread an output of dW, enumerated (tap, ci, co), summing its role's
+// blocks' partials in float64 in block order; the last cout threads make db
+// from the first tap group's and Cin tile's blocks.
 template <typename Sto>
-__global__ void shallow_dw_finalize(const Geom g, Sto* dw, Sto* db) {
+__global__ void shallow_dw_finalize(const Geom g, int units, Sto* dw,
+                                    Sto* db) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   const int outs = g.taps * g.cin * g.cout;
   if (idx < outs) {
@@ -486,41 +627,61 @@ __global__ void shallow_dw_finalize(const Geom g, Sto* dw, Sto* db) {
     const int rest = idx / g.cout;
     const int ci = rest % g.cin;
     const int tap = rest / g.cin;
+    const int role = ((tap / g.tg) * g.n_ct + ci / g.tt) * g.n_cot + co / g.st;
+    const size_t per_block = static_cast<size_t>(g.tg) * g.tt * g.st;
+    const size_t inner =
+        (static_cast<size_t>(tap % g.tg) * g.tt + ci % g.tt) * g.st + co % g.st;
     double s = 0.0;
-    const size_t step = static_cast<size_t>(g.taps) * g.cip * g.cop;
-    const float* p = g.part + (static_cast<size_t>(tap) * g.cip + ci) * g.cop + co;
-    for (int y = 0; y < g.groups; ++y) s += p[y * step];
-    dw[(co * g.cin + ci) * g.taps + tap] =
+    for (int un = 0; un < units; ++un) {
+      s += g.part[(static_cast<size_t>(un) * g.roles + role) * per_block +
+                  inner];
+    }
+    dw[(static_cast<size_t>(co) * g.cin + ci) * g.taps + tap] =
         from_float<Sto>(static_cast<float>(s));
   } else if (idx < outs + g.cout) {
     const int co = idx - outs;
     double s = 0.0;
-    const double* p = g.dbpart + static_cast<size_t>(g.taps / 2) * g.cop + co;
-    const size_t step = static_cast<size_t>(g.taps) * g.cop;
-    for (int y = 0; y < g.groups; ++y) s += p[y * step];
+    for (int un = 0; un < units; ++un) {
+      s += g.dbpart[(static_cast<size_t>(un) * g.roles + co / g.st) * g.st +
+                    co % g.st];
+    }
     db[co] = from_float<Sto>(static_cast<float>(s));
   }
 }
 
 template <typename K>
-cudaError_t launch(K kernel, const Geom& g, size_t smem, cudaStream_t st) {
+cudaError_t launch(K kernel, const Geom& g, long long blocks, size_t smem,
+                   cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxShared);
   if (err != cudaSuccess) return err;
-  const dim3 grid(g.k * g.chunks * g.n_t * g.n_s, g.groups);
-  kernel<<<grid, kWarps * 32, smem, st>>>(g);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(g);
   return cudaGetLastError();
 }
 
-// The kernel for the type and the Cout tile.
-cudaError_t launch_main(const Geom& g, bool bf16, int s_tile, size_t smem,
-                        cudaStream_t st) {
-  if (bf16) return launch(shallow_dw_mma_kernel, g, smem, st);
-  switch (s_tile) {
-    case 4: return launch(shallow_dw_kernel<4, 16>, g, smem, st);
-    case 8: return launch(shallow_dw_kernel<8, 12>, g, smem, st);
-    case 10: return launch(shallow_dw_kernel<10, 10>, g, smem, st);
-    case 16: return launch(shallow_dw_kernel<16, 8>, g, smem, st);
+// The kernel for the type, the Cout tile, the copy unit and (bfloat16) the
+// slots a warp runs: 2 where a warp holds one tap (and db), else
+// kTapsPerWarp.
+cudaError_t launch_main(const Geom& g, bool bf16, bool vec, int slots,
+                        long long blocks, size_t smem, cudaStream_t st) {
+  if (bf16) {
+    constexpr int kT = kTapsPerWarp;
+    if (slots <= 2) {
+      return vec ? launch(shallow_dw_kernel<16, 16, true, true, 2>, g,
+                          blocks, smem, st)
+                 : launch(shallow_dw_kernel<16, 16, true, false, 2>, g,
+                          blocks, smem, st);
+    }
+    return vec ? launch(shallow_dw_kernel<16, 16, true, true, kT>, g, blocks,
+                        smem, st)
+               : launch(shallow_dw_kernel<16, 16, true, false, kT>, g,
+                        blocks, smem, st);
+  }
+  switch (g.st) {
+    case 4: return launch(shallow_dw_kernel<4, 16, false, true, 0>, g, blocks, smem, st);
+    case 8: return launch(shallow_dw_kernel<8, 12, false, true, 0>, g, blocks, smem, st);
+    case 10: return launch(shallow_dw_kernel<10, 10, false, true, 0>, g, blocks, smem, st);
+    case 16: return launch(shallow_dw_kernel<16, 8, false, true, 0>, g, blocks, smem, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -530,25 +691,25 @@ long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 }  // namespace
 
 // dW and db of the stride-1 3D conv with an odd kernel k and pad (k - 1) /
-// 2 from x and dy, both (n, e0, e1, e2, C) contiguous of one type (float32,
-// or bfloat16 with even cin and cout), on the device. The geometry is the
-// wrapper's plan (ops/shallow_grad.py::dw_plan, its one copy): strips of t1
-// columns by all t2 = e2 depths, `groups` of them, the Cout and Cin tiles
-// (s_tile, t_tile; float32 (4, 16), (8, 12), (10, 10) or (16, 8), bfloat16
-// (16, 16)), the shared row strides sb and sg in words, one buffer's base
-// and gathered words, the shared memory, and the workspaces part (float32,
-// groups x taps x cip x cop) and dbpart (float64, groups x taps x cop);
-// this entry only checks that they hold what the kernels index. dw is
-// torch's (cout, cin, k, k, k) in x's type, db (cout,). Launches on
+// 2 from x and dy, both (n, e0, e1, e2, C) contiguous of one type (float32
+// or bfloat16), on the device. The geometry is the wrapper's plan
+// (ops/shallow_grad.py::dw_plan, its one copy): a role's taps tg, the Cout
+// and Cin tiles (s_tile, t_tile; float32 (4, 16), (8, 12), (10, 10) or (16,
+// 8), bfloat16 (16, 16)), runs of t1 columns, segments of hs rows of h, the
+// ring's slots, the row strides sx and sdy and a slot's x plane and total
+// words (words of 4 bytes), the shared memory, and the workspaces part
+// (float32, blocks x tg x t_tile x s_tile) and dbpart (float64, blocks x
+// s_tile); this entry only checks that they hold what the kernels index. dw
+// is torch's (cout, cin, k, k, k) in x's type, db (cout,). Launches on
 // `stream`, allocates nothing.
 extern "C" int ctseg_shallow_dw(const void* x, const void* dy, void* part,
                                 void* dbpart, void* dw, void* db, int n,
                                 int e0, int e1, int e2, int cin, int cout,
-                                int k, int t1, int t2, int groups, int s_tile,
-                                int t_tile, int sb, int sg, int base_words,
-                                int gath_words, int smem, long long part_elems,
-                                long long dbpart_elems, int dtype, int device,
-                                void* stream) {
+                                int k, int tg, int s_tile, int t_tile, int t1,
+                                int hs, int stages, int sx, int sdy,
+                                int x_words, int slot_words, int smem,
+                                long long part_elems, long long dbpart_elems,
+                                int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const bool bf16 = dtype == ctseg::kBFloat16;
@@ -556,83 +717,101 @@ extern "C" int ctseg_shallow_dw(const void* x, const void* dy, void* part,
       bf16 ? s_tile == 16 && t_tile == 16
            : (s_tile == 4 && t_tile == 16) || (s_tile == 8 && t_tile == 12) ||
                  (s_tile == 10 && t_tile == 10) || (s_tile == 16 && t_tile == 8);
+  const int taps = k * k * k;
   if ((dtype != ctseg::kFloat32 && !bf16) || k < 1 || k % 2 == 0 || n <= 0 ||
-      e0 <= 0 || e1 <= 0 || e2 <= 0 || cin <= 0 || cout <= 0 || t1 <= 0 ||
-      t1 > e1 || t2 != e2 || groups <= 0 || groups > 65535 ||
-      (bf16 && (cin % 2 || cout % 2)) || !tiles_ok) {
+      e0 <= 0 || e1 <= 0 || e2 <= 0 || cin <= 0 || cout <= 0 || !tiles_ok ||
+      tg < 1 || tg > (bf16 ? kMaxTapsBf16 : kMaxTapsF32) || tg > taps ||
+      t1 < 1 || t1 > e1 || hs < 1 || hs > e0) {
     return cudaErrorInvalidValue;
   }
   Geom g{};
-  g.x = static_cast<const uint32_t*>(x);
-  g.dy = static_cast<const uint32_t*>(dy);
+  g.x = static_cast<const unsigned char*>(x);
+  g.dy = static_cast<const unsigned char*>(dy);
   g.part = static_cast<float*>(part);
   g.dbpart = static_cast<double*>(dbpart);
+  g.isz = bf16 ? 2 : 4;
   g.n = n;
   g.e0 = e0;
   g.e1 = e1;
   g.e2 = e2;
-  g.k = k;
-  g.p = (k - 1) / 2;
-  g.taps = k * k * k;
-  g.chunks = static_cast<int>(ceil_div(k * k, kWarps));
   g.cin = cin;
   g.cout = cout;
-  g.cw_x = bf16 ? cin / 2 : cin;
-  g.cw_dy = bf16 ? cout / 2 : cout;
-  g.n_t = static_cast<int>(ceil_div(cin, t_tile));
-  g.n_s = static_cast<int>(ceil_div(cout, s_tile));
-  g.cip = g.n_t * t_tile;
-  g.cop = g.n_s * s_tile;
+  g.k = k;
+  g.p = (k - 1) / 2;
+  g.taps = taps;
+  g.tg = tg;
+  g.tt = t_tile;
+  g.st = s_tile;
+  g.n_ct = static_cast<int>(ceil_div(cin, t_tile));
+  g.n_cot = static_cast<int>(ceil_div(cout, s_tile));
+  g.roles = static_cast<int>(ceil_div(taps, tg)) * g.n_ct * g.n_cot;
   g.t1 = t1;
-  g.t2 = t2;
   g.nw1 = static_cast<int>(ceil_div(e1, t1));
-  const long long qtot = static_cast<long long>(n) * e0 * g.nw1;
-  if (qtot > 2147483647LL || static_cast<long long>(t1) * t2 > 65536) {
-    return cudaErrorInvalidValue;
-  }
-  g.qtot = static_cast<int>(qtot);
-  g.groups = groups;
-  g.w2 = t2 - 1 + k;
-  g.r1max = t1 - 1 + k;
-  g.sb = sb;
-  g.sg = sg;
-  g.base_words = base_words;
-  g.gath_words = gath_words;
-  g.div_nw1 = make_fastdiv(g.nw1);
-  g.div_e0 = make_fastdiv(e0);
-  g.div_t2 = make_fastdiv(t2);
-  g.div_w2 = make_fastdiv(g.w2);
-  // Rows hold their tile (float32 rows read as float2: an even stride;
-  // bfloat16 rows of 16 values read by ldmatrix: 16-byte aligned), the
-  // buffers start 16-byte aligned and hold their rows, and the shared
-  // memory holds the two buffers, then (bfloat16) a zero row of 12 words,
-  // then db's float64 lane sums.
+  g.hs = hs;
+  g.nseg = static_cast<int>(ceil_div(e0, hs));
+  g.dp = e2 + 2 * g.p;
+  g.sx = sx;
+  g.sdy = sdy;
+  g.x_words = x_words;
+  g.slot_words = slot_words;
+  g.stages = stages;
+  g.div_e2 = make_fastdiv(e2);
+  const long long units = static_cast<long long>(n) * g.nseg * g.nw1;
+  const long long blocks = units * g.roles;
+  // Rows hold their tile (float32 rows read as float2 by 16 lanes at once:
+  // a stride of 2 words past a multiple of 4; bfloat16 rows of 16 values
+  // read by ldmatrix: 12 words); a slot holds its x plane (t1 + 2p columns
+  // of e2 + 2p rows) and its dy plane (bfloat16: to the next 16 voxels,
+  // which the last k-step reads); the ring has the k planes a step reads
+  // and one more; the computing warps' sums fit the ring's words; the
+  // barriers follow both.
+  const long long dy_rows =
+      bf16 ? ceil_div(static_cast<long long>(t1) * e2, 16) * 16
+           : static_cast<long long>(t1) * e2;
   const bool rows_ok =
-      bf16 ? sb >= 8 && sb % 4 == 0 && sg >= 8 && sg % 4 == 0
-           : sb >= s_tile && sb % 2 == 0 && sg >= t_tile && sg % 2 == 0;
-  const long long need_smem =
-      2 * (static_cast<long long>(base_words) + gath_words) * 4 +
-      (bf16 ? 12 * 4 : 0) + static_cast<long long>(kWarps) * 32 *
-                                (bf16 ? 8 : s_tile) * 8;
-  const long long need = static_cast<long long>(groups) * g.taps * g.cip * g.cop;
-  const long long need_db = static_cast<long long>(groups) * g.taps * g.cop;
-  if (!rows_ok || base_words % 4 || gath_words % 4 ||
-      base_words < static_cast<long long>(t1) * t2 * sb ||
-      gath_words < static_cast<long long>(g.r1max) * g.w2 * sg ||
-      smem < need_smem || smem > kMaxShared || part_elems < need ||
-      dbpart_elems < need_db) {
+      bf16 ? sx == kRowWordsBf16 && sdy == kRowWordsBf16
+           : sx >= t_tile && sx % 4 == 2 && sdy >= s_tile && sdy % 4 == 2;
+  const long long ring_words =
+      static_cast<long long>(stages) * slot_words +
+      (bf16 ? 16 * kRowWordsBf16 : 0);
+  g.ones_words = bf16 ? stages * slot_words : -1;
+  const long long red_words =
+      bf16 ? static_cast<long long>(kWarps) * (kTapsPerWarp + 1) * 256
+           : kConsumers * static_cast<long long>(t_tile) * s_tile +
+                 2LL * kConsumers;
+  g.bar_words = static_cast<int>(
+      ((ring_words > red_words ? ring_words : red_words) + 3) / 4 * 4);
+  if (!rows_ok || x_words % 4 || slot_words % 4 ||
+      x_words < static_cast<long long>(t1 + 2 * g.p) * g.dp * sx ||
+      slot_words < x_words + dy_rows * sdy || stages < 2 * g.p + 2 ||
+      smem < static_cast<long long>(g.bar_words) * 4 + 16LL * stages ||
+      smem > kMaxShared || blocks > 2147483647LL ||
+      part_elems < blocks * tg * t_tile * s_tile ||
+      dbpart_elems < blocks * s_tile) {
     return cudaErrorInvalidValue;
   }
+  // Copy unit: 4 bytes where every row's channel tile and both bases align,
+  // else (bfloat16 with an odd count) 2.
+  const bool vec = (static_cast<long long>(cin) * g.isz) % 4 == 0 &&
+                   (static_cast<long long>(cout) * g.isz) % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(dy) % 4 == 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = launch_main(g, bf16, s_tile, smem, st);
+  // bfloat16: the slots of the busiest warp (its taps, and db's).
+  const int nwt = tg >= 4 ? 4 : tg >= 2 ? 2 : 1;
+  const int tpw = (tg + nwt - 1) / nwt;
+  const int slots = tpw > tg - (nwt - 1) * tpw ? tpw : tg - (nwt - 1) * tpw + 1;
+  err = launch_main(g, bf16, vec, slots, blocks, smem, st);
   if (err != cudaSuccess) return err;
-  const int outs = g.taps * g.cin * g.cout + g.cout;
+  const int outs = taps * cin * cout + cout;
+  const int nunits = static_cast<int>(units);
   if (bf16) {
     shallow_dw_finalize<__nv_bfloat16><<<(outs + 255) / 256, 256, 0, st>>>(
-        g, static_cast<__nv_bfloat16*>(dw), static_cast<__nv_bfloat16*>(db));
+        g, nunits, static_cast<__nv_bfloat16*>(dw),
+        static_cast<__nv_bfloat16*>(db));
   } else {
     shallow_dw_finalize<float><<<(outs + 255) / 256, 256, 0, st>>>(
-        g, static_cast<float*>(dw), static_cast<float*>(db));
+        g, nunits, static_cast<float*>(dw), static_cast<float*>(db));
   }
   return cudaGetLastError();
 }

@@ -1,25 +1,31 @@
 """Time the shallow weight-gradient kernels at chip_smoke.py's four routed
 sites (phase 16b): csrc/shallow_dw.cu at the stride-1 conv for each strip
-its plan could take (ops/shallow_grad.py::STRIPS), csrc/shallow_dwt.cu at
-the transposed convs for each of its strips (DWT_STRIPS), for each ring
-depth (--dwt-stages: the kernel's kStages, each other than DWT_STAGES
-built from a copy of csrc/ with that one constant changed) and each count
-of groups (--dwt-groups-per-sm: the plan's groups for that many blocks an
-SM, by SMS), float32 and bfloat16, each result held to the plan's own
-strip's within float32 round-off (bfloat16: one rounding). With --parent,
-the parent tree's kernel too, built from that checkout's csrc/ and called
-through its own ops/shallow_grad.py, on the same tensors, in turns with
-this tree's plan: parent, this, this, parent. Not part of the library: run
-it alone on the card, from the repository root,
+(voxels a step stages, ops/shallow_grad.py::STRIPS) and each count of ring
+slots past the 2p + 2 a step needs (--ring-extra, the plan's RING_EXTRA),
+csrc/shallow_dwt.cu at the transposed convs for each of its strips
+(DWT_STRIPS), for each ring depth (--dwt-stages: the kernel's kStages, each
+other than DWT_STAGES built from a copy of csrc/ with that one constant
+changed) and each count of groups (--dwt-groups-per-sm: the plan's groups
+for that many blocks an SM, by SMS), float32 and bfloat16, each result
+held to the plan's own strip's within float32 round-off (bfloat16: one
+rounding). With --parent, the parent tree's kernel too, built from that
+checkout's csrc/ and called through its own ops/shallow_grad.py, on the
+same tensors, in turns with this tree's plan: parent, this, this, parent,
+at the four sites and at chip_smoke.py's SHALLOW_ROUTED convs (no geometry
+sweep there).
+Not part of the library: run it alone on the card, from the repository
+root,
 
     python3 ctseg_tpu_torch/csrc/tools/sweep_shallow_dw.py
-        [--strips 128 256 512 1024] [--dwt-strips 16 32 64 128]
-        [--dwt-stages 3] [--dwt-groups-per-sm 1] [--parent DIR]
+        [--maps stride1 transposed] [--strips 128 256 512]
+        [--ring-extra 0] [--dwt-strips 16 32 64 128] [--dwt-stages 3]
+        [--dwt-groups-per-sm 1] [--parent DIR]
 
-A strip whose shared memory exceeds a block's is skipped. The last line is
-one JSON object: {"card", "rows": [{"site", "dtype", "kernel", "strip",
-"stages", "groups_per_sm", "t1", "t2", "groups", "smem_bytes", "ms"}],
-"parent": [{"site", "dtype", "ms_parent", "ms_this"}]}.
+A geometry whose shared memory exceeds a block's is skipped. The last line
+is one JSON object: {"card", "rows": [{"site", "dtype", "kernel", "strip",
+"ring_extra", "stages", "groups_per_sm", "t1", "groups", "smem_bytes",
+"ms"}], "parent": [{"site", "dtype", "k", "ms_parent", "ms_this"}]}
+("groups": the stride-1 plan's blocks, the transposed plan's groups).
 """
 
 import argparse
@@ -74,8 +80,11 @@ def stage_libraries(stages, default):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--maps", nargs="+", default=["stride1", "transposed"],
+                        choices=["stride1", "transposed"])
     parser.add_argument("--strips", type=int, nargs="+",
-                        default=[128, 256, 512, 1024])
+                        default=[128, 256, 512])
+    parser.add_argument("--ring-extra", type=int, nargs="+", default=[0])
     parser.add_argument("--dwt-strips", type=int, nargs="+",
                         default=[16, 32, 64, 128])
     parser.add_argument("--dwt-stages", type=int, nargs="+", default=None)
@@ -95,12 +104,18 @@ def main():
     print(label)
     parent = load_parent(args.parent.resolve()) if args.parent else None
     default, default_t = dict(sg.STRIPS), dict(sg.DWT_STRIPS)
+    default_extra = sg.RING_EXTRA
     default_stages, sms = sg.DWT_STAGES, sg.SMS
     libs = stage_libraries(args.dwt_stages or [default_stages],
                            default_stages)
     gen = torch.Generator(device=chip_smoke.DEVICE).manual_seed(0)
     rows, vs_parent = [], []
-    for name, transposed, n, spatial, cin, cout in chip_smoke.SHALLOW_SITES:
+    cases = [(True, *site, 3) for site in chip_smoke.SHALLOW_SITES]
+    if parent is not None:
+        cases += [(False, *site) for site in chip_smoke.SHALLOW_ROUTED]
+    for main, name, transposed, n, spatial, cin, cout, k in cases:
+        if ("transposed" if transposed else "stride1") not in args.maps:
+            continue
         osp = tuple(e * (2 if transposed else 1) for e in spatial)
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).removeprefix("torch.")
@@ -109,7 +124,7 @@ def main():
             dy = channels_last(torch.randn((n, cout) + osp, generator=gen,
                                            device=chip_smoke.DEVICE).to(dtype))
             sg.STRIPS, sg.DWT_STRIPS = dict(default), dict(default_t)
-            ref, _ = sg.shallow_dw(x, dy, transposed)
+            ref, _ = sg.shallow_dw(x, dy, transposed, k)
             scale = float(ref.float().abs().max())
             tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * scale
 
@@ -120,35 +135,39 @@ def main():
                                          "this tree's default plan")
 
             if parent is not None:
-                held(parent.shallow_dw(x, dy, transposed)[0], "parent")
-                t = [chip_smoke.time_ms(lambda: fn(x, dy, transposed), 5)
+                held(parent.shallow_dw(x, dy, transposed, k)[0], "parent")
+                t = [chip_smoke.time_ms(lambda: fn(x, dy, transposed, k), 5)
                      for fn in (parent.shallow_dw, sg.shallow_dw,
                                 sg.shallow_dw, parent.shallow_dw)]
-                vs_parent.append({"site": name, "dtype": dname,
+                vs_parent.append({"site": name, "dtype": dname, "k": k,
                                   "ms_parent": [t[0], t[3]],
                                   "ms_this": [t[1], t[2]]})
                 print(f"[{label}] {name} {dname}: parent {t[0]:.3f} ms, "
                       f"this {t[1]:.3f}, this {t[2]:.3f}, parent {t[3]:.3f}",
                       flush=True)
-            # The stride-1 kernel has one ring depth and group rule.
-            geoms = [(s, f) for s in libs for f in args.dwt_groups_per_sm] \
-                if transposed else [(default_stages, 1)]
-            for (stages, per_sm), strip in [
-                    (gm, s) for gm in geoms
-                    for s in (args.dwt_strips if transposed
-                              else args.strips)]:
-                _build.use(libs[stages])
-                sg.DWT_STAGES, sg.SMS = stages, per_sm * sms
+            # stride-1: (ring slots past 2p + 2, -, strip); transposed:
+            # (ring depth, groups an SM, strip).
+            geoms = [] if not main else [
+                (s, f, strip) for s in libs for f in args.dwt_groups_per_sm
+                for strip in args.dwt_strips] if transposed else [
+                (e, 1, strip) for e in args.ring_extra
+                for strip in args.strips]
+            for ring, per_sm, strip in geoms:
                 if transposed:
+                    _build.use(libs[ring])
+                    sg.DWT_STAGES, sg.SMS = ring, per_sm * sms
                     sg.DWT_STRIPS = {2: (strip,), 4: (strip,)}
                     plan = sg.dwt_plan(n, spatial, cin, cout,
                                        x.element_size())
+                    what = (f"{name} {dname} strip {strip}, {ring} stages, "
+                            f"{per_sm} a SM")
                 else:
+                    sg.RING_EXTRA = ring
                     sg.STRIPS = {2: (strip,), 4: (strip,)}
                     plan = sg.dw_plan(n, spatial, cin, cout,
                                       x.element_size())
-                what = (f"{name} {dname} strip {strip}, {stages} stages, "
-                        f"{per_sm} a SM")
+                    what = (f"{name} {dname} strip {strip}, ring extra "
+                            f"{ring} ({plan['stages']} slots)")
                 if plan["smem_bytes"] > sg.MAX_SHARED:
                     print(f"[{label}] {what}: {plan['smem_bytes']} bytes of "
                           "shared memory, skipped")
@@ -156,17 +175,21 @@ def main():
                 held(sg.shallow_dw(x, dy, transposed)[0], what)
                 ms = chip_smoke.time_ms(
                     lambda: sg.shallow_dw(x, dy, transposed), 5)
-                row = {"site": name, "dtype": dname,
-                       "kernel": "shallow_dwt" if transposed else "shallow_dw",
-                       "strip": strip, "stages": stages,
-                       "groups_per_sm": per_sm, "t1": plan["t1"],
-                       "t2": plan["t2"], "groups": plan["groups"],
-                       "smem_bytes": plan["smem_bytes"], "ms": ms}
-                rows.append(row)
-                print(f"[{label}] {what} (t1 {plan['t1']}, t2 {plan['t2']}, "
-                      f"{plan['groups']} groups, {plan['smem_bytes']} bytes):"
-                      f" {ms:.3f} ms", flush=True)
+                groups = plan["groups"] if transposed else plan["blocks"]
+                rows.append({
+                    "site": name, "dtype": dname,
+                    "kernel": "shallow_dwt" if transposed else "shallow_dw",
+                    "strip": strip, "ring_extra": None if transposed else ring,
+                    "stages": plan.get("stages", ring),
+                    "groups_per_sm": per_sm if transposed else None,
+                    "t1": plan["t1"],
+                    "groups": groups, "smem_bytes": plan["smem_bytes"],
+                    "ms": ms})
+                print(f"[{label}] {what} (t1 {plan['t1']}, {groups} groups "
+                      f"or blocks, {plan['smem_bytes']} bytes): {ms:.3f} ms",
+                      flush=True)
             sg.STRIPS, sg.DWT_STRIPS = default, default_t
+            sg.RING_EXTRA = default_extra
             sg.DWT_STAGES, sg.SMS = default_stages, sms
             _build.use(None)
             del x, dy, ref

@@ -1,41 +1,61 @@
-"""Find what holds the transposed conv's weight gradient back: time
-variants of its kernel, each built from a copy of csrc/ with one text edit
-that asks one question, beside this tree's build, on the same inputs. Not
-part of the library: run it alone on the card, from the repository root,
+"""Find what holds a shallow weight-gradient kernel back: time variants of
+it, each built from a copy of csrc/ with one text edit that asks one
+question, beside the kernel as it is, on the same inputs. Not part of the
+library: run it alone on the card, from the repository root,
 
     python3 ctseg_tpu_torch/csrc/tools/variants_shallow_dw.py [--rounds 2]
-        [--old-map DIR]
+        [--map transposed|stride1|step0] [--parent DIR]
 
-The variants of csrc/shallow_dwt.cu (DWT_VARIANTS):
+--map transposed (the default): csrc/shallow_dwt.cu at chip_smoke.py's
+transposed SHALLOW_SITES (DWT_VARIANTS):
   - "this tree": the kernel as it is;
   - "staging only": the copies of every strip, no products;
   - "compute only": the products on whatever the buffers hold, no copies;
   - "no db": no warp sums db from its dy fragments;
   - "no products": each tensor-core product replaced by one add;
   - "no dy loads" (bfloat16): the dy fragments not loaded.
-With --old-map DIR, DIR a checkout of the tree before csrc/shallow_dwt.cu
-(whose csrc/shallow_dw.cu still had the transposed map), the variants of
-that kernel instead (OLD_MAP_VARIANTS), built from DIR's csrc/ by DIR's
-ops/_build.py and called through DIR's ops/shallow_grad.py: the diagnosis
-that preceded csrc/shallow_dwt.cu (PERF.md). As it is, staging only,
-compute only, and "window once per strip": only the blocks of the first
-Cin tile stage the dy window, the others compute on the window they last
-held.
+--map stride1: csrc/shallow_dw.cu at the stride-1 site (S1_VARIANTS):
+  - "this tree";
+  - "staging only": the stagers fill the ring, the computing warps take no
+    product and no db;
+  - "compute only": the stagers copy nothing, the products and db run on
+    whatever the ring holds;
+  - "no db": no block sums db;
+  - "unroll 2", "unroll 16": float32's voxel loop unrolled by 2 or 16
+    instead of 8.
+--map step0 --parent DIR, DIR a checkout of the tree whose
+csrc/shallow_dw.cu is the first stride-1 kernel (the commit before the
+ring-of-planes kernel, e.g. `git archive` of it unpacked under
+ctseg_tpu_torch/_build/parent): that
+kernel's variants (S1_STEP0_VARIANTS), built from DIR's csrc/ by DIR's
+ops/_build.py and called through DIR's ops/shallow_grad.py, the diagnosis
+that preceded this tree's kernel (PERF.md):
+  - "as it is"; "staging only"; "compute only";
+  - "one kh block stages": of the 3 blocks (one a kh) that stage each strip,
+    only kh 0's copy; the others compute on what their buffers hold;
+  - "no db";
+  - "float32 tile 10 x 6": the 10 -> 10 conv's float32 warps take 10 x 6
+    accumulators a lane instead of 10 x 10 (two Cin tiles; the plan's
+    `tiles` patched to match), the instance without spills.
 
-Every variant but "this tree" gives wrong sums; it is for timing only. It
-prints the card's name and power limit, then for each round one line a
-variant, site and type: device milliseconds (`chip_smoke.time_ms`, 5 calls
-after a warm-up) at chip_smoke.py's transposed SHALLOW_SITES, each at its
-own batch, and whether the variant still equals this tree's dW. The last
-line is one JSON object: {"card", "rows": [{"variant", "site", "dtype",
-"round", "ms", "equal"}]}. It stops before it builds anything if an edit no
-longer matches the source: each variant asks its question of the kernel as
-it is, so an edit that moves a variant's text must carry the variant along.
+Every variant but "this tree" / "as it is" gives wrong sums; it is for
+timing only. It prints the card's name and power limit, ptxas's registers
+and spill bytes of every instance of the map's kernels in each variant's
+build, then for each round one line a variant, site and type: device
+milliseconds (`chip_smoke.time_ms`, 5 calls after a warm-up) at the site's
+own batch, and whether the variant still equals the unedited kernel's dW.
+The last line is one JSON object: {"card", "ptxas": {variant: [{"kernel",
+"registers", "spill_stores", "spill_loads"}]}, "rows": [{"variant", "site",
+"dtype", "round", "ms", "equal"}]}. It stops before it builds anything if
+an edit no longer matches the source: each variant asks its question of
+the kernel as it is, so an edit that moves a variant's text must carry the
+variant along.
 """
 
 import argparse
 import importlib.util
 import json
+import re
 import shutil
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -80,22 +100,51 @@ DWT_VARIANTS = {
         "          b[t][0] = a[0] ^ toff[t];\n          b[t][1] = a[1];\n"
         "          b[t][2] = a[2] + (brow != ds);\n          b[t][3] = a[3];\n")],
 }
-OLD_MAP_SOURCE = "shallow_dw.cu"
-OLD_MAP_VARIANTS = {
+S1_SOURCE = "shallow_dw.cu"
+S1_UNROLL = "#pragma unroll 8\n    for (int v = warp * slots + j;"
+S1_VARIANTS = {
     "this tree": [],
-    # the strips' copies alone: no warp hands a strip to its products
+    # the ring filled, nothing computed from it
+    "staging only": [("    const int nq = u.nq;\n",
+                      "    const int nq = 0 * u.nq;\n"),
+                     ("    const int nk = (u.nq + 15) >> 4;\n",
+                      "    const int nk = 0 * u.nq;\n")],
+    # the products and db on whatever the ring holds, no copies
+    "compute only": [("  const int m = u.h_lo - g.p + i;\n",
+                      "  if (g.n > 0) return;\n"
+                      "  const int m = u.h_lo - g.p + i;\n")],
+    # no block sums db
+    "no db": [("  u.db = u.role < g.n_cot;\n", "  u.db = false;\n")],
+    # float32's voxel loop unrolled by 2 or 16 instead of 8
+    "unroll 2": [(S1_UNROLL, S1_UNROLL.replace("unroll 8", "unroll 2"))],
+    "unroll 16": [(S1_UNROLL, S1_UNROLL.replace("unroll 8", "unroll 16"))],
+}
+# Edits of the first stride-1 kernel's csrc/shallow_dw.cu (`--map step0
+# --parent DIR`), and the
+# plan's tiles a variant needs ((s_tile, t_tile) for the float32 10 -> 10
+# conv).
+S1_STEP0_VARIANTS = {
+    "as it is": [],
     "staging only": [("    if (live) {\n      const uint32_t* sb_buf",
                       "    if (false) {\n      const uint32_t* sb_buf")],
-    # the products alone, on whatever the buffers hold
-    "compute only": [("  const Strip st = strip_at<kTiled>(g, qb);\n",
+    "compute only": [("  const Strip st = strip_at(g, qb);\n"
+                      "  const uint32_t* bsrc = g.dy;\n",
                       "  if (g.n > 0) return;\n"
-                      "  const Strip st = strip_at<kTiled>(g, qb);\n")],
-    # the dy window staged once a strip (by the first Cin tile's blocks)
-    # instead of once a Cin tile
-    "window once per strip": [(
-        "  const int rows = g.tb0 * g.r1max * g.w2;\n",
-        "  const int rows = c0x != 0 ? 0 : g.tb0 * g.r1max * g.w2;\n")],
+                      "  const Strip st = strip_at(g, qb);\n"
+                      "  const uint32_t* bsrc = g.dy;\n")],
+    "one kh block stages": [("  const Strip st = strip_at(g, qb);\n"
+                             "  const uint32_t* bsrc = g.dy;\n",
+                             "  if (kh != 0) return;\n"
+                             "  const Strip st = strip_at(g, qb);\n"
+                             "  const uint32_t* bsrc = g.dy;\n")],
+    "no db": [("  w.db = w.live && w.ct == 0 && w.tap == g.taps / 2;\n",
+               "  w.db = false;\n")],
+    "float32 tile 10 x 6": [
+        ("(s_tile == 10 && t_tile == 10)", "(s_tile == 10 && t_tile == 6)"),
+        ("    case 10: return launch(shallow_dw_kernel<10, 10>, g, smem, st);",
+         "    case 10: return launch(shallow_dw_kernel<10, 6>, g, smem, st);")],
 }
+STEP0_TILES = {"float32 tile 10 x 6": (10, 6)}
 
 
 def edited(name, edits, csrc=_build.CSRC, source=DWT_SOURCE):
@@ -124,6 +173,32 @@ def build(name, text, build_mod=_build, source=DWT_SOURCE):
     return build_mod.build(csrc.parent / "lib", csrc)
 
 
+def ptxas(log, source):
+    """[{kernel, registers, spill_stores, spill_loads}] of the kernels of
+    `source` (shallow_dw.cu or shallow_dwt.cu) in an nvcc -Xptxas=-v log."""
+    stem = Path(source).stem
+    rows, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if re.search(rf"\d{stem}_", m.group(1)) else None
+            if name and stem == "shallow_dw" and "shallow_dwt" in name:
+                name = None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rows.append({"kernel": name, "spill_stores": int(m.group(1)),
+                         "spill_loads": int(m.group(2))})
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows and rows[-1]["kernel"] == name:
+            rows[-1]["registers"] = int(m.group(1))
+            name = None
+    return rows
+
+
 def load_checkout(root):
     """(ops/_build.py, ops/shallow_grad.py) of the checkout `root`, the
     second launching from the first's library."""
@@ -134,8 +209,8 @@ def load_checkout(root):
         return module
 
     ops = root / "ctseg_tpu_torch" / "ops"
-    build_mod = load("old_map_build", ops / "_build.py")
-    sg = load("old_map_shallow_grad", ops / "shallow_grad.py")
+    build_mod = load("parent_build", ops / "_build.py")
+    sg = load("parent_shallow_grad", ops / "shallow_grad.py")
     sg._build = build_mod
     return build_mod, sg
 
@@ -143,9 +218,11 @@ def load_checkout(root):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--rounds", type=int, default=2)
-    parser.add_argument("--old-map", type=Path, default=None,
-                        help="a checkout of the tree before "
-                        "csrc/shallow_dwt.cu: time its transposed map")
+    parser.add_argument("--map", choices=("transposed", "stride1", "step0"),
+                        default="transposed")
+    parser.add_argument("--parent", type=Path, default=None,
+                        help="with --map step0: a checkout of the tree "
+                        "with the first stride-1 kernel")
     args = parser.parse_args()
 
     import torch
@@ -153,12 +230,17 @@ def main():
 
     if not torch.cuda.is_available():
         sys.exit("variants_shallow_dw: no CUDA card")
-    if args.old_map is None:
-        from ctseg_tpu_torch.ops import shallow_grad as sg
-        build_mod, source, variants = _build, DWT_SOURCE, DWT_VARIANTS
+    transposed = args.map == "transposed"
+    if args.map == "step0":
+        if args.parent is None:
+            sys.exit("variants_shallow_dw: --map step0 needs --parent DIR")
+        build_mod, sg = load_checkout(args.parent.resolve())
+        source, variants = S1_SOURCE, S1_STEP0_VARIANTS
     else:
-        build_mod, sg = load_checkout(args.old_map.resolve())
-        source, variants = OLD_MAP_SOURCE, OLD_MAP_VARIANTS
+        from ctseg_tpu_torch.ops import shallow_grad as sg
+        build_mod = _build
+        source, variants = ((DWT_SOURCE, DWT_VARIANTS) if transposed
+                            else (S1_SOURCE, S1_VARIANTS))
     texts = {n: edited(n, e, build_mod.CSRC, source) if e else None
              for n, e in variants.items()}
     label = chip_smoke.card_label()
@@ -166,27 +248,41 @@ def main():
     with ThreadPoolExecutor(len(texts)) as pool:
         libs = dict(zip(texts, pool.map(
             lambda nt: build(*nt, build_mod, source), texts.items())))
+    regs = {name: ptxas(lib.log, source) for name, lib in libs.items()}
+    for name, rows in regs.items():
+        for r in rows:
+            print(f"[{label}] ptxas {name}: {r['kernel']}: "
+                  f"{r.get('registers')} registers, {r['spill_stores']} "
+                  f"bytes spill stores, {r['spill_loads']} bytes spill "
+                  "loads", flush=True)
+    first = next(iter(libs))
+    tiles = sg.tiles
     gen = torch.Generator(device=chip_smoke.DEVICE).manual_seed(0)
     rows = []
-    for name, transposed, n, spatial, cin, cout in chip_smoke.SHALLOW_SITES:
-        if not transposed:
+    for name, tr, n, spatial, cin, cout in chip_smoke.SHALLOW_SITES:
+        if tr != transposed:
             continue
-        osp = tuple(2 * e for e in spatial)
+        osp = tuple(e * (2 if tr else 1) for e in spatial)
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).removeprefix("torch.")
             x = channels_last(torch.randn((n, cin) + spatial, generator=gen,
                                           device=chip_smoke.DEVICE).to(dtype))
             dy = channels_last(torch.randn((n, cout) + osp, generator=gen,
                                            device=chip_smoke.DEVICE).to(dtype))
-            build_mod.use(libs["this tree"])
-            ref, _ = sg.shallow_dw(x, dy, True)
+            build_mod.use(libs[first])
+            ref, _ = sg.shallow_dw(x, dy, tr)
             for rnd in range(args.rounds):
                 for variant, lib in libs.items():
                     build_mod.use(lib)
-                    dw, _ = sg.shallow_dw(x, dy, True)
+                    if variant in STEP0_TILES and args.map == "step0":
+                        sg.tiles = (lambda ci, co, bf16=False, v=variant:
+                                    tiles(ci, co, bf16) if bf16 or co != 10
+                                    else STEP0_TILES[v])
+                    dw, _ = sg.shallow_dw(x, dy, tr)
                     same = torch.equal(dw, ref)
-                    ms = chip_smoke.time_ms(lambda: sg.shallow_dw(x, dy, True),
+                    ms = chip_smoke.time_ms(lambda: sg.shallow_dw(x, dy, tr),
                                             5)
+                    sg.tiles = tiles
                     rows.append({"variant": variant, "site": name,
                                  "dtype": dname, "round": rnd, "ms": ms,
                                  "equal": same})
@@ -195,7 +291,7 @@ def main():
             del x, dy, ref, dw
             torch.cuda.empty_cache()
     build_mod.use(None)
-    print(json.dumps({"card": label, "rows": rows}))
+    print(json.dumps({"card": label, "ptxas": regs, "rows": rows}))
 
 
 if __name__ == "__main__":

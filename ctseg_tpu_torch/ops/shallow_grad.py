@@ -53,17 +53,23 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CONV_FN = {4: F.conv2d, 5: F.conv3d}
 _CONV_T_FN = {4: F.conv_transpose2d, 5: F.conv_transpose3d}
 # The stride-1 kernel's plan (`dw_plan`; csrc/shallow_dw.cu checks it).
-# STRIPS: voxels of dy a block stages at a time, the first that fits a
-# block's shared memory, by itemsize (csrc/tools/sweep_shallow_dw.py:
-# bfloat16's tensor-core blocks gain from more blocks an SM, float32's from
-# longer strips).
-STRIPS = {2: (128,), 4: (1024, 512, 256, 128)}
-CHAIN = 512        # most voxels a lane sums in float32 before the partials
-MIN_BLOCKS = 528   # 4 blocks of 9 warps for each of an H100's 132 SMs
+# STRIPS: voxels a block's step stages (t1 columns of all depths), by
+# itemsize, in order of preference: the first whose ring fits a block's
+# shared memory (csrc/tools/sweep_shallow_dw.py).
+STRIPS = {2: (512, 256, 128, 64, 32, 16), 4: (512, 256, 128, 64, 32, 16)}
+RING_EXTRA = 0      # ring slots past the 2p + 2 a step needs (the sweep's
+                    # --ring-extra)
+MIN_BLOCKS = 264    # below this many blocks h is cut into segments: two
+                    # for each of an H100's 132 SMs (one a time each)
 MAX_SHARED = 232448
+S1_WARPS = 8        # the kernel's computing warps (kWarps)
+TAPS_F32 = 32       # taps a float32 role: the lanes of a warp (kMaxTapsF32)
+TAPS_BF16 = 27      # taps a bfloat16 role: 4 warps of 7, one slot for db
+ROW_WORDS_BF16 = 12  # a bfloat16 shared row: 16 values at a 48-byte stride
+ONES_WORDS = 16 * ROW_WORDS_BF16  # bfloat16: 16 rows of ones (db's tap)
 # The plan's entries csrc/shallow_dw.cu takes, in its argument order.
-_PLAN_ARGS = ("t1", "t2", "groups", "s_tile", "t_tile", "sb", "sg",
-              "base_words", "gath_words", "smem_bytes")
+_PLAN_ARGS = ("tg", "s_tile", "t_tile", "t1", "hs", "stages", "sx", "sdy",
+              "x_words", "slot_words", "smem_bytes")
 # The transposed kernel's plan (`dwt_plan`; csrc/shallow_dwt.cu checks it).
 # DWT_STRIPS: x voxels a block stages at a time, the first that fits a
 # block's shared memory, by itemsize (csrc/tools/sweep_shallow_dw.py:
@@ -178,35 +184,39 @@ def _torch_layout(dw_jax: torch.Tensor, transposed: bool) -> torch.Tensor:
 # ------------------------------------------------------------ the kernels
 def tiles(cin: int, cout: int, bf16: bool = False):
     """(S, T): the stride-1 kernel's Cout and Cin tiles (csrc/shallow_dw.cu):
-    in float32 S is Cout rounded up to 4, 8, 10 or 16 and T * S <= 128
-    accumulators a lane; bfloat16 takes 16 x 16 on the tensor cores."""
+    in float32 a lane's T x S accumulators, S = Cout rounded up to 4, 8, 10
+    or 16 and T * S <= 128; bfloat16 takes 16 x 16 on the tensor cores."""
     if bf16:
         return 16, 16
     s = 4 if cout <= 4 else 8 if cout <= 8 else 10 if cout <= 10 else 16
     return s, {4: 16, 8: 12, 10: 10, 16: 8}[s]
 
 
-def _row_words(tile: int, bf16: bool) -> int:
-    """Words of a shared row: float32 rows read as float2 by consecutive
-    lanes, their stride keeping a half-warp on distinct banks; bfloat16
-    rows of 16 values (8 words) at the stride of 12 that `ldmatrix` reads
-    without conflicts."""
-    if bf16:
-        return 12
+def _row_words(tile: int) -> int:
+    """Words of a float32 shared row: read as float2 by 16 lanes at once at
+    a stride of 2 words past a multiple of 4, so they fall on distinct
+    banks."""
     return tile + 2 if tile % 4 == 0 else tile
+
+
+def _ceil4(words: int) -> int:
+    return -(-words // 4) * 4
 
 
 def dw_plan(n: int, spatial, cin: int, cout: int, itemsize: int = 4,
             k: int = 3) -> dict:
     """The stride-1 kernel's geometry for x of (n, *spatial, cin) and a
-    k-tap kernel, its one copy (csrc/shallow_dw.cu checks it): strips of t1
-    columns of w by all t2 = d depths about STRIPS[itemsize] voxels (the
-    first whose shared memory fits a block), G groups of strips (enough that
-    a lane's float32 chain is at most CHAIN voxels and the grid has
-    MIN_BLOCKS), the tiles, the shared rows and buffers, the workspaces'
-    element counts (dW's partials float32, db's float64) and the shared
-    memory a block takes (more than a block has where one column of d does
-    not fit: the wrapper then raises)."""
+    k-tap kernel, its one copy (csrc/shallow_dw.cu checks it). A block owns
+    a role (a group of at most TAPS_F32 or TAPS_BF16 taps, a Cin tile and a
+    Cout tile) of one run of t1 columns of w (all depths) of one sample and
+    one segment of hs rows of h, which it walks, staging one x and one dy
+    plane a step into a ring of `stages` slots; t1 is about STRIPS[itemsize]
+    voxels a step, the first whose shared memory fits a block (MAX_SHARED;
+    more than a block has where one column does not fit: the wrapper then
+    raises). h is cut into segments where the runs and roles make fewer
+    than MIN_BLOCKS blocks. Also the row strides (sx, sdy) and a slot's
+    words (words of 4 bytes), the workspaces' element counts (dW's partials
+    float32, db's float64) and the shared memory a block takes."""
     for strip in STRIPS[itemsize]:
         plan = _plan(n, spatial, cin, cout, itemsize, strip, k)
         if plan["smem_bytes"] <= MAX_SHARED:
@@ -217,30 +227,40 @@ def dw_plan(n: int, spatial, cin: int, cout: int, itemsize: int = 4,
 def _plan(n, spatial, cin, cout, itemsize, strip, k):
     e0, e1, e2 = spatial
     bf16 = itemsize == 2
-    s_tile, t_tile = tiles(cin, cout, bf16)
-    n_s, n_t = -(-cout // s_tile), -(-cin // t_tile)
+    p = (k - 1) // 2
     taps = k ** 3
-    chunks = -(-k * k // 9)  # blocks of 9 warps an h tap
-    t2, t1 = e2, max(1, min(e1, strip // e2))
-    qtot = n * e0 * -(-e1 // t1)
-    per_lane = -(-t1 * t2 // 32)  # voxels a lane takes from one strip
-    blocks_x = k * chunks * n_t * n_s
-    groups = max(-(-qtot // max(1, CHAIN // per_lane)),
-                 -(-MIN_BLOCKS // blocks_x))
-    groups = min(groups, qtot, 65535)
-    w2, r1max = t2 - 1 + k, t1 - 1 + k
-    sb, sg = _row_words(s_tile, bf16), _row_words(t_tile, bf16)
-    base_words = -(-t1 * t2 * sb // 4) * 4
-    gath_words = -(-r1max * w2 * sg // 4) * 4
-    cip, cop = n_t * t_tile, n_s * s_tile
-    return {"strip": strip, "k": k, "s_tile": s_tile, "t_tile": t_tile,
-            "t1": t1, "t2": t2, "groups": groups, "sb": sb, "sg": sg,
-            "base_words": base_words, "gath_words": gath_words,
-            "blocks": blocks_x * groups, "chain": per_lane * -(-qtot // groups),
-            "part_elems": groups * taps * cip * cop,
-            "dbpart_elems": groups * taps * cop,
-            "smem_bytes": 2 * (base_words + gath_words) * 4
-            + (48 if bf16 else 0) + 9 * 32 * (8 if bf16 else s_tile) * 8}
+    s_tile, t_tile = tiles(cin, cout, bf16)
+    n_tg = -(-taps // (TAPS_BF16 if bf16 else TAPS_F32))
+    tg = -(-taps // n_tg)
+    roles = n_tg * -(-cin // t_tile) * -(-cout // s_tile)
+    t1 = max(1, min(e1, strip // e2))
+    nw1 = -(-e1 // t1)
+    nseg = min(e0, max(1, -(-MIN_BLOCKS // (n * nw1 * roles))))
+    hs = -(-e0 // nseg)
+    nseg = -(-e0 // hs)
+    dp = e2 + 2 * p
+    sx, sdy = (ROW_WORDS_BF16,) * 2 if bf16 else (_row_words(t_tile),
+                                                  _row_words(s_tile))
+    stages = 2 * p + 2 + RING_EXTRA
+    x_words = _ceil4((t1 + 2 * p) * dp * sx)
+    dy_rows = -(-t1 * e2 // 16) * 16 if bf16 else t1 * e2
+    slot_words = x_words + _ceil4(dy_rows * sdy)
+    # After the walk the computing warps' sums take the ring's place
+    # (bfloat16: S1_WARPS warps x 8 slots x 16 x 16; float32: their lanes x
+    # T x S and db's float64 sums); bfloat16's rows of ones follow the ring;
+    # then the full and empty barriers.
+    ring_words = stages * slot_words + (ONES_WORDS if bf16 else 0)
+    lanes_c = 32 * S1_WARPS
+    red_words = S1_WARPS * 8 * 256 if bf16 else \
+        lanes_c * t_tile * s_tile + 2 * lanes_c
+    bar_words = _ceil4(max(ring_words, red_words))
+    blocks = n * nseg * nw1 * roles
+    return {"strip": strip, "k": k, "tg": tg, "roles": roles,
+            "s_tile": s_tile, "t_tile": t_tile, "t1": t1, "hs": hs,
+            "nseg": nseg, "stages": stages, "sx": sx, "sdy": sdy,
+            "x_words": x_words, "slot_words": slot_words, "blocks": blocks, "part_elems": blocks * tg * t_tile * s_tile,
+            "dbpart_elems": blocks * s_tile,
+            "smem_bytes": bar_words * 4 + 16 * stages}
 
 
 def dwt_plan(n: int, spatial, cin: int, cout: int,
@@ -381,19 +401,12 @@ def shallow_dw(x: torch.Tensor, dy: torch.Tensor, transposed: bool,
             "the stride-1 kernel takes 3D convs of odd k, pad (k-1)//2; got "
             f"k={k}, stride {s}, pad {p}, x {tuple(x.shape)}, dy "
             f"{tuple(dy.shape)}")
-    xv, dv = _nhwc(x), _nhwc(dy)
-    if x.dtype == torch.bfloat16 and (cin % 2 or cout % 2 or xv.data_ptr() % 4
-                                      or dv.data_ptr() % 4):
-        # The kernel reads bfloat16 rows by 4-byte pairs. A bfloat16
-        # product is exact in float32, so the float32 kernel on the widened
-        # values computes the same sums.
-        dw, db = shallow_dw(x.float(), dy.float(), False, k)
-        return dw.to(x.dtype), db.to(x.dtype)
     plan = dw_plan(n, spatial, cin, cout, x.element_size(), k)
     if plan["smem_bytes"] > MAX_SHARED:
         raise ValueError(f"kernel does not take x {tuple(x.shape)}, k={k}: a "
-                         f"strip needs {plan['smem_bytes']} bytes of shared "
+                         f"step needs {plan['smem_bytes']} bytes of shared "
                          "memory")
+    xv, dv = _nhwc(x), _nhwc(dy)
     dw = torch.empty((cout, cin, k, k, k), dtype=x.dtype, device=x.device)
     db = torch.empty(cout, dtype=x.dtype, device=x.device)
     part = torch.empty(plan["part_elems"], dtype=torch.float32,

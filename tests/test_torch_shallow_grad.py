@@ -21,12 +21,11 @@ phase 16b).
   - The kernels' plans at the routed sites of the main paths and at the
     convs the rule routes beyond them (k = 1, 5, 7; a transposed input
     deeper than one strip): the stride-1 plan (`dw_plan`, csrc/
-    shallow_dw.cu) with a lane's float32 chain at most CHAIN, enough blocks,
-    the shared memory within an H100 block's, and what the C entry checks
-    of it; the transposed sites take csrc/shallow_dwt.cu's plan
-    (`dwt_plan`, tests/test_torch_shallow_dwt.py has its own cases). The
-    plans' strips and windows, emulated in numpy, make the plain version's
-    dW and db.
+    shallow_dw.cu; tests/test_torch_shallow_dw_s1.py has its own cases)
+    and the transposed plan (`dwt_plan`, csrc/shallow_dwt.cu;
+    tests/test_torch_shallow_dwt.py), each held to an H100's limits and to
+    what its C entry checks. The plans' walks, emulated in numpy, make the
+    plain version's dW and db.
 """
 
 import itertools
@@ -39,6 +38,8 @@ import torch
 
 import ctseg_tpu.ops.shallow_grad as jax_sg
 from ctseg_tpu.models import SegmentationModel as JaxSegmentationModel
+from test_torch_shallow_dw_s1 import assert_dw_plan_holds_the_kernel, \
+    emulate_dw
 from test_torch_shallow_dwt import assert_dwt_plan_holds_the_kernel, \
     emulate_dwt
 from ctseg_tpu_torch.inference import export
@@ -341,86 +342,21 @@ def test_the_kernel_plan_at_the_sites(site, itemsize):
             cin * cout + n * np.prod(spatial) * 2 ** len(spatial) * cout
         return
     plan = sg.dw_plan(n, spatial, cin, cout, itemsize, k)
-    assert plan["chain"] <= sg.CHAIN
-    assert plan["blocks"] >= min(sg.MIN_BLOCKS, plan["blocks"] // plan[
-        "groups"] * n * spatial[0])
     assert plan["smem_bytes"] <= sg.MAX_SHARED
-    s, t = sg.tiles(cin, cout, itemsize == 2)
-    assert s >= min(cout, 16) and s % 2 == 0 == t % 2
-    assert itemsize == 2 or s * t <= 128  # float32: accumulators a lane
+    assert_dw_plan_holds_the_kernel(plan, n, spatial, cin, cout, itemsize, k)
     flop, nbytes = sg.dw_work(n, spatial, cin, cout, transposed, k)
     taps = k ** len(spatial)
     assert 0 < flop <= 2 * n * np.prod(spatial) * taps * cin * cout + \
         n * np.prod(spatial) * 2 ** len(spatial) * cout
-    _assert_plan_holds_the_kernel(plan, spatial, itemsize)
-
-
-def _assert_plan_holds_the_kernel(plan, spatial, itemsize):
-    """What csrc/shallow_dw.cu's C entry checks of the stride-1 plan."""
-    k, bf16 = plan["k"], itemsize == 2
-    e1, e2 = spatial[1], spatial[2]
-    t1, t2 = plan["t1"], plan["t2"]
-    assert 1 <= t1 <= e1 and t2 == e2 and t1 * t2 <= 65536
-    tb, tg = plan["s_tile"], plan["t_tile"]
-    if bf16:
-        assert plan["sb"] % 4 == plan["sg"] % 4 == 0 and min(
-            plan["sb"], plan["sg"]) >= 8
-    else:
-        assert plan["sb"] >= tb and plan["sg"] >= tg
-        assert plan["sb"] % 2 == plan["sg"] % 2 == 0
-    assert plan["base_words"] % 4 == plan["gath_words"] % 4 == 0
-    assert plan["base_words"] >= t1 * t2 * plan["sb"]
-    assert plan["gath_words"] >= (t1 - 1 + k) * (t2 - 1 + k) * plan["sg"]
-    assert 1 <= plan["groups"] <= 65535
-
-
-def _emulate(x, dy, plan):
-    """csrc/shallow_dw.cu's decomposition in numpy, float64: strips of t1
-    whole columns of dy, each kh tap's window of x (zero outside the tensor
-    and past the strip's last column), the dy row times the window row at
-    voxel + tap, and db from the dy rows of the centre tap. x (n, *S, cin),
-    dy (n, *S, cout) -> dW (k, k, k, cin, cout), db."""
-    n, e0, e1, e2, _ = x.shape
-    k = plan["k"]
-    p = (k - 1) // 2
-    t1, t2 = plan["t1"], plan["t2"]
-    dw = np.zeros((k, k, k, x.shape[-1], dy.shape[-1]))
-    db = np.zeros(dy.shape[-1])
-    q = np.arange(t1 * t2)
-    r1, r2 = q // t2, q % t2
-    r1max, w2 = t1 - 1 + k, t2 - 1 + k
-    nw1 = -(-e1 // t1)
-    for qb in range(n * e0 * nw1):
-        t, wc = divmod(qb, nw1)
-        nn, b0 = divmod(t, e0)
-        w0 = wc * t1
-        t1c = min(t1, e1 - w0)
-        nq = t1c * t2
-        rows = dy[nn, b0, w0 + r1[:nq], r2[:nq]]
-        for kh in range(k):
-            win = np.zeros((r1max, w2, x.shape[-1]))
-            g0 = b0 - p + kh
-            for gl1 in range(min(r1max, t1c - 1 + k)):
-                for gl2 in range(w2):
-                    g1, g2 = w0 - p + gl1, gl2 - p
-                    if 0 <= g0 < e0 and 0 <= g1 < e1 and 0 <= g2 < e2:
-                        win[gl1, gl2] = x[nn, g0, g1, g2]
-            for kw in range(k):
-                for kd in range(k):
-                    dw[kh, kw, kd] += win[r1[:nq] + kw, r2[:nq] + kd].T @ rows
-                    if kh == kw == kd == p:
-                        db += rows.sum(0)
-    return dw, db
 
 
 EMULATED = {  # (N, *spatial), cin, cout, transposed, k, strip
-    # The stride-1 kernel takes whole columns of d: a strip of t1 columns
-    # (the last one ragged) or one column where a column is over a strip.
+    # The stride-1 kernel takes whole columns of d: runs of t1 columns (the
+    # last one ragged), or one column where a column is over a strip.
     "conv k=3, whole columns": ((2, 3, 5, 4), 3, 4, False, 3, 8),
     "conv k=3, column over a strip": ((1, 3, 4, 11), 3, 4, False, 3, 4),
     "conv k=1, column over a strip": ((2, 2, 3, 10), 2, 3, False, 1, 4),
     "conv k=5, column over a strip": ((1, 3, 4, 7), 2, 3, False, 5, 3),
-    # csrc/shallow_dwt.cu's strips: whole columns, depth tiles, 2D rows.
     "transposed 3D, whole columns": ((2, 3, 4, 3), 3, 2, True, 3, 8),
     "transposed 3D, depth tiles": ((1, 2, 3, 10), 3, 2, True, 3, 4),
     "transposed 2D": ((2, 5, 7), 3, 2, True, 3, 4),
@@ -450,13 +386,10 @@ def test_the_plans_strips_and_windows_make_the_weight_gradient(monkeypatch,
         monkeypatch.setattr(sg, "STRIPS", {4: (strip,)})
         plan = sg.dw_plan(shape[0], spatial, cin, cout, 4, k)
         assert plan["strip"] == strip
-        # A column of d over a strip: the plan asks for more shared memory
-        # than the strip would (the wrapper raises on what does not fit).
-        assert plan["t2"] == spatial[2]
-        _assert_plan_holds_the_kernel(plan, spatial, 4)
-        dw, db = _emulate(x, dy, plan)
-        # torch's layout -> (*k, ci, co), the taps as the kernel indexes
-        # them.
-        want = pdw.permute(2, 3, 4, 1, 0)
+        assert plan["t1"] == max(1, min(spatial[1], strip // spatial[2]))
+        assert_dw_plan_holds_the_kernel(plan, shape[0], spatial, cin, cout,
+                                        4, k)
+        dw, db = emulate_dw(x, dy, plan)  # torch's layout
+        want = pdw
     _assert_grad(dw, want.numpy(), "float64")
     _assert_grad(db, pdb.numpy(), "float64")
