@@ -105,9 +105,13 @@ Phases (any failure raises and the script exits non-zero):
      at bench_3d's 10 -> 10 conv (batch 128), csrc/shallow_dwt.cu at the
      three routed transposed convs (bench_3d's and Model L's 2D 128 -> 10
      at batch 128, model_3d's at batch 1), float32 and bfloat16, and at the
-     SHALLOW_ROUTED convs the rule routes beyond them (k = 5 and k = 1, a
-     transposed input 400 deep, odd channels, taken in bfloat16 as they
-     are by both kernels), each at its own batch: one
+     SHALLOW_ROUTED convs the rule routes beyond them (k = 5, 1, 7, 9
+     and 15 at depth 64; k = 9 where the stride-1 kernel's blocks walk
+     several units and where its roles take several launches, each plan
+     asserted to; a transposed input 400 deep; odd channels, taken in
+     bfloat16 as they are by both kernels), each at its own batch, and one
+     train step of a kernel_size=9 3D UNet on 64-deep patches (at least one
+     `shallow` launch, a finite loss): one
      launch of the map's own kernel a call, the kernel and its plain
      version on the same tensors against a float64 referee
      (aten.convolution_backward), each error relative to the sum of its
@@ -2244,14 +2248,25 @@ SHALLOW_SITES = (
      128, 10),
 )
 # Convs the routing rule (ops/shallow_grad.py::smallc_supported) sends to
-# the kernels beyond the main paths' sites, in both types: other odd k, a
-# transposed input deeper than one strip (depth tiles), and odd channels
-# (both kernels take them in bfloat16 as they are, copying rows of an odd
-# count 2 bytes at a time). (name, transposed, batch, x's spatial extents,
-# Cin, Cout, k)
+# the kernels beyond the main paths' sites, in both types: other odd k (up
+# to 15 at the deepest routed column, where the stride-1 kernel's tap
+# groups cover one or two kh), a stride-1 conv whose blocks each walk
+# several units (more units than the bounded grid gives a role, ragged
+# runs of w among them) and one whose roles take several launches (more
+# than MAX_GRID), a transposed input deeper than one strip (depth tiles),
+# and odd channels (both kernels take them in bfloat16 as they are,
+# copying rows of an odd count 2 bytes at a time). (name, transposed,
+# batch, x's spatial extents, Cin, Cout, k)
 SHALLOW_ROUTED = (
     ("k=5 conv 10 -> 10 at depth 64", False, 2, (32, 32, 64), 10, 10, 5),
     ("k=1 conv 16 -> 8 at depth 64", False, 2, (32, 32, 64), 16, 8, 1),
+    ("k=7 conv 4 -> 4 at depth 64", False, 2, (32, 32, 64), 4, 4, 7),
+    ("k=9 conv 10 -> 10 at depth 64", False, 2, (32, 32, 64), 10, 10, 9),
+    ("k=15 conv 10 -> 10 at depth 64", False, 1, (16, 16, 64), 10, 10, 15),
+    ("k=9 conv 4 -> 4, batch 32 (blocks walk several units)", False, 32,
+     (8, 48, 16), 4, 4, 9),
+    ("k=9 conv 16 -> 1024 (roles in several launches)", False, 1, (4, 4, 4),
+     16, 1024, 9),
     ("transposed conv 32 -> 10 from depth 400", True, 1, (8, 8, 400), 32,
      10, 3),
     ("transposed conv 16 -> 7 (odd channels)", True, 2, (16, 16, 8), 16, 7,
@@ -2266,6 +2281,10 @@ SHALLOW_ROUTED = (
 # products (bfloat16's are exact in float32) in other orders, and bfloat16
 # rounds the result once.
 SHALLOW_FACTOR = 2.0
+# What the stride-1 plan of these SHALLOW_ROUTED cases must show, in both
+# types: more units than blocks a role, and more than one launch.
+SHALLOW_LOOPING = SHALLOW_ROUTED[5][0]
+SHALLOW_CHUNKED = SHALLOW_ROUTED[6][0]
 
 
 def _shallow_referee(x, dy, transposed, k):
@@ -2322,6 +2341,18 @@ def phase_shallow_dw(label, gen):
                                           device=DEVICE).to(dtype))
             dy = channels_last(torch.randn((n, cout) + osp, generator=gen,
                                            device=DEVICE).to(dtype))
+            if not transposed:
+                plan = sg.dw_plan(n, spatial, cin, cout, x.element_size(), k)
+                if (name == SHALLOW_LOOPING
+                        and not plan["units"] > plan["groups"]) or (
+                        name == SHALLOW_CHUNKED and not plan["launches"] > 1):
+                    raise AssertionError(f"shallow_dw {name} {dname}: plan "
+                                         f"{plan} does not loop or chunk")
+                print(f"[{label}] shallow_dw {name}, {dname}: plan of "
+                      f"{plan['roles']} roles ({plan['tg']} taps, lines of "
+                      f"{plan['tl']}), {plan['units']} units, "
+                      f"{plan['groups']} blocks a role, {plan['launches']} "
+                      f"launches, strip {plan['strip']}")
             reset_launches()
             dw, db = sg.shallow_dw(x, dy, transposed, k)
             seen = read_launches()
@@ -2416,6 +2447,7 @@ def phase_shallow_dw(label, gen):
             del x, dy, dw, db, w
             torch.cuda.empty_cache()
     print("SHALLOW_SITES " + json.dumps(out["sites"]))
+    out["k9_step"] = _shallow_k9_step(label)
     # Each kernel's sums over its main-path sites, by type; bound_by is that
     # of its largest bound there.
     for kernel in ("shallow_dw", "shallow_dwt"):
@@ -2430,6 +2462,56 @@ def phase_shallow_dw(label, gen):
                 "bound_by"]
             out[kernel, dname] = tot
     return out
+
+
+# The kernel_size=9 step: a narrow 3D UNet (filters 8, 16, 32, 2 residual
+# units) on (H, W, D) patches 64 deep, batch 2.
+K9_FILTERS, K9_PATCH, K9_BATCH = (8, 16, 32), (32, 32, 64), 2
+
+
+def _shallow_k9_step(label):
+    """One train step of a 3D UNet with kernel_size=9 through the 3D patch
+    trainer (make_trainer_3d, PatchPipeline3D, Trainer.train_step), float32:
+    its stride-1 convs with at most 16 channels (the top decoder's 10 -> 10
+    conv at depth 64 among them) take csrc/shallow_dw.cu. At least one
+    `shallow` launch, a finite loss and finite gradients."""
+    import torch
+    from ctseg_tpu_torch.models.layers import reset_parameters
+    from ctseg_tpu_torch.models.unet import UNet
+    from ctseg_tpu_torch.training.optimizer import make_adam
+    from ctseg_tpu_torch.volumetric.pipeline3d import PatchPipeline3D
+    from ctseg_tpu_torch.volumetric.trainer3d import make_trainer_3d
+
+    cfg = _config_3d("float32", K9_BATCH, K9_FILTERS, K9_PATCH)
+    trainer = make_trainer_3d(cfg, "patch", K9_PATCH, DEVICE)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    unet = UNet(1, 10, K9_FILTERS, (2,) * (len(K9_FILTERS) - 1), 2,
+                kernel_size=9, spatial_dims=3)
+    reset_parameters(unet, torch.Generator().manual_seed(1))
+    state.model.unet = unet.to(DEVICE)
+    state.optimizer = make_adam(state.model.parameters(), cfg.lr)
+    pipe = PatchPipeline3D(_volumes_3d(0, 2), K9_BATCH, K9_PATCH, 1, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    batch = pipe.gather(pipe.draw(gen))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, metrics = trainer.train_step(state, batch, generator=gen)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = read_launches()
+    loss = float(metrics["loss/total"])
+    grads_finite = all(bool(torch.isfinite(p.grad).all())
+                       for p in state.model.parameters()
+                       if p.grad is not None)
+    print(f"[{label}] 3D UNet kernel_size=9 (filters {K9_FILTERS}), one "
+          f"train step at batch {K9_BATCH} x {K9_PATCH}, float32: loss "
+          f"{loss:.5f}, {step_s:.3f} s (the first, host clock); launches "
+          f"{launches}")
+    if launches["shallow"] < 1 or not np.isfinite(loss) or not grads_finite:
+        raise AssertionError(f"kernel_size=9 step: launches {launches}, loss "
+                             f"{loss}, gradients finite {grads_finite}")
+    return {"loss": loss, "launches": launches, "s": step_s}
 
 
 def _train_3d(label, trainer, state, pipe, steps):

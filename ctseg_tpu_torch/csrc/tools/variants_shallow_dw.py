@@ -5,6 +5,7 @@ library: run it alone on the card, from the repository root,
 
     python3 ctseg_tpu_torch/csrc/tools/variants_shallow_dw.py [--rounds 2]
         [--map transposed|stride1|step0] [--parent DIR]
+        [--variants NAME ...]
 
 --map transposed (the default): csrc/shallow_dwt.cu at chip_smoke.py's
 transposed SHALLOW_SITES (DWT_VARIANTS):
@@ -22,7 +23,19 @@ transposed SHALLOW_SITES (DWT_VARIANTS):
     whatever the ring holds;
   - "no db": no block sums db;
   - "unroll 2", "unroll 16": float32's voxel loop unrolled by 2 or 16
-    instead of 8.
+    instead of 8;
+  - "outside rows skipped": the stagers skip the x rows outside the
+    tensor's w and d and the dy rows past the unit, which then hold the
+    zeros written when the block started (right only where a block owns
+    one unit, as at the site), instead of writing them as zeros;
+  - "a field after rpl", "divisors first": the kernel's parameter struct
+    (Geom) laid out otherwise, its work unchanged (one int more after
+    `rpl`; the FastDiv divisors first): how much of a time is code
+    generation;
+  - "one unit a block": the stagers' and computing warps' walks end after
+    the block's first unit (right only where a block owns one unit).
+--variants NAME ...: only these variants of the map (with the first, the
+kernel as it is, whose dW each is held to).
 --map step0 --parent DIR, DIR a checkout of the tree whose
 csrc/shallow_dw.cu is the first stride-1 kernel (the commit before the
 ring-of-planes kernel, e.g. `git archive` of it unpacked under
@@ -101,23 +114,55 @@ DWT_VARIANTS = {
         "          b[t][2] = a[2] + (brow != ds);\n          b[t][3] = a[3];\n")],
 }
 S1_SOURCE = "shallow_dw.cu"
-S1_UNROLL = "#pragma unroll 8\n    for (int v = warp * slots + j;"
+S1_UNROLL = "#pragma unroll 8\n      for (int v = warp * slots + j;"
+S1_UNIT_END = ("    release_tail(g, empty, it);\n  }\n  bar_sync(1, kConsumers);  "
+               "// every computing warp is done with the ring\n")
 S1_VARIANTS = {
     "this tree": [],
     # the ring filled, nothing computed from it
-    "staging only": [("    const int nq = u.nq;\n",
-                      "    const int nq = 0 * u.nq;\n"),
-                     ("    const int nk = (u.nq + 15) >> 4;\n",
-                      "    const int nk = 0 * u.nq;\n")],
+    "staging only": [("      const int nq = u.nq;\n",
+                      "      const int nq = 0 * u.nq;\n"),
+                     ("      const int nk = (u.nq + 15) >> 4;\n",
+                      "      const int nk = 0 * u.nq;\n")],
     # the products and db on whatever the ring holds, no copies
-    "compute only": [("  const int m = u.h_lo - g.p + i;\n",
+    "compute only": [("  const int m = u.h_lo - g.p + r.kh0 + i;\n",
                       "  if (g.n > 0) return;\n"
-                      "  const int m = u.h_lo - g.p + i;\n")],
+                      "  const int m = u.h_lo - g.p + r.kh0 + i;\n")],
     # no block sums db
-    "no db": [("  u.db = u.role < g.n_cot;\n", "  u.db = false;\n")],
+    "no db": [("  r.db = r.role < g.n_cot;\n", "  r.db = false;\n")],
     # float32's voxel loop unrolled by 2 or 16 instead of 8
     "unroll 2": [(S1_UNROLL, S1_UNROLL.replace("unroll 8", "unroll 2"))],
     "unroll 16": [(S1_UNROLL, S1_UNROLL.replace("unroll 8", "unroll 16"))],
+    # the rows outside the tensor left as the block's start zeroed them
+    "outside rows skipped": [
+        ("    const size_t vox = in ? (plane0 + w) * g.e2 + d : 0;\n",
+         "    if (static_cast<unsigned>(w) >= static_cast<unsigned>(g.e1) ||\n"
+         "        static_cast<unsigned>(d) >= static_cast<unsigned>(g.e2))\n"
+         "      continue;\n"
+         "    const size_t vox = in ? (plane0 + w) * g.e2 + d : 0;\n"),
+        ("      off = c * g.e2 + j;\n    }\n    copy_row",
+         "      off = c * g.e2 + j;\n    }\n    if (!in) continue;\n"
+         "    copy_row")],
+    # Geom laid out with a 4-byte field more after rpl (unused)
+    "a field after rpl": [
+        ("  int role0, rpl;           // this launch's first role and its roles\n",
+         "  int role0, rpl;           // this launch's first role and its roles\n"
+         "  int unused;\n")],
+    # Geom's divisors before its pointers
+    "divisors first": [
+        ("  FastDiv div_td, div_dpx;\n};", "};"),
+        ("struct Geom {\n", "struct Geom {\n  FastDiv div_td, div_dpx;\n")],
+    # one unit a block: each walk ends after its first unit
+    "one unit a block": [
+        (S1_UNIT_END + "  float* mine",
+         S1_UNIT_END.replace("  }\n", "    break;\n  }\n", 1)
+         + "  float* mine"),
+        (S1_UNIT_END + "  // The accumulators'",
+         S1_UNIT_END.replace("  }\n", "    break;\n  }\n", 1)
+         + "  // The accumulators'"),
+        ("        }\n      }\n    }\n    ctseg::cp_async_wait<0>();",
+         "        }\n      }\n      break;\n    }\n"
+         "    ctseg::cp_async_wait<0>();")],
 }
 # Edits of the first stride-1 kernel's csrc/shallow_dw.cu (`--map step0
 # --parent DIR`), and the
@@ -223,6 +268,8 @@ def main():
     parser.add_argument("--parent", type=Path, default=None,
                         help="with --map step0: a checkout of the tree "
                         "with the first stride-1 kernel")
+    parser.add_argument("--variants", nargs="+", default=None,
+                        help="only these variants of the map")
     args = parser.parse_args()
 
     import torch
@@ -241,6 +288,13 @@ def main():
         build_mod = _build
         source, variants = ((DWT_SOURCE, DWT_VARIANTS) if transposed
                             else (S1_SOURCE, S1_VARIANTS))
+    if args.variants:
+        unknown = set(args.variants) - set(variants)
+        if unknown:
+            sys.exit(f"variants_shallow_dw: no variants {sorted(unknown)}")
+        first = next(iter(variants))
+        variants = {n: e for n, e in variants.items()
+                    if n == first or n in args.variants}
     texts = {n: edited(n, e, build_mod.CSRC, source) if e else None
              for n, e in variants.items()}
     label = chip_smoke.card_label()

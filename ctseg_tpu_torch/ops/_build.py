@@ -83,10 +83,11 @@ SIGNATURES = {
     "ctseg_edt_row_scan": [_P] * 4 + [_L] + [_I] * 6 + [_P],
     # d2, labels, has_site, out, maps, elems, classes, ltype, device, stream
     "ctseg_edt_signed_map": [_P] * 4 + [_L] + [_I] * 4 + [_P],
-    # x, dy, part, dbpart, dw, db, n, e0, e1, e2, cin, cout, k, tg, s_tile,
-    # t_tile, t1, hs, stages, sx, sdy, x_words, slot_words, smem,
-    # part_elems, dbpart_elems, dtype, device, stream
-    "ctseg_shallow_dw": [_P] * 6 + [_I] * 18 + [_L] * 2 + [_I] * 2 + [_P],
+    # x, dy, part, dbpart, dw, db, n, e0, e1, e2, cin, cout, k, tl, tg,
+    # s_tile, t_tile, t1, td, hs, hspan, wspan, stages, sx, sdy, x_words,
+    # slot_words, groups, rpl, smem, part_elems, dbpart_elems, dtype,
+    # device, stream
+    "ctseg_shallow_dw": [_P] * 6 + [_I] * 24 + [_L] * 2 + [_I] * 2 + [_P],
     # x, dy, part, dbpart, dw, db, n, e0, e1, e2, cin, cout, ndim, n_ct, t1,
     # t2, groups, sx, sdy, x_words, stage_words, smem, part_elems,
     # dbpart_elems, dtype, device, stream

@@ -36,6 +36,7 @@ plain versions take the (N, *spatial, C) views and return the JAX package's
 (models/jax_import.py).
 """
 
+import functools
 import math
 
 import torch
@@ -53,23 +54,37 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CONV_FN = {4: F.conv2d, 5: F.conv3d}
 _CONV_T_FN = {4: F.conv_transpose2d, 5: F.conv_transpose3d}
 # The stride-1 kernel's plan (`dw_plan`; csrc/shallow_dw.cu checks it).
-# STRIPS: voxels a block's step stages (t1 columns of all depths), by
-# itemsize, in order of preference: the first whose ring fits a block's
-# shared memory (csrc/tools/sweep_shallow_dw.py).
+# STRIPS: voxels a block's step stages (t1 columns of td depths), by
+# itemsize, in order of preference: the first for which a tap grouping's
+# ring fits a block's shared memory (csrc/tools/sweep_shallow_dw.py).
 STRIPS = {2: (512, 256, 128, 64, 32, 16), 4: (512, 256, 128, 64, 32, 16)}
-RING_EXTRA = 0      # ring slots past the 2p + 2 a step needs (the sweep's
+RING_EXTRA = 0      # ring slots past the hspan + 1 a step needs (the sweep's
                     # --ring-extra)
 MIN_BLOCKS = 264    # below this many blocks h is cut into segments: two
                     # for each of an H100's 132 SMs (one a time each)
+MIN_GROUPS = 16     # where a role's planes cover one kh (no plane staged
+                    # twice), h is cut until a role has this many blocks, as
+                    # far as MAX_GRID allows: each float32 output then sums
+                    # 8 warps x MIN_GROUPS float32 chains in float64, and
+                    # its error falls as their square root (PERF.md, section 6)
+MAX_GRID = 1056     # blocks a launch, 8 for each SM: past it a block walks
+                    # several units (runs x depth tiles x segments x
+                    # samples), and past it in roles the roles take several
+                    # launches; the workspaces are at most MAX_GRID blocks'
 MAX_SHARED = 232448
+MAX_K = 789         # the largest odd k the stride-1 plan takes: one column
+                    # of 16 depths over a line of one kh fits MAX_SHARED in
+                    # both types up to it (float32 with a Cin tile of 16 is
+                    # the first past it, at 791)
 S1_WARPS = 8        # the kernel's computing warps (kWarps)
 TAPS_F32 = 32       # taps a float32 role: the lanes of a warp (kMaxTapsF32)
 TAPS_BF16 = 27      # taps a bfloat16 role: 4 warps of 7, one slot for db
 ROW_WORDS_BF16 = 12  # a bfloat16 shared row: 16 values at a 48-byte stride
 ONES_WORDS = 16 * ROW_WORDS_BF16  # bfloat16: 16 rows of ones (db's tap)
 # The plan's entries csrc/shallow_dw.cu takes, in its argument order.
-_PLAN_ARGS = ("tg", "s_tile", "t_tile", "t1", "hs", "stages", "sx", "sdy",
-              "x_words", "slot_words", "smem_bytes")
+_PLAN_ARGS = ("tl", "tg", "s_tile", "t_tile", "t1", "td", "hs", "hspan",
+              "wspan", "stages", "sx", "sdy", "x_words", "slot_words",
+              "groups", "rpl", "smem_bytes", "part_elems", "dbpart_elems")
 # The transposed kernel's plan (`dwt_plan`; csrc/shallow_dwt.cu checks it).
 # DWT_STRIPS: x voxels a block stages at a time, the first that fits a
 # block's shared memory, by itemsize (csrc/tools/sweep_shallow_dw.py:
@@ -203,47 +218,93 @@ def _ceil4(words: int) -> int:
     return -(-words // 4) * 4
 
 
+def tap_lines(k: int):
+    """The tap groupings the stride-1 plan tries, in order: a role's taps
+    are a run of tg taps (in (kh, kw, kd) order) of one line of tl taps,
+    lines of k^3 (any taps) or k^2 (one kh)."""
+    return tuple(dict.fromkeys((k ** 3, k ** 2)))
+
+
+def group_span(k: int, first: int, count: int):
+    """((kh, kw) of the group's first staged tap, (hspan, wspan)) of the
+    `count` taps from tap `first`: the kh it covers, and the kw (all of them
+    where it covers two kh); its planes hold every kd."""
+    last = first + count - 1
+    h0, h1 = first // (k * k), last // (k * k)
+    if h0 != h1:
+        return (h0, 0), (h1 - h0 + 1, k)
+    w0 = first // k % k
+    return (h0, w0), (1, last // k % k - w0 + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def tap_groups(k: int, tl: int, itemsize: int):
+    """(tg, groups a line, (hspan, wspan)): a role's taps, the roles of a
+    line, and the kh and kw a role's ring planes cover, the most over the
+    line's groups (every line alike)."""
+    gpl = -(-tl // (TAPS_BF16 if itemsize == 2 else TAPS_F32))
+    tg = -(-tl // gpl)
+    spans = [group_span(k, first, min(tg, tl - first))[1]
+             for first in range(0, tl, tg)]
+    return tg, -(-tl // tg), tuple(max(s[a] for s in spans)
+                                   for a in range(2))
+
+
 def dw_plan(n: int, spatial, cin: int, cout: int, itemsize: int = 4,
             k: int = 3) -> dict:
     """The stride-1 kernel's geometry for x of (n, *spatial, cin) and a
-    k-tap kernel, its one copy (csrc/shallow_dw.cu checks it). A block owns
-    a role (a group of at most TAPS_F32 or TAPS_BF16 taps, a Cin tile and a
-    Cout tile) of one run of t1 columns of w (all depths) of one sample and
-    one segment of hs rows of h, which it walks, staging one x and one dy
-    plane a step into a ring of `stages` slots; t1 is about STRIPS[itemsize]
-    voxels a step, the first whose shared memory fits a block (MAX_SHARED;
-    more than a block has where one column does not fit: the wrapper then
-    raises). h is cut into segments where the runs and roles make fewer
-    than MIN_BLOCKS blocks. Also the row strides (sx, sdy) and a slot's
-    words (words of 4 bytes), the workspaces' element counts (dW's partials
-    float32, db's float64) and the shared memory a block takes."""
+    k-tap kernel, its one copy (csrc/shallow_dw.cu checks it). A role is a
+    group of at most TAPS_F32 or TAPS_BF16 taps (`tap_groups`), a Cin tile
+    and a Cout tile; a unit is one run of t1 columns of w by one tile of td
+    depths of one sample and one segment of hs rows of h, which a block
+    walks for its role, staging one x and one dy plane a step into a ring of
+    `stages` slots (the hspan x planes a step reads and one more), an x
+    plane (t1 + wspan - 1) columns of (td + k - 1) depths, the kh and kw a
+    role covers (`group_span`) and every kd. The first strip of
+    STRIPS[itemsize] (t1 x td voxels a step) and the first of `tap_lines`
+    whose shared memory fits a block (MAX_SHARED) win; one column of 16
+    depths over a line of one kh fits for every k up to MAX_K. h is cut
+    into segments where the units and roles make fewer than MIN_BLOCKS
+    blocks, or, where a role's planes cover one kh, a
+    role fewer than MIN_GROUPS. At most MAX_GRID blocks a launch: rpl
+    roles a launch (all where they fit), `groups` blocks a role, each
+    walking units g, g + groups, ...; the C entry launches the roles' chunks
+    in turn. Also the row strides (sx, sdy) and a slot's words (words of 4
+    bytes), the workspaces' element counts (dW's partials float32, db's
+    float64: at most MAX_GRID blocks' of one launch) and the shared memory
+    a block takes."""
     for strip in STRIPS[itemsize]:
-        plan = _plan(n, spatial, cin, cout, itemsize, strip, k)
-        if plan["smem_bytes"] <= MAX_SHARED:
-            break
+        for tl in tap_lines(k):
+            plan = _plan(n, spatial, cin, cout, itemsize, strip, k, tl)
+            if plan["smem_bytes"] <= MAX_SHARED:
+                return plan
     return plan
 
 
-def _plan(n, spatial, cin, cout, itemsize, strip, k):
+def _plan(n, spatial, cin, cout, itemsize, strip, k, tl):
     e0, e1, e2 = spatial
     bf16 = itemsize == 2
-    p = (k - 1) // 2
-    taps = k ** 3
     s_tile, t_tile = tiles(cin, cout, bf16)
-    n_tg = -(-taps // (TAPS_BF16 if bf16 else TAPS_F32))
-    tg = -(-taps // n_tg)
-    roles = n_tg * -(-cin // t_tile) * -(-cout // s_tile)
-    t1 = max(1, min(e1, strip // e2))
-    nw1 = -(-e1 // t1)
-    nseg = min(e0, max(1, -(-MIN_BLOCKS // (n * nw1 * roles))))
+    tg, gpl, (hspan, wspan) = tap_groups(k, tl, itemsize)
+    roles = k ** 3 // tl * gpl * -(-cin // t_tile) * -(-cout // s_tile)
+    ndt = -(-e2 // min(e2, strip))
+    td = -(-e2 // ndt)
+    t1 = max(1, min(e1, strip // td))
+    cols = n * -(-e1 // t1) * ndt
+    nseg = min(e0, max(1, -(-MIN_BLOCKS // (cols * roles))))
+    if hspan == 1:
+        groups_max = MAX_GRID // min(roles, MAX_GRID)
+        nseg = min(e0, max(nseg, -(-min(MIN_GROUPS, groups_max) // cols)))
     hs = -(-e0 // nseg)
     nseg = -(-e0 // hs)
-    dp = e2 + 2 * p
+    units = cols * nseg
+    rpl = min(roles, MAX_GRID)
+    groups = min(units, MAX_GRID // rpl)
     sx, sdy = (ROW_WORDS_BF16,) * 2 if bf16 else (_row_words(t_tile),
                                                   _row_words(s_tile))
-    stages = 2 * p + 2 + RING_EXTRA
-    x_words = _ceil4((t1 + 2 * p) * dp * sx)
-    dy_rows = -(-t1 * e2 // 16) * 16 if bf16 else t1 * e2
+    stages = hspan + 1 + RING_EXTRA
+    x_words = _ceil4((t1 + wspan - 1) * (td + k - 1) * sx)
+    dy_rows = -(-t1 * td // 16) * 16 if bf16 else t1 * td
     slot_words = x_words + _ceil4(dy_rows * sdy)
     # After the walk the computing warps' sums take the ring's place
     # (bfloat16: S1_WARPS warps x 8 slots x 16 x 16; float32: their lanes x
@@ -254,11 +315,14 @@ def _plan(n, spatial, cin, cout, itemsize, strip, k):
     red_words = S1_WARPS * 8 * 256 if bf16 else \
         lanes_c * t_tile * s_tile + 2 * lanes_c
     bar_words = _ceil4(max(ring_words, red_words))
-    blocks = n * nseg * nw1 * roles
-    return {"strip": strip, "k": k, "tg": tg, "roles": roles,
-            "s_tile": s_tile, "t_tile": t_tile, "t1": t1, "hs": hs,
-            "nseg": nseg, "stages": stages, "sx": sx, "sdy": sdy,
-            "x_words": x_words, "slot_words": slot_words, "blocks": blocks, "part_elems": blocks * tg * t_tile * s_tile,
+    blocks = groups * rpl
+    return {"strip": strip, "k": k, "tl": tl, "tg": tg, "roles": roles,
+            "s_tile": s_tile, "t_tile": t_tile, "t1": t1, "td": td,
+            "hs": hs, "nseg": nseg, "units": units, "hspan": hspan,
+            "wspan": wspan, "stages": stages, "sx": sx,
+            "sdy": sdy, "x_words": x_words, "slot_words": slot_words,
+            "groups": groups, "rpl": rpl, "launches": -(-roles // rpl),
+            "blocks": blocks, "part_elems": blocks * tg * t_tile * s_tile,
             "dbpart_elems": blocks * s_tile,
             "smem_bytes": bar_words * 4 + 16 * stages}
 
@@ -359,10 +423,14 @@ def shallow_dw_plain(x: torch.Tensor, dy: torch.Tensor, transposed: bool,
     return _torch_layout(dw, transposed).to(x.dtype), _bias_grad_plain(dv)
 
 
-def _check_pair(x: torch.Tensor, dy: torch.Tensor):
+def _check_pair(x: torch.Tensor, dy: torch.Tensor, cpu_ok: bool = False):
+    """x and dy of one type on one device, a device with a kernel (or, with
+    cpu_ok, the CPU) and a type the kernels take."""
     if x.dtype != dy.dtype or x.device != dy.device:
         raise TypeError(f"x {x.dtype} on {x.device}, dy {dy.dtype} on "
                         f"{dy.device}")
+    if cpu_ok and x.device.type == "cpu":
+        return
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if x.dtype not in _DTYPE_CODES:
@@ -376,12 +444,10 @@ def shallow_dw(x: torch.Tensor, dy: torch.Tensor, transposed: bool,
     db in dy's. A CPU tensor takes `shallow_dw_plain`; a CUDA tensor
     launches a kernel (every conv `smallc_supported` routes) or raises: the
     k=3, s=2 transposed conv in 2D and 3D csrc/shallow_dwt.cu
-    (`shallow_dwt`), the stride-1 3D conv with an odd kernel and pad (k-1)//2
-    csrc/shallow_dw.cu."""
+    (`shallow_dwt`), the stride-1 3D conv with an odd kernel up to MAX_K
+    and pad (k-1)//2 csrc/shallow_dw.cu, any depth and extents."""
     nd = x.ndim - 2
-    if x.dtype != dy.dtype or x.device != dy.device:
-        raise TypeError(f"x {x.dtype} on {x.device}, dy {dy.dtype} on "
-                        f"{dy.device}")
+    _check_pair(x, dy, cpu_ok=True)
     if x.device.type == "cpu":
         return shallow_dw_plain(x, dy, transposed, kernel_size, stride, pad)
     k = kernel_size
@@ -392,20 +458,19 @@ def shallow_dw(x: torch.Tensor, dy: torch.Tensor, transposed: bool,
             raise ValueError("kernel takes k=3 s=2 pad 1 transposed convs; "
                              f"got k={k}, stride {s}, pad {p}")
         return shallow_dwt(x, dy)
-    _check_pair(x, dy)
     n, cin, *spatial = x.shape
     cout = dy.shape[1]
-    if nd != 3 or s != 1 or k % 2 == 0 or p != (k - 1) // 2 or \
-            dy.shape[0] != n or list(dy.shape[2:]) != spatial:
+    if nd != 3 or s != 1 or k % 2 == 0 or k > MAX_K or \
+            p != (k - 1) // 2 or dy.shape[0] != n or \
+            list(dy.shape[2:]) != spatial:
         raise ValueError(
-            "the stride-1 kernel takes 3D convs of odd k, pad (k-1)//2; got "
-            f"k={k}, stride {s}, pad {p}, x {tuple(x.shape)}, dy "
-            f"{tuple(dy.shape)}")
+            f"the stride-1 kernel takes 3D convs of odd k up to {MAX_K}, pad "
+            f"(k-1)//2; got k={k}, stride {s}, pad {p}, x {tuple(x.shape)}, "
+            f"dy {tuple(dy.shape)}")
     plan = dw_plan(n, spatial, cin, cout, x.element_size(), k)
-    if plan["smem_bytes"] > MAX_SHARED:
-        raise ValueError(f"kernel does not take x {tuple(x.shape)}, k={k}: a "
-                         f"step needs {plan['smem_bytes']} bytes of shared "
-                         "memory")
+    # dw_plan finds a fitting plan for every k up to MAX_K (one column of 16
+    # depths over a line of one kh fits); the C entry checks it again.
+    assert plan["smem_bytes"] <= MAX_SHARED, plan
     xv, dv = _nhwc(x), _nhwc(dy)
     dw = torch.empty((cout, cin, k, k, k), dtype=x.dtype, device=x.device)
     db = torch.empty(cout, dtype=x.dtype, device=x.device)
@@ -418,15 +483,16 @@ def shallow_dw(x: torch.Tensor, dy: torch.Tensor, transposed: bool,
     err = lib.ctseg_shallow_dw(
         xv.data_ptr(), dv.data_ptr(), part.data_ptr(), dbpart.data_ptr(),
         dw.data_ptr(), db.data_ptr(), n, *spatial, cin, cout, k,
-        *(plan[key] for key in _PLAN_ARGS), plan["part_elems"],
-        plan["dbpart_elems"], _DTYPE_CODES[x.dtype], x.device.index, stream)
+        *(plan[key] for key in _PLAN_ARGS), _DTYPE_CODES[x.dtype],
+        x.device.index, stream)
     lib.check(err, "shallow_dw")
     shallow_dw.launches += 1
     return dw, db
 
 
-# csrc/shallow_dw.cu's calls (main + finalize launch) since reset: the
-# stride-1 conv's; the transposed conv's count on `shallow_dwt`.
+# csrc/shallow_dw.cu's calls (its main kernel and finalize, once for each
+# launch's roles) since reset: the stride-1 conv's; the transposed conv's
+# count on `shallow_dwt`.
 shallow_dw.launches = 0
 
 
