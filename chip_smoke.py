@@ -218,6 +218,16 @@ Phases (any failure raises and the script exits non-zero):
      the plain version, float32 and bfloat16, within phase 16's
      tolerances; each of the four launches' ms on one slab beside its
      bytes' bound and its plain version.
+30b. The shallow weight gradients on depth slabs, as the depth-sharded
+     step routes them: bench_3d's 10 -> 10 conv (csrc/shallow_dw.cu, x
+     with a halo row each side, depth padding 0) and 128 -> 10 transposed
+     conv (csrc/shallow_dwt.cu, x with the halo row after it, dy the
+     slab's 2m rows), batch 128, cut into 2 and 4 slabs, float32 and
+     bfloat16: each slab's kernel against its plain version against a
+     float64 referee (phase 16b's rule), one launch of its map's kernel a
+     call; the slabs' sum against the whole volume's referee and the
+     whole-volume kernel; one slab's ms beside its bound, its plain
+     version and cuDNN's weight-only call at the slab shape.
  31. NCCL at world size 1: the data-parallel Model L step (batch 128, full
      width, degree 2) on make_mesh(1) against the Trainer without a mesh on
      the same batch and draws (3 steps' losses with cuDNN deterministic on
@@ -2287,21 +2297,29 @@ SHALLOW_LOOPING = SHALLOW_ROUTED[5][0]
 SHALLOW_CHUNKED = SHALLOW_ROUTED[6][0]
 
 
-def _shallow_referee(x, dy, transposed, k):
+def _shallow_referee(x, dy, transposed, k, pad_d=None):
     """dW, db by aten.convolution_backward in float64 on contiguous
-    copies."""
+    copies. On a depth slab: the stride-1 conv's depth padding `pad_d` (0),
+    and the transposed conv's dy shorter than twice x's depth, zero rows
+    added."""
     import torch
+    import torch.nn.functional as F
 
     nd = x.ndim - 2
     s = 2 if transposed else 1
     shape = (x.shape[1], dy.shape[1], *(k,) * nd) if transposed else \
         (dy.shape[1], x.shape[1], *(k,) * nd)
+    pad = ((k - 1) // 2,) * nd
+    if pad_d is not None:
+        pad = pad[:-1] + (pad_d,)
     a64 = x.to(torch.float64, memory_format=torch.contiguous_format)
     b64 = dy.to(torch.float64, memory_format=torch.contiguous_format)
+    if transposed and dy.shape[-1] < s * x.shape[-1]:
+        b64 = F.pad(b64, (0, s * x.shape[-1] - dy.shape[-1]))
     w = a64.new_empty(1).expand(shape)
     _, dw, db = torch.ops.aten.convolution_backward(
         b64, a64, w, [shape[1] if transposed else shape[0]], (s,) * nd,
-        ((k - 1) // 2,) * nd, (1,) * nd, transposed, (s - 1,) * nd, 1,
+        pad, (1,) * nd, transposed, (s - 1,) * nd, 1,
         [False, True, True])
     return dw, db
 
@@ -4205,6 +4223,207 @@ def phase_k1_split(label, gen):
     return report
 
 
+def _slab_of(t, slabs, i, left, right):
+    """Slab i of `slabs` along D of t with `left` rows of the slab before it
+    and `right` of the one after (zeros past the volume's ends), as the
+    halo exchange extends it (parallel/collectives.py::DepthShard),
+    channels_last."""
+    import torch.nn.functional as F
+    from ctseg_tpu_torch.models.layers import channels_last
+
+    m = t.shape[-1] // slabs
+    return channels_last(F.pad(t, (left, right)).narrow(
+        -1, i * m, m + left + right))
+
+
+def phase_shallow_slabs(label, gen):
+    """30b. The shallow weight gradients on depth slabs: the two bench_3d
+    sites (SHALLOW_SITES: the 10 -> 10 conv, csrc/shallow_dw.cu, and the
+    128 -> 10 transposed conv, csrc/shallow_dwt.cu; batch 128, full width)
+    cut into 2 and 4 slabs, each slab's x extended by the halo rows the
+    depth-sharded step gives it (the stride-1 conv: 1 row each side,
+    depth padding 0; the transposed conv: 1 row after, dy its 2m rows), in
+    float32 and bfloat16. Each slab's kernel (dW, db) against its plain
+    version against a float64 referee, within phase 16b's rule
+    (SHALLOW_FACTOR x the plain version's error, relative to the terms'
+    magnitudes); one launch of its map's kernel a call. The slabs' sum
+    (added in float64, as the ranks' gradients add) against the float64
+    referee of the whole volume within the same rule against the plain
+    versions' sum, and against the whole-volume kernel's result in the
+    referee's place: its distance from it at most SHALLOW_FACTOR x the
+    plain versions' sum's. One slab's ms beside its bound
+    (`dw_work` at the slab shape), its plain version and cuDNN's
+    weight-only call at the slab shape (what the slab path ran before
+    these convs routed there), contiguous and channels_last."""
+    import torch
+    from ctseg_tpu_torch.ops import shallow_grad as sg
+
+    out = []
+    k = 3
+    for name, transposed, n, spatial, cin, cout in SHALLOW_SITES[:2]:
+        s = 2 if transposed else 1
+        osp = tuple(e * s for e in spatial)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            x = torch.randn((n, cin) + spatial, generator=gen,
+                            device=DEVICE).to(dtype)
+            dy = torch.randn((n, cout) + osp, generator=gen,
+                             device=DEVICE).to(dtype)
+            whole = sg.shallow_dw(x, dy, transposed, k)
+            wref = _shallow_referee(x, dy, transposed, k)
+            wmag = sg.shallow_dw_plain(x.abs().float(), dy.abs().float(),
+                                       transposed, k)
+            for slabs in SPLIT_SLABS:
+                m = spatial[-1] // slabs
+                rows = s * m
+                left, right = (0, 1) if transposed else (1, 1)
+                pd = None if transposed else 0
+                tag = f"shallow_dw slabs {name}, {slabs} slabs, {dname}"
+                tot = [torch.zeros(v.shape, dtype=torch.float64,
+                                   device=DEVICE) for v in whole]
+                ptot = [torch.zeros_like(v) for v in tot]
+                worst = {}
+                for i in range(slabs):
+                    xs = _slab_of(x, slabs, i, left, right)
+                    dys = _slab_of(dy, slabs, i, 0, 0)
+                    reset_launches()
+                    got = sg.shallow_dw(xs, dys, transposed, k, None, None,
+                                        pd)
+                    seen = read_launches()
+                    want = {"shallow": 0, "shallow_t": 1} if transposed \
+                        else {"shallow": 1, "shallow_t": 0}
+                    if {key: seen[key] for key in want} != want:
+                        raise AssertionError(f"{tag}: launches {seen}; "
+                                             f"want {want}")
+                    plain = sg.shallow_dw_plain(xs, dys, transposed, k,
+                                                pad_d=pd)
+                    ref = _shallow_referee(xs, dys, transposed, k, pd)
+                    mag = sg.shallow_dw_plain(xs.abs().float(),
+                                              dys.abs().float(), transposed,
+                                              k, pad_d=pd)
+                    for j, key in enumerate(("dw", "db")):
+                        if not bool(torch.isfinite(got[j]).all()):
+                            raise AssertionError(f"{tag} slab {i}: {key} not "
+                                                 "finite")
+                        e_k = _relative_err(got[j], ref[j], mag[j])
+                        e_p = _relative_err(plain[j], ref[j], mag[j])
+                        worst[key] = max(worst.get(key, 0.0), e_k)
+                        worst[key + "_plain"] = max(
+                            worst.get(key + "_plain", 0.0), e_p)
+                        if not e_k <= SHALLOW_FACTOR * e_p:
+                            raise AssertionError(
+                                f"{tag} slab {i}: {key} {e_k:.3e} of its "
+                                f"terms' magnitudes from float64, the plain "
+                                f"version's {e_p:.3e}")
+                        tot[j] += got[j].double()
+                        ptot[j] += plain[j].double()
+                    if i == 0:
+                        times = _shallow_slab_times(xs, dys, transposed, k,
+                                                    pd)
+                    del got, plain, ref, mag, xs, dys
+                errs = {}
+                for j, key in enumerate(("dw", "db")):
+                    e_k = _relative_err(tot[j], wref[j], wmag[j])
+                    e_p = _relative_err(ptot[j], wref[j], wmag[j])
+                    d_k = _relative_err(tot[j], whole[j].double(), wmag[j])
+                    d_p = _relative_err(ptot[j], whole[j].double(), wmag[j])
+                    errs[key] = {"sum": e_k, "sum_plain": e_p,
+                                 "vs_whole": d_k, "plain_vs_whole": d_p}
+                    if not (e_k <= SHALLOW_FACTOR * e_p
+                            and d_k <= SHALLOW_FACTOR * d_p):
+                        raise AssertionError(
+                            f"{tag}: the slabs' {key} {e_k:.3e} from the "
+                            f"whole volume's float64 (the plain versions' "
+                            f"sum {e_p:.3e}), {d_k:.3e} from the whole-"
+                            f"volume kernel (the plain versions' sum "
+                            f"{d_p:.3e})")
+                flop, nbytes32 = sg.dw_work(
+                    n, spatial[:-1] + (m + left + right,), cin, cout,
+                    transposed, k, rows)
+                nbytes = nbytes32 * x.element_size() / 4
+                if dtype == torch.bfloat16:
+                    b = bound_ms(flop, nbytes, PEAK_BF16)
+                elif transposed:  # split TF32 on the tensor cores
+                    b = bound_ms(3 * flop, nbytes, PEAK_TF32)
+                else:
+                    b = bound_ms(flop, nbytes, PEAK_FLOPS)
+                row = {"site": name, "slabs": slabs, "dtype": dname,
+                       "kernel": "shallow_dwt" if transposed else "shallow_dw",
+                       "bound_ms": b[0], "bound_by": b[1], **times,
+                       "rel_err_dw": worst["dw"],
+                       "rel_err_dw_plain": worst["dw_plain"],
+                       "rel_err_db": worst["db"],
+                       "rel_err_db_plain": worst["db_plain"],
+                       "sum": errs}
+                out.append(row)
+                print(f"[{label}] {tag}: one slab {times['ms']:.3f} ms "
+                      f"(bound {b[0]:.3f}, {b[1]}; share "
+                      f"{b[0] / times['ms']:.3f}); plain "
+                      f"{times['plain_ms']:.3f}; cuDNN's weight gradient "
+                      f"alone at the slab shape {times['library_ms']:.3f} "
+                      f"contiguous, {times['library_ms_channels_last']:.3f} "
+                      f"channels_last; of the terms' magnitudes from "
+                      f"float64, worst slab: dW {worst['dw']:.3e} (plain "
+                      f"{worst['dw_plain']:.3e}), db {worst['db']:.3e} "
+                      f"(plain {worst['db_plain']:.3e}); the slabs' sum: "
+                      + "; ".join(
+                          f"{key} {v['sum']:.3e} (plain {v['sum_plain']:.3e})"
+                          f", from the whole-volume kernel {v['vs_whole']:.3e}"
+                          f" (plain {v['plain_vs_whole']:.3e})"
+                          for key, v in errs.items()))
+                del tot, ptot
+            del x, dy, whole, wref, wmag
+            torch.cuda.empty_cache()
+    print("SHALLOW_SLABS " + json.dumps(out))
+    return out
+
+
+def _shallow_slab_times(xs, dys, transposed, k, pd):
+    """One slab's ms: the kernel, the plain version, and cuDNN's weight-only
+    aten.convolution_backward at the slab shape (the transposed conv's dy
+    with the zero rows of the output the slab does not keep), contiguous
+    and channels_last."""
+    import torch
+    import torch.nn.functional as F
+    from ctseg_tpu_torch.ops import shallow_grad as sg
+
+    nd = xs.ndim - 2
+    s = 2 if transposed else 1
+    cin, cout = xs.shape[1], dys.shape[1]
+    t_k = time_ms(lambda: sg.shallow_dw(xs, dys, transposed, k, None, None,
+                                        pd), 5)
+    t_p = time_ms(lambda: sg.shallow_dw_plain(xs, dys, transposed, k,
+                                              pad_d=pd), 2)
+    shape = (cin, cout, *(k,) * nd) if transposed else (cout, cin, *(k,) * nd)
+    w = torch.zeros(shape, device=DEVICE, dtype=xs.dtype)
+    pad = ((k - 1) // 2,) * nd
+    gfull = dys
+    if transposed:
+        gfull = F.pad(dys, (0, s * xs.shape[-1] - dys.shape[-1]))
+    else:
+        pad = pad[:-1] + (pd,)
+
+    def library(xx, gg):
+        return torch.ops.aten.convolution_backward(
+            gg, xx, w, None, (s,) * nd, pad, (1,) * nd, transposed,
+            (s - 1,) * nd, 1, [False, True, False])
+
+    t_lib = {}
+    for layout, (xx, gg) in (
+            ("contiguous", (xs.contiguous(), gfull.contiguous())),
+            ("channels_last", (xs, gfull.contiguous(
+                memory_format=torch.channels_last_3d)))):
+        t0 = time.perf_counter()
+        library(xx, gg)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        t_lib[layout] = time_ms(lambda: library(xx, gg),
+                                1 if first > 0.2 else 3)
+        del xx, gg
+    return {"ms": t_k, "plain_ms": t_p, "library_ms": t_lib["contiguous"],
+            "library_ms_channels_last": t_lib["channels_last"]}
+
+
 def _dp_batch():
     import torch
     from ctseg_tpu_torch.data.pipeline import DevicePipeline2D
@@ -4568,11 +4787,16 @@ def main() -> int:
         t0 = time.perf_counter()
         split = phase_k1_split(label, gen)
         seconds["30"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        shallow_slabs = phase_shallow_slabs(label, gen)
+        seconds["30b"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
         dp = phase_dp_nccl(label, ckpt_m)
-        seconds["31-32"] = time.perf_counter() - t0 - seconds["30"]
+        seconds["31-32"] = time.perf_counter() - t0
         gloo = phase_dp_gloo(label, Path(tmp))
-        seconds["33"] = (time.perf_counter() - t0 - seconds["30"]
-                         - seconds["31-32"])
+        seconds["33"] = time.perf_counter() - t0 - seconds["31-32"]
 
     bounds = site_bounds()
     bounds["k5"] = k5_times["step maps"][2:4]
@@ -4771,7 +4995,15 @@ def main() -> int:
                                   "library_ms_channels_last", "rel_err_dw",
                                   "rel_err_dw_plain", "rel_err_db",
                                   "rel_err_db_plain")}
-                for r in shallow["sites"] if r["kernel"] == name}})
+                for r in shallow["sites"] if r["kernel"] == name},
+            "slab_sites": {
+                f"{r['site']}, one of {r['slabs']} slabs {r['dtype']}": {
+                    k: r[k] for k in ("ms", "bound_ms", "bound_by",
+                                      "plain_ms", "library_ms",
+                                      "library_ms_channels_last",
+                                      "rel_err_dw", "rel_err_dw_plain",
+                                      "rel_err_db", "rel_err_db_plain")}
+                for r in shallow_slabs if r["kernel"] == name}})
     print(f"(launches: phase 9's {TIMED_STEPS} timed Model L train steps, for "
           f"K5 and the EDT kernels phase 14's {TIMED_STEPS} Model M steps; "
           "launches_model_m: phase 14's; launches_serve: phase 4's requests; "
@@ -4822,7 +5054,9 @@ def main() -> int:
           "summed over phase 16b's routed sites of the kernel on the main "
           "paths at their own batches (library_ms: cuDNN's weight-only "
           "aten.convolution_backward, contiguous and channels_last), "
-          "max_abs_err |kernel - plain| there)")
+          "max_abs_err |kernel - plain| there; slab_sites: phase 30b's "
+          "bench_3d site cut into 2 and 4 depth slabs, one slab's ms, its "
+          "bound and cuDNN's weight-only call at the slab shape)")
     # The train transforms of degrees 0, 1, 3 and 4 replace no TPU kernel
     # (the reference's warps are jnp, outside any Pallas call); their times
     # stand on a line of their own.

@@ -9,7 +9,11 @@
 // taps read zero),
 //   dW[t, ci, co] = sum over (n, o) of x[n, o + t - p, ci] * dy[n, o, co]
 //   db[co]        = sum over (n, o) of dy[n, o, co]
-// over dy's voxels o, written as torch's (Cout, Cin, *k) weight. The k = 3,
+// over dy's voxels o, written as torch's (Cout, Cin, *k) weight. On a depth
+// slab (parallel/collectives.py::DepthShard) x is the slab with p halo rows
+// on each side along D and the conv runs unpadded there: the depth padding
+// pd is 0, x has 2 (p - pd) rows more than dy, and tap kd of output row o
+// reads x row o + kd - pd. The k = 3,
 // s = 2 transposed conv that the same rule (`smallc_supported`) routes has
 // its own kernel, csrc/shallow_dwt.cu.
 //
@@ -235,13 +239,14 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4],
 }
 
 struct Geom {
-  const unsigned char* x;   // (n, e0, e1, e2, cin)
+  const unsigned char* x;   // (n, e0, e1, xd, cin)
   const unsigned char* dy;  // (n, e0, e1, e2, cout)
   float* part;              // (blocks, tg, tt, st)
   double* dbpart;           // (blocks, st)
   int isz;                  // bytes an element
   int n, e0, e1, e2, cin, cout;
   int k, p, taps;           // taps an axis, the pad (k - 1) / 2, k^3
+  int xd, pd;               // x's depth: e2 + 2 (p - pd), pd its padding
   int tl, gpl, tg;          // taps a line, groups a line, a group's taps
   int tt, st;               // a role's Cin and Cout tile
   int n_ct, n_cot, roles;   // Cin tiles, Cout tiles, roles
@@ -337,7 +342,7 @@ __device__ __forceinline__ void copy_row(uint32_t* dst,
 
 // Ring item i of the block's unit into `slot`: x plane h_lo - p + kh0 + i,
 // columns w0 - p + kw0 .. of the t1c + wspan - 1 the role reads by depths
-// d0 - p .. of dpx, zeros outside the tensor; then, from item lag on, dy
+// d0 - pd .. of dpx, zeros outside the tensor; then, from item lag on, dy
 // plane h_lo + i - lag: the unit's rows (t1c columns of tdc depths at a
 // stride of td) and zeros to dy_rows. A row holds at most kXW (x) and kDW
 // (dy) words.
@@ -349,7 +354,7 @@ __device__ __forceinline__ void stage_item(const Geom& g, const Role& r,
   const bool in_h = static_cast<unsigned>(m) < static_cast<unsigned>(g.e0);
   const size_t plane0 =
       (static_cast<size_t>(u.nn) * g.e0 + (in_h ? m : 0)) * g.e1;
-  const int wb = u.w0 - g.p + r.kw0, dbase = u.d0 - g.p;
+  const int wb = u.w0 - g.p + r.kw0, dbase = u.d0 - g.pd;
   const int rows = (u.t1c + g.wspan - 1) * g.dpx;
 #pragma unroll 1
   for (int q = tid; q < rows; q += kStagers) {
@@ -357,8 +362,8 @@ __device__ __forceinline__ void stage_item(const Geom& g, const Role& r,
     const int w = wb + c, d = dbase + q - c * g.dpx;
     const bool in = in_h &&
                     static_cast<unsigned>(w) < static_cast<unsigned>(g.e1) &&
-                    static_cast<unsigned>(d) < static_cast<unsigned>(g.e2);
-    const size_t vox = in ? (plane0 + w) * g.e2 + d : 0;
+                    static_cast<unsigned>(d) < static_cast<unsigned>(g.xd);
+    const size_t vox = in ? (plane0 + w) * g.xd + d : 0;
     copy_row<kVec, kXW>(slot + q * g.sx,
                         g.x + (vox * g.cin + r.ci0) * g.isz, r.cinw * g.isz,
                         in, g.x);
@@ -789,8 +794,10 @@ long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 }  // namespace
 
 // dW and db of the stride-1 3D conv with an odd kernel k and pad (k - 1) /
-// 2 from x and dy, both (n, e0, e1, e2, C) contiguous of one type (float32
-// or bfloat16), on the device. The geometry is the wrapper's plan
+// 2 along H and W and pd (0 to it) along D from x (n, e0, e1, xd, cin) and
+// dy (n, e0, e1, e2, cout), xd = e2 + 2 ((k - 1) / 2 - pd) (pd 0: a depth
+// slab with its halo rows), both contiguous of one type (float32 or
+// bfloat16), on the device. The geometry is the wrapper's plan
 // (ops/shallow_grad.py::dw_plan, its one copy): the taps a line tl (k^3 or
 // k^2) and a role's tg, the Cout and Cin tiles (s_tile, t_tile; float32 (4,
 // 16), (8, 12), (10, 10) or (16, 8), bfloat16 (16, 16)), units of t1
@@ -805,8 +812,9 @@ long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 // finalize for each launch's roles), allocates nothing.
 extern "C" int ctseg_shallow_dw(const void* x, const void* dy, void* part,
                                 void* dbpart, void* dw, void* db, int n,
-                                int e0, int e1, int e2, int cin, int cout,
-                                int k, int tl, int tg, int s_tile, int t_tile,
+                                int e0, int e1, int e2, int xd, int cin,
+                                int cout, int k, int pd, int tl, int tg,
+                                int s_tile, int t_tile,
                                 int t1, int td, int hs, int hspan, int wspan,
                                 int stages, int sx, int sdy,
                                 int x_words, int slot_words, int groups,
@@ -822,7 +830,9 @@ extern "C" int ctseg_shallow_dw(const void* x, const void* dy, void* part,
                  (s_tile == 10 && t_tile == 10) || (s_tile == 16 && t_tile == 8);
   // k <= 1290 keeps k^3, the taps, inside an int (1290^3 < 2^31).
   if ((dtype != ctseg::kFloat32 && !bf16) || k < 1 || k % 2 == 0 ||
-      k > 1290 || n <= 0 || e0 <= 0 || e1 <= 0 || e2 <= 0 || cin <= 0 ||
+      k > 1290 || pd < 0 || pd > (k - 1) / 2 ||
+      xd != e2 + 2 * ((k - 1) / 2 - pd) || n <= 0 || e0 <= 0 || e1 <= 0 ||
+      e2 <= 0 || cin <= 0 ||
       cout <= 0 || !tiles_ok || !(tl == k * k || tl == k * k * k) ||
       tg < 1 || tg > (bf16 ? kMaxTapsBf16 : kMaxTapsF32) || tg > tl ||
       t1 < 1 || t1 > e1 || td < 1 || td > e2 || hs < 1 || hs > e0 ||
@@ -843,6 +853,8 @@ extern "C" int ctseg_shallow_dw(const void* x, const void* dy, void* part,
   g.cout = cout;
   g.k = k;
   g.p = (k - 1) / 2;
+  g.xd = xd;
+  g.pd = pd;
   g.taps = k * k * k;
   g.tl = tl;
   g.tg = tg;

@@ -4,7 +4,9 @@
 //   dW[ci, co, t] = sum over (n, i) of x[n, i, ci] * dy[n, 2i - 1 + t, co]
 //   db[co]        = sum over dy of dy[..., co]
 // per axis, taps reading outside dy reading zero (torch's out[o] += x[i] *
-// w[t] for o = 2i - 1 + t), dW in torch's (Cin, Cout, *k) layout.
+// w[t] for o = 2i - 1 + t), dW in torch's (Cin, Cout, *k) layout. In 3D dy
+// may hold fewer than 2 x's rows along D (f2: a depth slab's output rows,
+// its x extended by the halo row after it); the rows past f2 read zero.
 //
 // Replaces: the weight-gradient half of `_convt_smallc_bwd` in
 // ctseg_tpu/ops/shallow_grad.py (a jnp custom VJP, not a Pallas kernel: dW
@@ -749,9 +751,10 @@ long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 }  // namespace
 
 // dW and db of the k = 3, s = 2 transposed conv (pad 1, output padding 1)
-// from x (n, e0, e1[, e2], cin) and dy (n, 2 e0, 2 e1[, 2 e2], cout), both
-// channels_last of one type (float32 or bfloat16), on the device; e2 = 1 in
-// 2D. The geometry is the wrapper's plan (ops/shallow_grad.py::dwt_plan,
+// from x (n, e0, e1[, e2], cin) and dy (n, 2 e0, 2 e1[, f2], cout), both
+// channels_last of one type (float32 or bfloat16), on the device; 1 <= f2
+// <= 2 e2 (the rows past f2 read zero), e2 = f2 = 1 in 2D. The geometry is
+// the wrapper's plan (ops/shallow_grad.py::dwt_plan,
 // its one copy): the Cin tiles of a block (n_ct, 1, 2, 4 or 8 of 16), the
 // strip (t1 columns by t2 depths), the groups, the row strides sx and sdy
 // and a buffer's x and total words (words of 4 bytes), the shared memory,
@@ -761,8 +764,8 @@ long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 // nothing.
 extern "C" int ctseg_shallow_dwt(const void* x, const void* dy, void* part,
                                  void* dbpart, void* dw, void* db, int n,
-                                 int e0, int e1, int e2, int cin, int cout,
-                                 int ndim, int n_ct, int t1, int t2,
+                                 int e0, int e1, int e2, int f2, int cin,
+                                 int cout, int ndim, int n_ct, int t1, int t2,
                                  int groups, int sx, int sdy, int x_words,
                                  int stage_words, int smem,
                                  long long part_elems, long long dbpart_elems,
@@ -771,7 +774,8 @@ extern "C" int ctseg_shallow_dwt(const void* x, const void* dy, void* part,
   if (err != cudaSuccess) return err;
   const bool bf16 = dtype == ctseg::kBFloat16;
   if ((dtype != ctseg::kFloat32 && !bf16) || (ndim != 2 && ndim != 3) ||
-      (ndim == 2 && e2 != 1) || n <= 0 || e0 <= 0 || e1 <= 0 || e2 <= 0 ||
+      (ndim == 2 && (e2 != 1 || f2 != 1)) || n <= 0 || e0 <= 0 || e1 <= 0 ||
+      e2 <= 0 || (ndim == 3 && (f2 < 1 || f2 > 2 * e2)) ||
       cin <= 0 || cout <= 0 ||
       (n_ct != 1 && n_ct != 2 && n_ct != 4 && n_ct != 8) || t1 <= 0 ||
       t1 > e1 || t2 <= 0 || t2 > e2 || (t2 < e2 && t1 != 1) || groups <= 0) {
@@ -790,7 +794,7 @@ extern "C" int ctseg_shallow_dwt(const void* x, const void* dy, void* part,
   g.e2 = e2;
   g.f0 = 2 * e0;
   g.f1 = 2 * e1;
-  g.f2 = ndim == 3 ? 2 * e2 : 1;
+  g.f2 = f2;
   g.cin = cin;
   g.cout = cout;
   g.n_ct = n_ct;

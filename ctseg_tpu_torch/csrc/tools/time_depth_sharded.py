@@ -5,12 +5,19 @@ over NCCL. Each layout's first loss is held to one process's on card 0 at
 the same weights, batch and flips (1e-4 relative in float32, the tolerance
 of tests/test_spatial_training.py; one bfloat16 ulp, 2^-7, in bfloat16:
 each rank's convs round another batch), and each rank counts its launches of K1,
-K1b and K1's split form a step.
+K1b, K1's split form and the shallow weight gradients (`shallow`:
+csrc/shallow_dw.cu, `shallow_t`: csrc/shallow_dwt.cu) a step.
 
     python3 ctseg_tpu_torch/csrc/tools/time_depth_sharded.py [--steps 3]
+        [--dtypes float32 bfloat16] [--layouts "data 2 x space 2" ...]
+        [--profile]
 
 Needs 4 cards of one host; prints one line a layout and a JSON
-line of all of them.
+line of all of them. --profile: each rank of a layout also prints one
+step's device time by group of kernels (chip_smoke.py::profile_step,
+torch.profiler) after its timed steps. A copy of it in a `git archive` of
+an earlier commit (unpacked under ctseg_tpu_torch/_build/) times that
+commit's tree.
 """
 
 import argparse
@@ -52,12 +59,15 @@ def _batch():
 
 def _counters():
     from ctseg_tpu_torch.ops import instance_norm as k1
+    from ctseg_tpu_torch.ops import shallow_grad
 
     return {"k1": k1.instance_norm_prelu, "k1b": k1.instance_norm_prelu_bwd,
             "split_fwd_sums": k1.split_fwd_sums,
             "split_fwd_apply": k1.split_fwd_apply,
             "split_bwd_sums": k1.split_bwd_sums,
-            "split_bwd_apply": k1.split_bwd_apply}
+            "split_bwd_apply": k1.split_bwd_apply,
+            "shallow": shallow_grad.shallow_dw,
+            "shallow_t": shallow_grad.shallow_dwt}
 
 
 def _steps(trainer, state, batch, draws, steps):
@@ -80,7 +90,7 @@ def _steps(trainer, state, batch, draws, steps):
     return first, step_ms, launches, torch.cuda.max_memory_allocated() / 2**30
 
 
-def _rank(rank, world, rdzv, dtype, layout, steps, out):
+def _rank(rank, world, rdzv, dtype, layout, steps, out, profile):
     import torch.distributed as dist
     from ctseg_tpu_torch.parallel.mesh import make_spatial_mesh
     from ctseg_tpu_torch.training.config import use_float32_convs
@@ -105,6 +115,12 @@ def _rank(rank, world, rdzv, dtype, layout, steps, out):
                       slice(mesh.data_index * k, (mesh.data_index + 1) * k))
     result = _steps(trainer, state, batch, draws, steps)
     torch.save(result, f"{out}.{rank}")
+    if profile:  # every rank (the collectives need them all)
+        import chip_smoke
+
+        chip_smoke.profile_step(
+            f"rank {rank}", f"{layout} {dtype}",
+            lambda: trainer.train_step(state, batch, draws), steps=1)
     dist.destroy_process_group()
 
 
@@ -118,6 +134,11 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--out", default="chiprun_out/depth_sharded")
+    parser.add_argument("--dtypes", nargs="+", default=["float32",
+                                                        "bfloat16"])
+    parser.add_argument("--layouts", nargs="+", default=list(LAYOUTS),
+                        choices=list(LAYOUTS))
+    parser.add_argument("--profile", action="store_true")
     args = parser.parse_args()
     world = torch.cuda.device_count()
     if world < 4:
@@ -130,7 +151,7 @@ def main():
     out_dir = Path(args.out).resolve()  # file:// wants an absolute path
     out_dir.mkdir(parents=True, exist_ok=True)
     report = {}
-    for dtype in ("float32", "bfloat16"):
+    for dtype in args.dtypes:
         trainer = make_trainer_3d(_config(dtype), "patch", PATCH, "cuda")
         state = trainer.init_state(torch.Generator().manual_seed(0))
         batch, flips = _batch()
@@ -144,12 +165,13 @@ def main():
               flush=True)
         report[f"one card {dtype}"] = {"ms": ms, "peak_gib": peak,
                                        "launches": launches}
-        for layout in LAYOUTS:
+        for layout in args.layouts:
             out = out_dir / f"{dtype}_{layout.replace(' ', '_')}"
             rdzv = out_dir / f"rdzv_{out.name}"
             rdzv.unlink(missing_ok=True)
             mp.start_processes(_rank, args=(world, str(rdzv), dtype, layout,
-                                            args.steps, str(out)),
+                                            args.steps, str(out),
+                                            args.profile),
                                nprocs=world, start_method="spawn")
             ranks = [torch.load(f"{out}.{r}") for r in range(world)]
             loss = ranks[0][0]

@@ -135,11 +135,11 @@ S1_VARIANTS = {
     "unroll 16": [(S1_UNROLL, S1_UNROLL.replace("unroll 8", "unroll 16"))],
     # the rows outside the tensor left as the block's start zeroed them
     "outside rows skipped": [
-        ("    const size_t vox = in ? (plane0 + w) * g.e2 + d : 0;\n",
+        ("    const size_t vox = in ? (plane0 + w) * g.xd + d : 0;\n",
          "    if (static_cast<unsigned>(w) >= static_cast<unsigned>(g.e1) ||\n"
-         "        static_cast<unsigned>(d) >= static_cast<unsigned>(g.e2))\n"
+         "        static_cast<unsigned>(d) >= static_cast<unsigned>(g.xd))\n"
          "      continue;\n"
-         "    const size_t vox = in ? (plane0 + w) * g.e2 + d : 0;\n"),
+         "    const size_t vox = in ? (plane0 + w) * g.xd + d : 0;\n"),
         ("      off = c * g.e2 + j;\n    }\n    copy_row",
          "      off = c * g.e2 + j;\n    }\n    if (!in) continue;\n"
          "    copy_row")],

@@ -19,7 +19,9 @@ leaves them to XLA; its fused conv kernel is 2D only,
 ops/pallas/conv_block.py:91). Where the JAX units route a conv to
 ops/shallow_grad.py (a shallow stride-1 3D conv, a k=3 s=2 transposed conv
 into few channels) and a gradient is taken, the port's units call the
-same forward with the shallow weight gradient, ops/shallow_grad.py.
+same forward with the shallow weight gradient, ops/shallow_grad.py, on a
+depth slab as on the whole volume (the depth gate read on the global
+depth).
 
 Depth sharding: every unit's forward takes `space`, a
 parallel/collectives.py::DepthShard when x is this rank's depth slab of a
@@ -82,13 +84,16 @@ def _nchw(y: torch.Tensor) -> torch.Tensor:
     return y.permute(0, y.ndim - 1, *range(1, y.ndim - 1))
 
 
-def conv(conv: nn.Module, x: torch.Tensor, space=None) -> torch.Tensor:
+def conv(conv: nn.Module, x: torch.Tensor, space=None,
+         fn=None) -> torch.Tensor:
     """`conv(x)` computed in x's dtype, the parameters cast at the call; on
-    a depth slab (`space`) with its halo."""
+    a depth slab (`space`) with its halo. `fn` takes F.conv3d's arguments
+    (default: the library conv of x's rank)."""
+    fn = fn or _CONV_FN[x.ndim]
     w, b = conv.weight.to(x.dtype), conv.bias.to(x.dtype)
     if space is None:
-        return _CONV_FN[x.ndim](x, w, b, conv.stride, conv.padding)
-    return space.conv(_CONV_FN[x.ndim], x, w, b, conv.stride, conv.padding,
+        return fn(x, w, b, conv.stride, conv.padding)
+    return space.conv(fn, x, w, b, conv.stride, conv.padding,
                       conv.kernel_size[-1])
 
 
@@ -143,15 +148,16 @@ class ConvUnit(nn.Module):
     def _conv(self, x: torch.Tensor, space) -> torch.Tensor:
         """The conv; where the JAX unit routes it to conv_smallc (a shallow
         stride-1 3D conv, ops/shallow_grad.py) and a gradient is taken, the
-        same forward with the shallow weight gradient."""
+        same forward with the shallow weight gradient. The depth gate reads
+        the global depth, as the JAX unit sees it on its spatial mesh: a
+        slab's times the slabs."""
         c = self.conv
-        if space is None and smallc_supported(
+        depth = None if x.ndim != 5 else \
+            x.shape[-1] * (1 if space is None else space.n)
+        routed = smallc_supported(
             c.in_channels, c.out_channels, c.stride[0], c.kernel_size[0],
-            ndim=x.ndim - 2, depth=x.shape[-1] if x.ndim == 5 else None,
-        ) and _takes_grad(x, c):
-            return conv_smallc(x, c.weight.to(x.dtype), c.bias.to(x.dtype),
-                               c.stride, c.padding)
-        return conv(c, x, space)
+            ndim=x.ndim - 2, depth=depth) and _takes_grad(x, c)
+        return conv(c, x, space, conv_smallc if routed else None)
 
 
 class ConvTransposeUnit(nn.Module):
@@ -174,13 +180,16 @@ class ConvTransposeUnit(nn.Module):
     def forward(self, x: torch.Tensor, space=None) -> torch.Tensor:
         c = self.conv
         w, b = c.weight.to(x.dtype), c.bias.to(x.dtype)
-        if space is None and smallc_supported(
+        routed = smallc_supported(
             c.in_channels, c.out_channels, c.stride[0], c.kernel_size[0],
-            transpose=True, ndim=x.ndim - 2,
-        ) and _takes_grad(x, c):
-            # The top decoder level's transposed conv: the same forward,
-            # the shallow weight gradient (ops/shallow_grad.py).
+            transpose=True, ndim=x.ndim - 2) and _takes_grad(x, c)
+        # The top decoder level's transposed conv: the same forward, the
+        # shallow weight gradient (ops/shallow_grad.py), on a slab too.
+        if routed and space is None:
             y = conv_transpose_smallc(x, w, b, c.stride[0], c.kernel_size[0])
+        elif routed:
+            y = space.conv_transpose_smallc(conv_transpose_smallc, x, w, b,
+                                            c.stride[0], c.kernel_size[0])
         elif space is None:
             y = _CONV_T_FN[x.ndim](x, w, b, c.stride, c.padding,
                                    c.output_padding)

@@ -83,15 +83,15 @@ SIGNATURES = {
     "ctseg_edt_row_scan": [_P] * 4 + [_L] + [_I] * 6 + [_P],
     # d2, labels, has_site, out, maps, elems, classes, ltype, device, stream
     "ctseg_edt_signed_map": [_P] * 4 + [_L] + [_I] * 4 + [_P],
-    # x, dy, part, dbpart, dw, db, n, e0, e1, e2, cin, cout, k, tl, tg,
-    # s_tile, t_tile, t1, td, hs, hspan, wspan, stages, sx, sdy, x_words,
-    # slot_words, groups, rpl, smem, part_elems, dbpart_elems, dtype,
-    # device, stream
-    "ctseg_shallow_dw": [_P] * 6 + [_I] * 24 + [_L] * 2 + [_I] * 2 + [_P],
-    # x, dy, part, dbpart, dw, db, n, e0, e1, e2, cin, cout, ndim, n_ct, t1,
-    # t2, groups, sx, sdy, x_words, stage_words, smem, part_elems,
+    # x, dy, part, dbpart, dw, db, n, e0, e1, e2, xd, cin, cout, k, pd, tl,
+    # tg, s_tile, t_tile, t1, td, hs, hspan, wspan, stages, sx, sdy,
+    # x_words, slot_words, groups, rpl, smem, part_elems, dbpart_elems,
+    # dtype, device, stream
+    "ctseg_shallow_dw": [_P] * 6 + [_I] * 26 + [_L] * 2 + [_I] * 2 + [_P],
+    # x, dy, part, dbpart, dw, db, n, e0, e1, e2, f2, cin, cout, ndim, n_ct,
+    # t1, t2, groups, sx, sdy, x_words, stage_words, smem, part_elems,
     # dbpart_elems, dtype, device, stream
-    "ctseg_shallow_dwt": [_P] * 6 + [_I] * 16 + [_L] * 2 + [_I] * 2 + [_P],
+    "ctseg_shallow_dwt": [_P] * 6 + [_I] * 17 + [_L] * 2 + [_I] * 2 + [_P],
 }
 
 

@@ -129,17 +129,23 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
 
 # ------------------------------------------------------------ plain versions
 def dw_merged_3d_plain(x: torch.Tensor, dy: torch.Tensor, pad: int,
-                       k: int) -> torch.Tensor:
+                       k: int, pad_d=None) -> torch.Tensor:
     """The 3D stride-1 conv's dW by the merged (D, C) fold, as the JAX
     `_dw_merged_3d`: pad x, fold (D, C) of both operands into one feature
     axis, take the 2D weight gradient M of the merged conv, and read dW off
     its band, dw[kh, kw, kd, ci, co] = sum_q M[kh, kw, (q + kd, ci), (q, co)].
-    x (N, H, W, D, C), dy (N, H, W, D, Co) -> (k, k, k, C, Co) in
-    promote(x.dtype, float32)."""
-    b, h, w, d, c = x.shape
-    co = dy.shape[-1]
+    x (N, H, W, Dx, C), dy (N, H, W, D, Co) -> (k, k, k, C, Co) in
+    promote(x.dtype, float32). x is padded by `pad` along H and W and by
+    `pad_d` (default `pad`) along D, to D + 2 pad rows: on a depth slab x
+    holds its halo rows already (pad_d 0, Dx = D + 2 pad)."""
+    b, h, w, dx, c = x.shape
+    d, co = dy.shape[3], dy.shape[-1]
+    pd = pad if pad_d is None else pad_d
+    if dx + 2 * pd != d + 2 * pad:
+        raise ValueError(f"x of depth {dx} padded by {pd} is no conv input "
+                         f"of dy's depth {d} at pad {pad}")
     acc = _acc_dtype(x.dtype)
-    xp = F.pad(x, (0, 0) + (pad, pad) * 3)
+    xp = F.pad(x, (0, 0, pd, pd) + (pad, pad) * 2)
     xm = xp.reshape(b, h + 2 * pad, w + 2 * pad, (d + 2 * pad) * c)
     dym = dy.reshape(b, h, w, d * co)
     # Only the weight's shape is read (torch.nn.grad.conv2d_weight's way).
@@ -162,16 +168,23 @@ def convt_dw_plain(x: torch.Tensor, dy: torch.Tensor, stride: int,
     conv over dy with x as a stride-dilated kernel and the batch as the
     contracted feature axis, padded (p, k - s - p), whose result arrives in
     flipped tap order and is flipped back. x (N, *S, Ci), dy (N, *(s*S), Co)
-    -> (*k, Ci, Co) in the JAX tap order, in promote(x.dtype, float32)."""
+    -> (*k, Ci, Co) in the JAX tap order, in promote(x.dtype, float32). dy
+    may hold fewer rows along the last spatial axis (a depth slab's output
+    rows, the rest of the extended slab's output not kept): the missing
+    rows are zeros."""
     nd = x.ndim - 2
     p = (k - 1) // 2
     pad_hi = k - stride - p
     if pad_hi < 0:
         raise ValueError(f"unsupported (k, s) = ({k}, {stride})")
+    short = stride * x.shape[nd] - dy.shape[nd]
+    if short < 0 or short >= stride * x.shape[nd]:
+        raise ValueError(f"dy of {dy.shape[nd]} rows from x of "
+                         f"{x.shape[nd]} at stride {stride}")
     acc = _acc_dtype(x.dtype)
     spatial = tuple(range(1, nd + 1))
     # Batch Co, features N; the kernel (Ci, N, *S).
-    lhs = dy.to(acc).permute(nd + 1, 0, *spatial)
+    lhs = F.pad(dy.to(acc), (0, 0, 0, short)).permute(nd + 1, 0, *spatial)
     rhs = x.to(acc).permute(nd + 1, 0, *spatial)
     lhs = F.pad(lhs, (p, pad_hi) * nd)
     out = _CONV_FN[nd + 2](lhs, rhs, dilation=stride)  # (Co, Ci, *k flipped)
@@ -387,21 +400,39 @@ def _dwt_plan(n, spatial, cin, cout, itemsize, strip):
             "dbpart_elems": blocks * 16, "smem_bytes": smem}
 
 
+def _axis_pairs(e_in: int, e_out: int, k: int, transposed: bool,
+                pad: int) -> int:
+    """(input voxel, tap) pairs of one axis whose output voxel lies in
+    [0, e_out): a conv's output o reads input o + t - pad, a transposed
+    conv's (k = 3, s = 2) input i writes output 2i - 1 + t."""
+    if transposed:
+        return sum(max(0, min(e_in, (e_out - t) // 2 + 1) - (2 - t) // 2)
+                   for t in range(3))
+    return sum(max(0, min(e_out, e_in + pad - t) - max(0, pad - t))
+               for t in range(k))
+
+
 def dw_work(n: int, spatial, cin: int, cout: int, transposed: bool,
-            k: int = 3):
+            k: int = 3, out_depth=None):
     """(FLOP, bytes) the weight gradient needs: 2 * Cin * Cout for each
-    (voxel, tap) pair whose taps all fall inside the tensor, plus db's
+    (voxel, tap) pair whose taps all fall inside the tensors, plus db's
     additions; x and dy read once, dW and db written once (4-byte values;
-    scale the bytes for bfloat16)."""
-    pairs = n
+    scale the bytes for bfloat16). `spatial` is x's extents; `out_depth`
+    dy's depth where it is not the conv's own (a depth slab: x holds the
+    halo rows, p on each side of a stride-1 conv's output rows, 1 after a
+    transposed conv's; None: the whole volume)."""
     p = (k - 1) // 2
-    for e in spatial:
-        # conv: the taps of x at o + t - p inside [0, e): k e - p (p + 1)
-        # per axis; transposed (k = 3): dy at 2i - 1 + t inside [0, 2e):
-        # 3e - 1.
-        pairs *= 3 * e - 1 if transposed else k * e - p * (p + 1)
+    out = [2 * e if transposed else e for e in spatial]
+    pads = [p] * len(spatial)
+    if out_depth is not None:
+        out[-1] = out_depth
+        if not transposed:
+            pads[-1] = p - (spatial[-1] - out_depth) // 2
+    pairs = n
+    for e, f, pa in zip(spatial, out, pads):
+        pairs *= _axis_pairs(e, f, k, transposed, pa)
     vox = n * math.prod(spatial)
-    out_vox = vox * (2 ** len(spatial) if transposed else 1)
+    out_vox = n * math.prod(out)
     flop = 2 * pairs * cin * cout + out_vox * cout
     nbytes = 4 * (vox * cin + out_vox * cout
                   + k ** len(spatial) * cin * cout + cout)
@@ -409,7 +440,8 @@ def dw_work(n: int, spatial, cin: int, cout: int, transposed: bool,
 
 
 def shallow_dw_plain(x: torch.Tensor, dy: torch.Tensor, transposed: bool,
-                     kernel_size: int = 3, stride=None, pad=None):
+                     kernel_size: int = 3, stride=None, pad=None,
+                     pad_d=None):
     """`shallow_dw`'s plain version on any device: the JAX formulation
     (`convt_dw_plain` or `dw_merged_3d_plain`) in torch's weight layout and
     x's type, and db summed in float32."""
@@ -419,7 +451,7 @@ def shallow_dw_plain(x: torch.Tensor, dy: torch.Tensor, transposed: bool,
     if transposed:
         dw = convt_dw_plain(xv, dv, s, kernel_size)
     else:
-        dw = dw_merged_3d_plain(xv, dv, p, kernel_size)
+        dw = dw_merged_3d_plain(xv, dv, p, kernel_size, pad_d)
     return _torch_layout(dw, transposed).to(x.dtype), _bias_grad_plain(dv)
 
 
@@ -438,35 +470,46 @@ def _check_pair(x: torch.Tensor, dy: torch.Tensor, cpu_ok: bool = False):
 
 
 def shallow_dw(x: torch.Tensor, dy: torch.Tensor, transposed: bool,
-               kernel_size: int = 3, stride=None, pad=None):
+               kernel_size: int = 3, stride=None, pad=None, pad_d=None):
     """(dW, db) of a routed conv from its input x (N, Cin, *S) and output
     gradient dy (N, Cout, *S'), dW in torch's weight layout and x's type,
     db in dy's. A CPU tensor takes `shallow_dw_plain`; a CUDA tensor
     launches a kernel (every conv `smallc_supported` routes) or raises: the
     k=3, s=2 transposed conv in 2D and 3D csrc/shallow_dwt.cu
     (`shallow_dwt`), the stride-1 3D conv with an odd kernel up to MAX_K
-    and pad (k-1)//2 csrc/shallow_dw.cu, any depth and extents."""
+    and pad (k-1)//2 csrc/shallow_dw.cu, any depth and extents.
+
+    On a depth slab (parallel/collectives.py::DepthShard) x is the slab
+    with its halo rows: the stride-1 conv's x has 2 (pad - pad_d) rows more
+    than dy along D (pad_d, the depth padding, is 0 there and `pad` by
+    default), and the transposed conv's dy may hold fewer than 2 x's rows
+    along D (the slab's own output rows; the rest read as zeros)."""
     nd = x.ndim - 2
     _check_pair(x, dy, cpu_ok=True)
     if x.device.type == "cpu":
-        return shallow_dw_plain(x, dy, transposed, kernel_size, stride, pad)
+        return shallow_dw_plain(x, dy, transposed, kernel_size, stride, pad,
+                                pad_d)
     k = kernel_size
     s = (2 if transposed else 1) if stride is None else stride
     p = (k - 1) // 2 if pad is None else pad
+    pd = p if pad_d is None else pad_d
     if transposed:
-        if (k, s, p) != (3, 2, 1):
+        if (k, s, p, pd) != (3, 2, 1, 1):
             raise ValueError("kernel takes k=3 s=2 pad 1 transposed convs; "
-                             f"got k={k}, stride {s}, pad {p}")
+                             f"got k={k}, stride {s}, pad {p}, depth pad "
+                             f"{pd}")
         return shallow_dwt(x, dy)
     n, cin, *spatial = x.shape
     cout = dy.shape[1]
     if nd != 3 or s != 1 or k % 2 == 0 or k > MAX_K or \
-            p != (k - 1) // 2 or dy.shape[0] != n or \
-            list(dy.shape[2:]) != spatial:
+            p != (k - 1) // 2 or not 0 <= pd <= p or dy.shape[0] != n or \
+            list(dy.shape[2:4]) != spatial[:2] or \
+            dy.shape[4] + 2 * (p - pd) != spatial[2]:
         raise ValueError(
             f"the stride-1 kernel takes 3D convs of odd k up to {MAX_K}, pad "
-            f"(k-1)//2; got k={k}, stride {s}, pad {p}, x {tuple(x.shape)}, "
-            f"dy {tuple(dy.shape)}")
+            f"(k-1)//2, depth pad 0 to it; got k={k}, stride {s}, pad {p}, "
+            f"depth pad {pd}, x {tuple(x.shape)}, dy {tuple(dy.shape)}")
+    spatial = list(dy.shape[2:])  # the plan walks dy's voxels
     plan = dw_plan(n, spatial, cin, cout, x.element_size(), k)
     # dw_plan finds a fitting plan for every k up to MAX_K (one column of 16
     # depths over a line of one kh fits); the C entry checks it again.
@@ -482,7 +525,8 @@ def shallow_dw(x: torch.Tensor, dy: torch.Tensor, transposed: bool,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ctseg_shallow_dw(
         xv.data_ptr(), dv.data_ptr(), part.data_ptr(), dbpart.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), n, *spatial, cin, cout, k,
+        dw.data_ptr(), db.data_ptr(), n, *spatial, x.shape[4], cin, cout, k,
+        pd,
         *(plan[key] for key in _PLAN_ARGS), _DTYPE_CODES[x.dtype],
         x.device.index, stream)
     lib.check(err, "shallow_dw")
@@ -500,14 +544,19 @@ def shallow_dwt(x: torch.Tensor, dy: torch.Tensor):
     """(dW, db) of the k=3, s=2, pad 1, output padding 1 transposed conv from
     x (N, Cin, *S) and dy (N, Cout, *2S) on the card, 2D or 3D, float32 or
     bfloat16, any channel counts: one launch of csrc/shallow_dwt.cu (and
-    its finalize). dW is torch's (Cin, Cout, 3, 3[, 3]) in x's type, db
-    (Cout,). Raises on anything else; there is no other route."""
+    its finalize). In 3D dy may hold 1 to 2 D rows along D (a depth slab's
+    output rows; the rows past them read as zeros). dW is torch's (Cin,
+    Cout, 3, 3[, 3]) in x's type, db (Cout,). Raises on anything else;
+    there is no other route."""
     _check_pair(x, dy)
     nd = x.ndim - 2
     n, cin, *spatial = x.shape
     cout = dy.shape[1]
+    twice = [2 * e for e in spatial]
     if nd not in (2, 3) or dy.ndim != x.ndim or dy.shape[0] != n or \
-            list(dy.shape[2:]) != [2 * e for e in spatial]:
+            list(dy.shape[2:-1]) != twice[:-1] or not (
+                1 <= dy.shape[-1] <= twice[-1] if nd == 3
+                else dy.shape[-1] == twice[-1]):
         raise ValueError("kernel takes a k=3 s=2 transposed conv in 2D or "
                          f"3D; got x {tuple(x.shape)}, dy {tuple(dy.shape)}")
     plan = dwt_plan(n, spatial, cin, cout, x.element_size())
@@ -526,7 +575,8 @@ def shallow_dwt(x: torch.Tensor, dy: torch.Tensor):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ctseg_shallow_dwt(
         xv.data_ptr(), dv.data_ptr(), part.data_ptr(), dbpart.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), n, *e, cin, cout, nd,
+        dw.data_ptr(), db.data_ptr(), n, *e, dy.shape[-1] if nd == 3 else 1,
+        cin, cout, nd,
         *(plan[key] for key in _DWT_PLAN_ARGS), _DTYPE_CODES[x.dtype],
         x.device.index, stream)
     lib.check(err, "shallow_dwt")
@@ -545,7 +595,8 @@ def _tuple(v, nd):
 class ConvSmallC(torch.autograd.Function):
     """F.conv{2,3}d(x, w, b, stride, pad) whose dW and db come from
     `shallow_dw` in 3D (the library's dW in 2D, as the JAX rule keeps
-    XLA's) and dx from cuDNN."""
+    XLA's) and dx from cuDNN. In 3D the depth padding may be less than the
+    H and W padding (a depth slab with its halo rows: pad (p, p, 0))."""
 
     @staticmethod
     def forward(ctx, x, w, b, stride, pad):
@@ -565,10 +616,10 @@ class ConvSmallC(torch.autograd.Function):
                 dy, x, w, None, stride, pad, (1,) * nd, False, (0,) * nd, 1,
                 [need_x, nd == 2 and need_w, False])
         if nd == 3 and (need_w or need_b):
-            if set(stride) != {1} or len(set(pad)) != 1:
+            if set(stride) != {1} or pad[0] != pad[1]:
                 raise ValueError(f"stride {stride}, pad {pad}: not a routed "
                                  "conv")
-            dw, db = shallow_dw(x, dy, False, w.shape[-1], 1, pad[0])
+            dw, db = shallow_dw(x, dy, False, w.shape[-1], 1, pad[0], pad[2])
         elif need_b:
             db = _bias_grad_plain(dy.movedim(1, -1))
         return (dx, dw.to(w.dtype) if need_w else None,
@@ -577,40 +628,52 @@ class ConvSmallC(torch.autograd.Function):
 
 class ConvTransposeSmallC(torch.autograd.Function):
     """F.conv_transpose{2,3}d(x, w, b, stride, (k-1)//2, stride-1) whose dW
-    and db come from `shallow_dw` and dx from cuDNN."""
+    and db come from `shallow_dw` and dx from cuDNN. `depth`: the output
+    rows kept along the last axis (a depth slab's own, its x extended by
+    the halo rows after it), None for all; dy then holds only those, and
+    dW and db are theirs."""
 
     @staticmethod
-    def forward(ctx, x, w, b, stride, kernel_size):
+    def forward(ctx, x, w, b, stride, kernel_size, depth):
         ctx.save_for_backward(x, w)
-        ctx.conf = (stride, kernel_size)
-        return _CONV_T_FN[x.ndim](x, w, b, stride, (kernel_size - 1) // 2,
-                                  stride - 1)
+        y = _CONV_T_FN[x.ndim](x, w, b, stride, (kernel_size - 1) // 2,
+                               stride - 1)
+        ctx.conf = (stride, kernel_size, y.shape[-1])
+        return y if depth is None else y.narrow(y.ndim - 1, 0, depth)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        stride, k = ctx.conf
+        stride, k, full = ctx.conf
         nd = x.ndim - 2
         dx = dw = db = None
         if need_x:
+            # The rows not kept had a zero cotangent.
+            dyf = dy if dy.shape[-1] == full else F.pad(
+                dy, (0, full - dy.shape[-1]))
             dx = torch.ops.aten.convolution_backward(
-                dy, x, w, None, (stride,) * nd, ((k - 1) // 2,) * nd,
-                (1,) * nd, True, (stride - 1,) * nd, 1,
-                [True, False, False])[0]
+                dyf, x, w, None,
+                (stride,) * nd, ((k - 1) // 2,) * nd, (1,) * nd, True,
+                (stride - 1,) * nd, 1, [True, False, False])[0]
         if need_w or need_b:
             dw, db = shallow_dw(x, dy, True, k, stride)
         return (dx, dw.to(w.dtype) if need_w else None,
-                db if need_b else None, None, None)
+                db if need_b else None, None, None, None)
 
 
 def conv_smallc(x, w, b, stride, pad):
     """x (N, Cin, *S), torch weight (Cout, Cin, *k), bias (Cout,): the conv
-    with the shallow weight gradient (stride 1, odd k, pad (k-1)//2)."""
+    with the shallow weight gradient (stride 1, odd k, pad (k-1)//2, or 0
+    along D on a depth slab extended by its halo rows). F.conv3d's
+    arguments, so parallel/collectives.py::DepthShard.conv takes it as its
+    conv."""
     return ConvSmallC.apply(x, w, b, stride, pad)
 
 
-def conv_transpose_smallc(x, w, b, stride, kernel_size):
+def conv_transpose_smallc(x, w, b, stride, kernel_size, depth=None):
     """x (N, Cin, *S), torch weight (Cin, Cout, *k), bias (Cout,): the
-    transposed conv (out = in * stride) with the shallow weight gradient."""
-    return ConvTransposeSmallC.apply(x, w, b, stride, kernel_size)
+    transposed conv (out = in * stride) with the shallow weight gradient;
+    its first `depth` rows along D where given (a depth slab's,
+    parallel/collectives.py::DepthShard.conv_transpose_smallc)."""
+    return ConvTransposeSmallC.apply(x, w, b, stride, kernel_size, depth)

@@ -253,13 +253,33 @@ class DepthShard:
         on the extended slab with the depth padding moved by the left halo,
         and the slab's rows are kept."""
         s, p, m_in = stride[-1], padding[-1], x.shape[-1]
-        first = -(-(p - kernel + 1) // s)  # ceil((p - k + 1) / s)
-        left = max(0, -first)
-        right = max(0, (p - 1) // s + 1)
+        left, right = _transpose_halo(s, p, kernel)
         x = self.halo(x, left, right)
         pad = tuple(padding[:-1]) + (p + left * s,)
         y = fn(x, weight, bias, tuple(stride), pad, tuple(output_padding))
         return y.narrow(y.ndim - 1, 0, m_in * s)
+
+    def conv_transpose_smallc(self, fn, x, weight, bias, stride: int,
+                              kernel: int) -> torch.Tensor:
+        """`conv_transpose` of a transposed conv routed to the shallow
+        weight gradient, `fn` being ops/shallow_grad.py::
+        conv_transpose_smallc (k 3, s 2, pad (k - 1) // 2): the same halo
+        and forward, the slab's m_in*s rows kept by `fn`, so that its
+        backward takes only their cotangent. Its dW and db are this slab's
+        share of the whole volume's."""
+        left, right = _transpose_halo(stride, (kernel - 1) // 2, kernel)
+        if left:
+            raise ValueError(f"k {kernel}, stride {stride}: a left halo, "
+                             "which the routed transposed conv does not take")
+        return fn(self.halo(x, 0, right), weight, bias, stride, kernel,
+                  x.shape[-1] * stride)
+
+
+def _transpose_halo(s: int, p: int, kernel: int):
+    """(left, right): the rows a transposed conv's slab reads from its
+    neighbours (`DepthShard.conv_transpose`)."""
+    first = -(-(p - kernel + 1) // s)  # ceil((p - k + 1) / s)
+    return max(0, -first), max(0, (p - 1) // s + 1)
 
 
 def depth_shard(mesh, min_depth: int = 2) -> Optional[DepthShard]:

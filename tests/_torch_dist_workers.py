@@ -14,6 +14,7 @@ This module imports torch and the port only, never jax: the spawned ranks
 import it. The pytest process compares their files with the JAX package.
 """
 
+import contextlib
 import datetime
 import json
 import traceback
@@ -282,10 +283,32 @@ def dp_fit(rank, world, tmp, config, split, epochs):
             "val_dice": val["val/dice/mean"], **_state(state.model)}
 
 
+@contextlib.contextmanager
+def routed_calls():
+    """Counts, while the block runs, the calls of ops/shallow_grad.py::
+    shallow_dw, the weight gradient of every routed conv (on the CPU its
+    plain version), by map: {"stride1": n, "transposed": n}."""
+    from ctseg_tpu_torch.ops import shallow_grad as sg
+
+    counts = {"stride1": 0, "transposed": 0}
+    real = sg.shallow_dw
+
+    def counted(x, dy, transposed, *args):
+        counts["transposed" if transposed else "stride1"] += 1
+        return real(x, dy, transposed, *args)
+
+    sg.shallow_dw = counted
+    try:
+        yield counts
+    finally:
+        sg.shallow_dw = real
+
+
 def spatial_model(rank, world, tmp, model_file, inputs, n_data):
     """The depth-sharded UNet on an (n_data x world/n_data) mesh: forward
-    of each rank's rows and slab, and the parameter gradients of
-    sum(out^2) / numel summed over the ranks."""
+    of each rank's rows and slab, the parameter gradients of
+    sum(out^2) / numel summed over the ranks, and this rank's routed
+    weight-gradient calls (`routed_calls`)."""
     from ctseg_tpu_torch.models.unet import SegmentationModel
     from ctseg_tpu_torch.parallel.distributed import sum_gradients
     from ctseg_tpu_torch.parallel.mesh import (
@@ -301,18 +324,22 @@ def spatial_model(rank, world, tmp, model_file, inputs, n_data):
     model.unet.spatial_mesh = mesh
     x = torch.from_numpy(np.load(tmp / inputs))
     xs = depth_slab(mesh, batch_sharding(mesh, x))
-    out = model(xs)
-    loss = (out * out).sum() / (x.shape[0] * out.shape[1] * x[0, 0].numel())
-    loss.backward()
+    with routed_calls() as routed:
+        out = model(xs)
+        loss = (out * out).sum() / (x.shape[0] * out.shape[1]
+                                    * x[0, 0].numel())
+        loss.backward()
     sum_gradients(model.parameters(), mesh.world)
     return {"out": out.detach(), "data_index": mesh.data_index,
             "space_index": mesh.space_index,
+            **{f"routed/{k}": v for k, v in routed.items()},
             **{f"grad/{k}": p.grad for k, p in model.named_parameters()}}
 
 
 def spatial_step(rank, world, tmp, config, model_file, inputs, n_data):
     """One patch-mode train step of make_trainer_3d on an (n_data x
-    world/n_data) mesh from the given weights, flips and batch."""
+    world/n_data) mesh from the given weights, flips and batch, with this
+    rank's routed weight-gradient calls in it (`routed_calls`)."""
     from ctseg_tpu_torch.parallel.mesh import make_spatial_mesh
     from ctseg_tpu_torch.training.config import TrainConfig
     from ctseg_tpu_torch.training.trainer import take_rows
@@ -332,8 +359,10 @@ def spatial_step(rank, world, tmp, config, model_file, inputs, n_data):
     rows = slice(mesh.data_index * n, (mesh.data_index + 1) * n)
     draws = take_rows(FlipDraws(torch.from_numpy(data["flip_h"]),
                                 torch.from_numpy(data["flip_w"])), rows)
-    state, m = tr.train_step(state, batch, draws)
-    out = {**{k: float(v) for k, v in m.items()}, **_state(state.model)}
+    with routed_calls() as routed:
+        state, m = tr.train_step(state, batch, draws)
+    out = {**{k: float(v) for k, v in m.items()}, **_state(state.model),
+           **{f"routed/{k}": v for k, v in routed.items()}}
     row_valid = torch.arange(data["images"].shape[0]) < 1  # one padded row
     metrics, n_valid = tr.eval_step(state.model, batch + (
         row_valid[rows],), draws)

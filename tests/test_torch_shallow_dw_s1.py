@@ -284,11 +284,13 @@ def test_the_main_site_plan_stages_each_plane_once_for_all_taps():
 def emulate_dw(x, dy, plan, bf16=False):
     """csrc/shallow_dw.cu's walk in numpy float64. x (n, *S, cin), dy (n,
     *S, cout) -> dW in torch's (cout, cin, k, k, k) layout, db. Each output
-    is written once."""
-    n, e0, e1, e2, cin = x.shape
-    cout = dy.shape[-1]
+    is written once. x may hold 2 (p - pd) more rows than dy along D (a
+    depth slab with its halo rows: the depth padding pd 0)."""
+    n, e0, e1, xd, cin = x.shape
+    e2, cout = dy.shape[3], dy.shape[-1]
     k = plan["k"]
     p, taps = (k - 1) // 2, k ** 3
+    pd = p - (xd - e2) // 2
     tl, tg, tt, st = plan["tl"], plan["tg"], plan["t_tile"], plan["s_tile"]
     gpl = -(-tl // tg)
     n_ct, n_cot = -(-cin // tt), -(-cout // st)
@@ -339,7 +341,7 @@ def emulate_dw(x, dy, plan, bf16=False):
                 t1c, tdc = min(t1, e1 - w0), min(td, e2 - d0)
                 nq = t1c * td
                 n_items = min(hs, e0 - h_lo) + lag
-                wb, dbase = w0 - p + kw0, d0 - p
+                wb, dbase = w0 - p + kw0, d0 - pd
                 v = np.arange(nq)
                 vrow = (v // td) * dpx + v % td  # x row at the first tap
                 for i in range(n_items):
@@ -350,7 +352,7 @@ def emulate_dw(x, dy, plan, bf16=False):
                             wi, di = wb + c, dbase + j
                             ring_x[s, c * dpx + j] = 0.0
                             if 0 <= m < e0 and 0 <= wi < e1 and \
-                                    0 <= di < e2:
+                                    0 <= di < xd:
                                 ring_x[s, c * dpx + j, :cinw] = \
                                     x[nn, m, wi, di, ci0:ci0 + cinw]
                     if i >= lag:

@@ -10,7 +10,10 @@ gloo, against the unsharded port and the JAX package's spatial mesh.
     4, 2, then the levels of depth 4, 2 and 1 gathered): the forward and
     every parameter gradient of mean(out^2) within 1e-10 of the unsharded
     port model and of the JAX SegmentationModel on make_spatial_mesh(2, 4),
-    as tests/test_spatial_training.py holds the JAX one.
+    as tests/test_spatial_training.py holds the JAX one. Its 10-channel
+    and narrow levels route their convs' weight gradients to
+    ops/shallow_grad.py::shallow_dw on the slabs as on the whole volume:
+    every rank calls it as often as the unsharded port, for both maps.
   - One patch-mode train step on 2 data x 2 space ranks (float32,
     Focal+Dice, exclude_missing) within that file's tolerances of the JAX
     spatial Trainer (loss 1e-4 relative; parameters rtol 1e-2, atol 2.5e-3:
@@ -18,7 +21,8 @@ gloo, against the unsharded port and the JAX package's spatial mesh.
     sign of near-zero gradients); the same step in float64 with
     CrossEntropy, GeneralizedDice and Boundary (distance maps from the
     gathered labels) within 1e-9 of the unsharded port, and its padded
-    evaluation step too.
+    evaluation step too. Each rank's step calls the routed weight
+    gradients as often as the unsharded port's step.
 """
 
 import jax
@@ -157,8 +161,10 @@ def test_depth_sharded_model_matches_the_unsharded_and_jax(world4):
 
     model = world4["model"]
     x = torch.from_numpy(np.moveaxis(_x(), -1, 1))
-    ref = model(x)
-    (ref * ref).mean().backward()
+    with workers.routed_calls() as routed:
+        ref = model(x)
+        (ref * ref).mean().backward()
+    _assert_routed_as(ranks, routed)
     np.testing.assert_allclose(out, ref.detach().numpy(), rtol=0, atol=1e-10)
     for k, p in model.named_parameters():
         np.testing.assert_allclose(grads[k], p.grad.numpy(), rtol=0,
@@ -190,6 +196,14 @@ def test_depth_sharded_model_matches_the_unsharded_and_jax(world4):
                                    err_msg=k)
 
 
+def _assert_routed_as(ranks, routed):
+    """Every rank called the routed weight gradients as often as the
+    unsharded port, for both maps, at least once each."""
+    assert min(routed.values()) > 0, routed
+    for r in ranks:
+        assert {k: int(r[f"routed/{k}"]) for k in routed} == routed
+
+
 def _port_step(name, tmp):
     (args, _), = [STEPS[name]]
     cfg = TrainConfig.from_dict(_step_config(*args).as_dict())
@@ -208,6 +222,9 @@ def test_depth_sharded_step_matches_the_jax_spatial_trainer(world4):
     ranks = workers.ranks(world4["results"], "step32")
     tr, state, batch, draws = _port_step("step32", tmp)
     images, labels = tr.train_transform(batch[0], batch[1], draws)
+    with workers.routed_calls() as routed:
+        tr.train_step(tr.init_state(), batch, draws)
+    _assert_routed_as(ranks, routed)
     jcfg = _step_config(*STEPS["step32"][0])
     ident = lambda key, img, lab: (img, lab)  # noqa: E731
     jtr = JaxTrainer(jcfg, mesh=jax_make_spatial_mesh(2, 2),
@@ -239,7 +256,9 @@ def test_depth_sharded_step_and_eval_match_the_unsharded_port(world4):
     ranks = workers.ranks(world4["results"], "step64")
     tr, state, batch, draws = _port_step("step64", tmp)
     state.model.load_state_dict(torch.load(tmp / "step64.pt"))
-    state, m = tr.train_step(state, batch, draws)
+    with workers.routed_calls() as routed:
+        state, m = tr.train_step(state, batch, draws)
+    _assert_routed_as(ranks, routed)
     row_valid = torch.arange(2) < 1
     metrics, n_valid = tr.eval_step(state.model, batch + (row_valid,), draws)
     for r in ranks:
