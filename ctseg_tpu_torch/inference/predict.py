@@ -13,7 +13,9 @@ native in-plane size. A 3D checkpoint (its config's `spatial_dims`) runs
 native-resolution sliding-window inference with Gaussian blending
 (inference/sliding_window.py). With crop (the default) prediction happens
 inside the anatomical head-and-neck box and is pasted into a background
-volume.
+volume. Under a profiler a scan is the span `ctseg.scan`, its parts
+`ctseg.scan.crop`, `.cast`, `.h2d`, `.forward`, `.store` (holding the wait
+`ctseg.sync`) and `.paste` (utils/profiling.py).
 
 Usage:
   python -m ctseg_tpu_torch.inference.predict --checkpoint model.ckpt \\
@@ -47,6 +49,7 @@ from ctseg_tpu_torch.training.config import (
 from ctseg_tpu_torch.transforms.pipelines import TransformFn, get_transform
 from ctseg_tpu_torch.utils import nrrd_io
 from ctseg_tpu_torch.utils.miccai import CropBox, Volume
+from ctseg_tpu_torch.utils.profiling import span, to_host
 
 
 def slice_labels(
@@ -87,13 +90,19 @@ def predict_labels_2d(
     (eager PyTorch keeps no per-shape program cache).
     """
     d, h, w = volume.shape
-    out = np.zeros((d, h, w), np.uint8)
+    with span("ctseg.scan.crop"):
+        out = np.zeros((d, h, w), np.uint8)
     with torch.inference_mode():
         for lo in range(0, d, batch_size):
-            chunk = np.asarray(volume[lo : lo + batch_size], np.float32)
-            slices = torch.from_numpy(chunk).to(device)
-            labels = slice_labels(model, transform, slices, dtype)
-            out[lo : lo + batch_size] = labels.cpu().numpy()
+            with span("ctseg.scan.cast"):
+                chunk = np.asarray(volume[lo : lo + batch_size], np.float32)
+            with span("ctseg.scan.h2d"):
+                slices = torch.from_numpy(chunk).to(device)
+            with span("ctseg.scan.forward"):
+                labels = slice_labels(model, transform, slices, dtype)
+            # The host copy lives only for the store, as it always has.
+            with span("ctseg.scan.store"):
+                out[lo : lo + batch_size] = to_host(labels).numpy()
     return out
 
 
@@ -117,7 +126,7 @@ def predict_labels_3d(
     image = volume_to_device(volume, patch_size, AIR_HU, device)
     labels = volume_labels(model, image, patch_size, overlap, batch_size,
                            window=config.volumetric_mode == "patch")
-    return labels[:h, :w, :d].movedim(-1, 0).to(torch.uint8).cpu().numpy()
+    return to_host(labels[:h, :w, :d].movedim(-1, 0).to(torch.uint8)).numpy()
 
 
 def predict_scan(
@@ -134,24 +143,28 @@ def predict_scan(
     `batch_size` counts a 2D model's slices; a 3D model takes windows of
     `patch_size` with `overlap`, 4 at a time."""
     data = volume.as_numpy()[0]  # (D, H, W)
-    box = CropBox.anatomical(data.shape[0]) if crop else None
-    region = box.apply(data[None])[0] if box else data
+    with span("ctseg.scan", {"depth": data.shape[0]}):
+        with span("ctseg.scan.crop"):
+            box = CropBox.anatomical(data.shape[0]) if crop else None
+            region = box.apply(data[None])[0] if box else data
 
-    if config.spatial_dims == 3:
-        labels = predict_labels_3d(model, config, region, device,
-                                   patch_size=patch_size, overlap=overlap)
-    else:
-        transform = get_transform(
-            config.transform_degree, train=False,
-            size=(config.input_size,) * 2
-        )
-        labels = predict_labels_2d(model, transform, region, device,
-                                   batch_size, dtype=model_dtype(config))
-    if box is None:
-        return labels
-    full = np.zeros(data.shape, np.uint8)
-    full[box.z[0] : box.z[1], box.x[0] : box.x[1], box.y[0] : box.y[1]] = labels
-    return full
+        if config.spatial_dims == 3:
+            labels = predict_labels_3d(model, config, region, device,
+                                       patch_size=patch_size, overlap=overlap)
+        else:
+            transform = get_transform(
+                config.transform_degree, train=False,
+                size=(config.input_size,) * 2
+            )
+            labels = predict_labels_2d(model, transform, region, device,
+                                       batch_size, dtype=model_dtype(config))
+        if box is None:
+            return labels
+        with span("ctseg.scan.paste"):
+            full = np.zeros(data.shape, np.uint8)
+            full[box.z[0] : box.z[1], box.x[0] : box.x[1],
+                 box.y[0] : box.y[1]] = labels
+        return full
 
 
 def write_artifacts(

@@ -22,7 +22,9 @@ seeded 0 (the same distribution; RNG streams are not compared).
 
 Eager PyTorch, one device a process. A step never waits for the device:
 metrics stay device tensors until the one stacked fetch at the end of an
-epoch. Losses and metrics run in float32 under bfloat16 compute (float64
+epoch (`ctseg.sync`). Under a profiler the step is the span `ctseg.step`,
+its phases `ctseg.step.transform`, `.forward`, `.loss`, `.optimizer`,
+`.backward`, `.allreduce` (on a mesh) and `.dice` (utils/profiling.py). Losses and metrics run in float32 under bfloat16 compute (float64
 under float64), as in the JAX trainer.
 
 Under a mesh (parallel/mesh.py; `mesh=`) each rank trains on its rows of
@@ -93,6 +95,7 @@ from ctseg_tpu_torch.training.schedule import (
 )
 from ctseg_tpu_torch.transforms.pipelines import get_transform
 from ctseg_tpu_torch.transforms.volumetric import volumetric_transform
+from ctseg_tpu_torch.utils.profiling import span, to_host
 
 
 @dataclasses.dataclass
@@ -309,48 +312,67 @@ class Trainer:
         from `generator` unless given. Updates `state` in place and returns
         it. On a mesh `batch` and `draws` are this rank's rows (and depth
         slab), and `mixup_draws` are the global batch's."""
+        with span("ctseg.step", {"step": state.step}):
+            return self._train_step(state, batch, draws, generator,
+                                    mixup_draws)
+
+    def _train_step(self, state, batch, draws, generator, mixup_draws):
         images_raw, labels_raw, indicators = batch
-        if draws is None:
-            draws = self.draw(generator, images_raw)
-        images, labels = self.train_transform(images_raw, labels_raw, draws)
+        with span("ctseg.step.transform"):
+            if draws is None:
+                draws = self.draw(generator, images_raw)
+            images, labels = self.train_transform(images_raw, labels_raw,
+                                                  draws)
 
         model = state.model.train()
         set_lr(state.optimizer, state.plateau.lr)
         if self.config.mixup:
-            if mixup_draws is None:
-                mixup_draws = draw_mixup(
-                    generator, mixup_probability(labels, self.batch),
-                    self.config.mixup_alpha)
-            index, lam = mixup_draws
-            lam = lam.to(self._metric_dtype)  # a device scalar: no wait
-            images = images.to(self._metric_dtype)
-            images_b, labels_b, indicators_b = take_partners(
-                index, self.batch, images, labels, indicators)
-            logits = self._logits(model, mixup_tensors(images, images_b, lam))
-            # The maps come from the unmixed labels, once; the partner's
-            # are a gather (reference mixup_trainer.py:94-128). On a mesh a
-            # partner may live on another rank: its maps are made here from
-            # its labels (per sample, so the same maps).
-            dist_maps = self._dist_maps(labels)
-            values_a = self.loss(logits, labels, indicators, dist_maps)
-            dist_b = None
-            if dist_maps is not None:
-                dist_b = (dist_maps[index] if self.mesh is None
-                          else self._dist_maps(labels_b))
-            values_b = self.loss(logits, labels_b, indicators_b, dist_b)
-            values = {name: mixup_tensors(values_a[name], values_b[name], lam)
-                      for name in values_a}
+            with span("ctseg.step.forward"):
+                if mixup_draws is None:
+                    mixup_draws = draw_mixup(
+                        generator, mixup_probability(labels, self.batch),
+                        self.config.mixup_alpha)
+                index, lam = mixup_draws
+                lam = lam.to(self._metric_dtype)  # a device scalar: no wait
+                images = images.to(self._metric_dtype)
+                images_b, labels_b, indicators_b = take_partners(
+                    index, self.batch, images, labels, indicators)
+                logits = self._logits(model,
+                                      mixup_tensors(images, images_b, lam))
+            with span("ctseg.step.loss"):
+                # The maps come from the unmixed labels, once; the
+                # partner's are a gather (reference mixup_trainer.py:94-128).
+                # On a mesh a partner may live on another rank: its maps are
+                # made here from its labels (per sample, so the same maps).
+                dist_maps = self._dist_maps(labels)
+                values_a = self.loss(logits, labels, indicators, dist_maps)
+                dist_b = None
+                if dist_maps is not None:
+                    dist_b = (dist_maps[index] if self.mesh is None
+                              else self._dist_maps(labels_b))
+                values_b = self.loss(logits, labels_b, indicators_b, dist_b)
+                values = {name: mixup_tensors(values_a[name], values_b[name],
+                                              lam)
+                          for name in values_a}
+                total = self.loss.total(values)
         else:
-            values, logits = self._losses_and_logits(model, images, labels,
-                                                     indicators)
-        total = self.loss.total(values)
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
+            with span("ctseg.step.forward"):
+                logits = self._logits(model, images)
+            with span("ctseg.step.loss"):
+                values = self.loss(logits, labels, indicators,
+                                   self._dist_maps(labels))
+                total = self.loss.total(values)
+        with span("ctseg.step.optimizer"):
+            state.optimizer.zero_grad(set_to_none=True)
+        with span("ctseg.step.backward"):
+            total.backward()
         if self.mesh is not None:
-            sum_gradients(model.parameters(), self.mesh.world)
-        state.optimizer.step()
+            with span("ctseg.step.allreduce"):
+                sum_gradients(model.parameters(), self.mesh.world)
+        with span("ctseg.step.optimizer"):
+            state.optimizer.step()
 
-        with torch.no_grad():
+        with span("ctseg.step.dice"), torch.no_grad():
             dice_mean, dice_per_class = self.dice(
                 self._predictions(logits.detach(), indicators), labels
             )
@@ -361,7 +383,10 @@ class Trainer:
                 )
                 dice_mean = mixup_tensors(dice_mean, mean_b, lam)
                 dice_per_class = mixup_tensors(dice_per_class, per_class_b, lam)
-        losses = self._global({**values, "total": total})
+        losses = {**values, "total": total}
+        if self.mesh is not None:
+            with span("ctseg.step.allreduce"):
+                losses = self._global(losses)
         metrics = {f"loss/{k}": v.detach() for k, v in losses.items()}
         metrics["dice/mean"] = dice_mean
         for s, v in zip(STRUCTURES, dice_per_class):
@@ -401,7 +426,7 @@ class Trainer:
         out = {k: float(v) for k, v in values.items() if not torch.is_tensor(v)}
         if names:
             fetched = torch.stack([values[k].double() for k in names])
-            out.update(zip(names, fetched.cpu().tolist()))
+            out.update(zip(names, to_host(fetched).tolist()))
         return out
 
     def train_epoch(self, state: TrainState, pipeline,
@@ -539,7 +564,7 @@ class Trainer:
         if self.mesh is None:
             return flag
         t = torch.tensor([int(flag)], device=self.device)
-        return bool(all_sum(t, self.mesh.world).item())
+        return bool(to_host(all_sum(t, self.mesh.world)).item())
 
     # ------------------------------------------------------------ checkpoints
     def save(self, path, state: TrainState) -> None:

@@ -3,18 +3,22 @@
   - `trace(log_dir)`: context manager around torch.profiler (host and, on a
     card, CUDA activity) writing a Chrome trace (`trace.json`, for
     chrome://tracing or ui.perfetto.dev) into `log_dir`;
-  - `StepTimer`: rolling per-step wall-time statistics whose `stop` waits
-    for the device on a CUDA event;
+  - `span(name, args)`: the port's own named range in that trace (every
+    name starts with `ctseg.`), recorded only while a profiler records;
+  - `to_host(t)`: `t.cpu()` inside the span `ctseg.sync`, the one place
+    where the port means to wait for the device;
   - `debug_mode()`: autograd anomaly detection (NaN in a backward raises,
     with the forward's traceback) plus a check that every module's forward
     output is finite.
 """
 
 import contextlib
-import time
 from pathlib import Path
+from typing import Dict, Optional
 
 import torch
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -28,7 +32,8 @@ def trace(log_dir: str = "profile"):
         activities.append(ProfilerActivity.CUDA)
     out = Path(log_dir)
     out.mkdir(parents=True, exist_ok=True)
-    prof = profile(activities=activities)
+    # Shapes on: the spans' args reach the trace only with them.
+    prof = profile(activities=activities, record_shapes=True)
     prof.start()
     try:
         yield prof
@@ -37,40 +42,24 @@ def trace(log_dir: str = "profile"):
         prof.export_chrome_trace(str(out / "trace.json"))
 
 
-class StepTimer:
-    """Rolling wall-time statistics of steps.
+def span(name: str, args: Optional[Dict] = None):
+    """A context naming the code it wraps `name` in the profiler's trace,
+    on the clock of the device's kernels, its parent the span open around
+    it; `args` (a dict of ints and strings: the step, the scan's depth)
+    appear beside it where the profiler records shapes. With no profiler
+    recording it is one shared no-op context.
 
-    `stop(sync_value)` first waits until the work that produced
-    `sync_value` (a tensor from the step's output) is done: on a CUDA
-    tensor it records an event on the current stream and synchronises on
-    it; a CPU tensor is ready when the step returns.
-    """
+    torch's fast record, not `record_function`: that one drops its string
+    of args from the trace, and costs about 10 us a span when on."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name, (), args or {})
 
-    def __init__(self, window: int = 50):
-        self.window = window
-        self.times = []
-        self._last = None
 
-    def start(self) -> None:
-        self._last = time.perf_counter()
-
-    def stop(self, sync_value=None) -> float:
-        if torch.is_tensor(sync_value) and sync_value.is_cuda:
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(sync_value.device))
-            done.synchronize()
-        dt = time.perf_counter() - self._last
-        self.times.append(dt)
-        if len(self.times) > self.window:
-            self.times.pop(0)
-        return dt
-
-    @property
-    def mean(self) -> float:
-        return sum(self.times) / max(len(self.times), 1)
-
-    def throughput(self, items_per_step: int) -> float:
-        return items_per_step / self.mean if self.times else 0.0
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """`t` copied to the host: a wait for the device, named `ctseg.sync`."""
+    with span("ctseg.sync"):
+        return t.cpu()
 
 
 class NonFiniteError(FloatingPointError):

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from ctseg_tpu_torch.data.datasets import PackedDataset3D
 from ctseg_tpu_torch.data.pipeline import DevicePipeline2D, shard_rows
+from ctseg_tpu_torch.utils import profiling
 
 RESIZE_SHAPE = (256, 256, 96)  # (H, W, D), the reference's volumetric grid
 
@@ -158,12 +159,13 @@ class PatchPipeline3D:
         def span(start, n):
             return start.long()[:, None] + torch.arange(n, device=self.device)
 
-        v = draws.volume.long()
-        idx = (v[:, None, None, None],
-               span(draws.top, ph)[:, :, None, None],
-               span(draws.left, pw)[:, None, :, None],
-               span(draws.front, pd)[:, None, None, :])
-        return self.images[idx], self.labels[idx], self.indicators[v]
+        with profiling.span("ctseg.patch.gather"):
+            v = draws.volume.long()
+            idx = (v[:, None, None, None],
+                   span(draws.top, ph)[:, :, None, None],
+                   span(draws.left, pw)[:, None, :, None],
+                   span(draws.front, pd)[:, None, None, :])
+            return self.images[idx], self.labels[idx], self.indicators[v]
 
     def epoch(self, generator: Optional[torch.Generator] = None,
               steps: Optional[int] = None,

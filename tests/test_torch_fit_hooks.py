@@ -19,8 +19,9 @@ defaults, against the JAX package where it has a counterpart.
   - fit calls each callback once an epoch, after the epoch's save.
   - ExamplesLoggingCallback's panels equal the JAX callback's for the same
     weights (float64 models; images through float32 transforms, 1e-5).
-  - profiling.trace writes a Chrome trace on the CPU; StepTimer and
-    debug_mode run there.
+  - profiling.trace writes a Chrome trace on the CPU, with the port's spans
+    and their args in it; a span is a shared no-op with no profiler;
+    debug_mode runs there.
   - The train CLI defaults to degree 0 and a 1-channel model, saves every
     --checkpoint_every epochs, writes the panels and, with --profile, a
     trace; train_mixup takes --transform_degree as train does.
@@ -284,18 +285,22 @@ def test_examples_panels_equal_the_jax_callbacks(tmp_path):
 
 # --------------------------------------------------------------- profiling
 def test_profiling_runs_on_the_cpu(tmp_path):
+    # no profiler: one shared no-op context, whatever the name
+    assert profiling.span("ctseg.a", {"step": 1}) is profiling.span("ctseg.b")
     with profiling.trace(str(tmp_path / "profile")) as prof:
-        x = torch.ones(64, 64)
-        (x @ x).sum()
+        with profiling.span("ctseg.step", {"step": 7}):
+            x = torch.ones(64, 64)
+            profiling.to_host((x @ x).sum())
     trace = json.loads((tmp_path / "profile" / "trace.json").read_text())
     assert trace["traceEvents"]
     assert any("mm" in e.key for e in prof.key_averages())
-
-    timer = profiling.StepTimer(window=2)
-    for _ in range(3):
-        timer.start()
-        timer.stop(torch.ones(2).sum())
-    assert len(timer.times) == 2 and timer.throughput(8) > 0
+    named = {e["name"]: e for e in trace["traceEvents"]
+             if e.get("name", "").startswith("ctseg.")}
+    assert set(named) == {"ctseg.step", "ctseg.sync"}
+    assert named["ctseg.step"]["args"]["step"] == 7
+    step, sync = named["ctseg.step"], named["ctseg.sync"]
+    assert step["ts"] <= sync["ts"] and \
+        sync["ts"] + sync["dur"] <= step["ts"] + step["dur"]
 
     model = torch.nn.Linear(2, 2)
     with profiling.debug_mode():
