@@ -13,15 +13,24 @@ native in-plane size. A 3D checkpoint (its config's `spatial_dims`) runs
 native-resolution sliding-window inference with Gaussian blending
 (inference/sliding_window.py). With crop (the default) prediction happens
 inside the anatomical head-and-neck box and is pasted into a background
-volume. Under a profiler a scan is the span `ctseg.scan`, its parts
-`ctseg.scan.crop`, `.cast`, `.h2d`, `.forward`, `.store` (holding the wait
-`ctseg.sync`) and `.paste` (utils/profiling.py).
+volume.
+
+A 2D scan is pipelined with the device: each batch of slices is staged in
+the scan's own dtype in a host buffer (page-locked on a CUDA device, kept
+from scan to scan by `ScanBuffers`), copied to the device without waiting,
+cast to float32 there and segmented; once every batch is launched the host
+makes the fresh output map, then waits once for the whole scan's labels.
+Under a profiler a scan is the span `ctseg.scan`, its parts
+`ctseg.scan.crop` (the box; the output map), per batch `.cast` (its
+staging), `.h2d` (its copy in and cast) and `.forward`, then `.store` (the
+one wait `ctseg.sync` and the copy out) and `.paste` (utils/profiling.py).
 
 Usage:
   python -m ctseg_tpu_torch.inference.predict --checkpoint model.ckpt \\
       --input <patient dir or img.nrrd or split dir> --out predictions/
 """
 
+import math
 from argparse import ArgumentParser
 from pathlib import Path
 from typing import Optional, Tuple
@@ -75,6 +84,82 @@ def slice_labels(
     return full.to(torch.uint8)
 
 
+# Scan dtypes staged as they are: float32 holds each of their values
+# exactly, so the cast on the device gives numpy's float32 cast bit for bit.
+# Any other dtype (or byte order) is cast to float32 on the host as it is
+# staged.
+_STAGED = {np.dtype(t): getattr(torch, t)
+           for t in ("int8", "uint8", "int16", "float16", "float32")}
+
+
+class ScanBuffers:
+    """Host buffers of the 2D scan path, kept from scan to scan: the
+    region's slices on their way to the device, in the scan's own dtype,
+    and the box's labels on their way back. Page-locked when the device is
+    CUDA, so both copies run without a bounce through pageable memory; each
+    grows to the largest scan seen.
+
+    One scan at a time may use them. Reuse is safe because every scan ends
+    in one blocking copy of its labels to the host on the stream that
+    copied its slices in (`to_host`): when the next scan fills a buffer, no
+    copy of the last one still reads or writes it."""
+
+    def __init__(self, device):
+        self.pinned = torch.device(device).type == "cuda"
+        self._held = {}
+
+    def take(self, role: str, shape, dtype: torch.dtype) -> torch.Tensor:
+        """A host tensor of `shape` and `dtype` for `role`, its contents
+        left from the last scan."""
+        n = math.prod(shape)
+        held = self._held.get((role, dtype))
+        if held is None or held.numel() < n:
+            held = torch.empty(n, dtype=dtype, pin_memory=self.pinned)
+            self._held[(role, dtype)] = held
+        return held[:n].view(tuple(shape))
+
+
+def _labels_2d(model, transform, region, device, batch_size, dtype,
+               buffers: ScanBuffers, shape, box: Optional[CropBox]):
+    """The fresh (D, H, W) uint8 map of `shape` holding the labels of the
+    raw HU `region`, which `box` cut from it (None: the region is the map).
+
+    Every batch is staged in `buffers`, copied in (without a wait on a CUDA
+    device), cast to float32 on the device and segmented into one device
+    map before the host waits, once, for that map."""
+    device = torch.device(device)
+    d, h, w = region.shape
+    staged = buffers.take("slices", region.shape,
+                          _STAGED.get(region.dtype, torch.float32))
+    host = staged.numpy()
+    non_blocking = device.type == "cuda"
+    with torch.inference_mode():
+        labels = torch.empty((d, h, w), dtype=torch.uint8, device=device)
+        for lo in range(0, d, batch_size):
+            hi = min(lo + batch_size, d)
+            with span("ctseg.scan.cast"):
+                np.copyto(host[lo:hi], region[lo:hi], casting="unsafe")
+            with span("ctseg.scan.h2d"):
+                slices = staged[lo:hi].to(device, non_blocking=non_blocking)
+                slices = slices.to(torch.float32)
+            with span("ctseg.scan.forward"):
+                labels[lo:hi] = slice_labels(model, transform, slices, dtype)
+    # While the device runs: the fresh map, its pages faulted in.
+    with span("ctseg.scan.crop"):
+        full = np.empty(shape, np.uint8)
+        full.fill(0)
+    with span("ctseg.scan.store"):
+        if box is None:
+            to_host(labels, out=torch.from_numpy(full))
+            return full
+        boxed = to_host(labels, out=buffers.take(
+            "labels", labels.shape, torch.uint8)).numpy()
+    with span("ctseg.scan.paste"):
+        full[box.z[0] : box.z[1], box.x[0] : box.x[1],
+             box.y[0] : box.y[1]] = boxed
+    return full
+
+
 def predict_labels_2d(
     model: torch.nn.Module,
     transform: TransformFn,
@@ -89,21 +174,8 @@ def predict_labels_2d(
     then `slice_labels` runs per batch. The last batch is simply shorter
     (eager PyTorch keeps no per-shape program cache).
     """
-    d, h, w = volume.shape
-    with span("ctseg.scan.crop"):
-        out = np.zeros((d, h, w), np.uint8)
-    with torch.inference_mode():
-        for lo in range(0, d, batch_size):
-            with span("ctseg.scan.cast"):
-                chunk = np.asarray(volume[lo : lo + batch_size], np.float32)
-            with span("ctseg.scan.h2d"):
-                slices = torch.from_numpy(chunk).to(device)
-            with span("ctseg.scan.forward"):
-                labels = slice_labels(model, transform, slices, dtype)
-            # The host copy lives only for the store, as it always has.
-            with span("ctseg.scan.store"):
-                out[lo : lo + batch_size] = to_host(labels).numpy()
-    return out
+    return _labels_2d(model, transform, volume, device, batch_size, dtype,
+                      ScanBuffers(device), volume.shape, None)
 
 
 def predict_labels_3d(
@@ -138,26 +210,29 @@ def predict_scan(
     batch_size: int = 32,
     patch_size: Tuple[int, int, int] = (128, 128, 48),
     overlap: float = 0.5,
+    buffers: Optional[ScanBuffers] = None,
 ) -> np.ndarray:
-    """Segment one scan -> (D, H, W) uint8 label map at native resolution.
-    `batch_size` counts a 2D model's slices; a 3D model takes windows of
-    `patch_size` with `overlap`, 4 at a time."""
+    """Segment one scan -> (D, H, W) uint8 label map at native resolution,
+    a fresh array each call. `batch_size` counts a 2D model's slices; a 3D
+    model takes windows of `patch_size` with `overlap`, 4 at a time.
+    `buffers` (a caller's, kept between scans) stage a 2D scan; without
+    them the call makes its own."""
     data = volume.as_numpy()[0]  # (D, H, W)
     with span("ctseg.scan", {"depth": data.shape[0]}):
         with span("ctseg.scan.crop"):
             box = CropBox.anatomical(data.shape[0]) if crop else None
             region = box.apply(data[None])[0] if box else data
 
-        if config.spatial_dims == 3:
-            labels = predict_labels_3d(model, config, region, device,
-                                       patch_size=patch_size, overlap=overlap)
-        else:
+        if config.spatial_dims != 3:
             transform = get_transform(
                 config.transform_degree, train=False,
                 size=(config.input_size,) * 2
             )
-            labels = predict_labels_2d(model, transform, region, device,
-                                       batch_size, dtype=model_dtype(config))
+            return _labels_2d(model, transform, region, device, batch_size,
+                              model_dtype(config),
+                              buffers or ScanBuffers(device), data.shape, box)
+        labels = predict_labels_3d(model, config, region, device,
+                                   patch_size=patch_size, overlap=overlap)
         if box is None:
             return labels
         with span("ctseg.scan.paste"):

@@ -38,7 +38,11 @@ import numpy as np
 import torch
 
 from ctseg_tpu_torch.constants import NUM_CLASSES, STRUCTURES
-from ctseg_tpu_torch.inference.predict import predict_scan, write_artifacts
+from ctseg_tpu_torch.inference.predict import (
+    ScanBuffers,
+    predict_scan,
+    write_artifacts,
+)
 from ctseg_tpu_torch.models.released import (
     add_released_args,
     resolve_checkpoint_arg,
@@ -63,6 +67,9 @@ class SegmentationService:
         self.checkpoint = str(checkpoint)
         self.crop = crop
         self._lock = threading.Lock()  # serializes device work
+        # The 2D scan path's staging buffers, kept from request to request:
+        # used only under _lock, so one scan at a time.
+        self._buffers = ScanBuffers(self.device)
         # Counters get their own lock: healthz must not wait behind an
         # in-flight segmentation.
         self._stats_lock = threading.Lock()
@@ -92,6 +99,7 @@ class SegmentationService:
                 self.model, self.config, volume, self.device,
                 crop=self.crop if crop is None else crop,
                 patch_size=self.patch_size, overlap=self.overlap,
+                buffers=self._buffers,
             )
             with self._stats_lock:
                 self.served += 1

@@ -5,8 +5,9 @@
     chrome://tracing or ui.perfetto.dev) into `log_dir`;
   - `span(name, args)`: the port's own named range in that trace (every
     name starts with `ctseg.`), recorded only while a profiler records;
-  - `to_host(t)`: `t.cpu()` inside the span `ctseg.sync`, the one place
-    where the port means to wait for the device;
+  - `to_host(t, out)`: `t.cpu()` (or a copy into `out`) inside the span
+    `ctseg.sync`, the one place where the port means to wait for the
+    device;
   - `debug_mode()`: autograd anomaly detection (NaN in a backward raises,
     with the forward's traceback) plus a check that every module's forward
     output is finite.
@@ -56,10 +57,12 @@ def span(name: str, args: Optional[Dict] = None):
     return torch._C._profiler._RecordFunctionFast(name, (), args or {})
 
 
-def to_host(t: torch.Tensor) -> torch.Tensor:
-    """`t` copied to the host: a wait for the device, named `ctseg.sync`."""
+def to_host(t: torch.Tensor,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`t` copied to the host (into `out`, a host tensor of its shape, when
+    given): a wait for the device, named `ctseg.sync`."""
     with span("ctseg.sync"):
-        return t.cpu()
+        return t.cpu() if out is None else out.copy_(t)
 
 
 class NonFiniteError(FloatingPointError):

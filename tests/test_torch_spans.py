@@ -3,10 +3,10 @@
   - A 2D train step, plain and under mixup, records `ctseg.step` with the
     step's number and its phases inside it, in the order the step runs
     them, and no `ctseg.sync`: a step never waits for the device.
-  - A scan records `ctseg.scan` with its depth, and a batch of slices one
-    `ctseg.scan.cast`, `.h2d`, `.forward` and `.store` (the wait
-    `ctseg.sync` inside it), inside the scan; with the crop, one
-    `ctseg.scan.paste`.
+  - A scan records `ctseg.scan` with its depth, a batch of slices one
+    `ctseg.scan.cast`, `.h2d` and `.forward`, in that order, inside the
+    scan; after every batch one `.store` holding the scan's only wait
+    `ctseg.sync`; with the crop, one `ctseg.scan.paste`.
   - The 3D patch gather records `ctseg.patch.gather`.
 """
 
@@ -76,6 +76,8 @@ def test_a_train_step_records_its_phases_in_order(tmp_path, mixup):
 
 @pytest.mark.parametrize("crop", [False, True])
 def test_a_scan_records_one_forward_and_one_sync_a_batch(tmp_path, crop):
+    """One forward a batch, and one sync a scan: every batch is launched
+    before the scan's single wait (the name is older than the pipeline)."""
     cfg = TrainConfig(filters=FILTERS, num_res_units=2, transform_degree=1,
                       input_size=SIZE, batch_size=4)
     model = build_model(cfg, "cpu",
@@ -93,18 +95,18 @@ def test_a_scan_records_one_forward_and_one_sync_a_batch(tmp_path, crop):
     assert inside(scans[0], got) == got[1:]
     names = [s[0] for s in got]
     batches = -(-(8 if crop else depth) // 3)  # the box keeps 8 of 12
-    for name in ("ctseg.scan.cast", "ctseg.scan.h2d", "ctseg.scan.forward",
-                 "ctseg.sync", "ctseg.scan.store"):
-        assert names.count(name) == batches, name
-    assert names.count("ctseg.scan.crop") == 2
-    assert names.count("ctseg.scan.paste") == int(crop)
-    per_batch = [n for n in names if n not in (
-        "ctseg.scan", "ctseg.scan.crop", "ctseg.scan.paste")]
-    assert per_batch == ["ctseg.scan.cast", "ctseg.scan.h2d",
-                         "ctseg.scan.forward", "ctseg.scan.store",
-                         "ctseg.sync"] * batches
-    for store in (s for s in got if s[0] == "ctseg.scan.store"):
-        assert [s[0] for s in inside(store, got)] == ["ctseg.sync"]
+    # the box; every batch launched; the output map; one wait; the paste
+    assert names[1:] == (
+        ["ctseg.scan.crop"]
+        + ["ctseg.scan.cast", "ctseg.scan.h2d", "ctseg.scan.forward"]
+        * batches
+        + ["ctseg.scan.crop", "ctseg.scan.store", "ctseg.sync"]
+        + ["ctseg.scan.paste"] * crop)
+    store = next(s for s in got if s[0] == "ctseg.scan.store")
+    assert [s[0] for s in inside(store, got)] == ["ctseg.sync"]
+    # the parts follow one another: none holds another but the store
+    parts = [s for s in got[1:] if s[0] != "ctseg.sync"]
+    assert all(a[2] <= b[1] for a, b in zip(parts, parts[1:]))
 
 
 def test_the_patch_gather_records_its_span(tmp_path):
